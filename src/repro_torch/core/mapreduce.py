@@ -1,0 +1,420 @@
+"""The split-driven MapReduce executor over the HAIL block store.
+
+``run_job`` is the Hadoop-pipeline analogue: one record-reader call per
+split (HailSplitting batches many blocks per split), with per-task
+overheads accounted explicitly (a configurable simulated scheduler
+constant, the paper's multi-second Hadoop overhead).  Execution is ASYNC:
+every split's read is enqueued on the device up front, each followed by a
+CUDA event, and one completion pass waits on the events in order — split
+execution pipelines instead of serialising, with per-split timing preserved
+via dispatch/completion timestamps (``JobStats.split_s``).
+``reader="kernels"`` routes PAX splits through the fused one-launch
+``read_hail_kernels``.  Node-failure injection re-schedules a failed node's
+splits onto surviving replicas, falling back to full scan when the lost
+replica held the only matching index (paper Fig 8).
+
+``adaptive=AdaptiveConfig(...)`` enables LAZY ADAPTIVE INDEXING ("Towards
+Zero-Overhead Adaptive Indexing in Hadoop"): full-scan splits additionally
+sort + index an offered fraction of their still-unindexed blocks — the
+bitonic ``kernels/block_sort`` kernel does the sort, the clustered root
+directory comes from ``core/index`` — and commit the result back into the
+``BlockStore`` mid-job, so repeated jobs over the same store converge from
+all-full-scan to all-index-scan with no eager upload cost.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import checksum as ck
+from repro_torch.core import governor as gvn
+from repro_torch.core import index as idx
+from repro_torch.core import query as q
+from repro_torch.core.fault import (CorruptBlockError, RecoveryConfig,
+                                    UnrecoverableDataError)
+from repro_torch.core.splitting import Split, hadoop_splits, hail_splits
+from repro_torch.core.store import BlockStore
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
+
+@dataclasses.dataclass
+class JobStats:
+    n_tasks: int
+    map_compute_s: float       # dispatch-to-last-completion wall (pipelined)
+    overhead_s: float          # simulated scheduling
+    bytes_read: int
+    end_to_end_s: float        # compute + overhead (simulated cluster walltime)
+    record_reader_s: float
+    results: dict
+    rescheduled_tasks: int = 0
+    split_s: list = dataclasses.field(default_factory=list)
+    # ^ per split: completion timestamp - its dispatch timestamp (includes
+    #   queue wait behind earlier splits)
+    blocks_indexed: int = 0    # adaptive: indexes committed by THIS job
+    index_build_s: float = 0.0 # measured wall spent building/committing them
+    build_s: list = dataclasses.field(default_factory=list)
+    # ^ per executed split, aligned with split_s: index-build wall piggy-
+    #   backed on that split (0.0 for splits that offered nothing)
+    full_scan_blocks: int = 0  # blocks this job read WITHOUT an index
+    modeled_s: float = 0.0     # deterministic latency: scheduling + disk
+    blocks_demoted: int = 0    # governor demotions (none without a governor)
+    rekey_s: float = 0.0       # measured wall spent demoting
+    demote_s: list = dataclasses.field(default_factory=list)
+    # ^ per executed split, aligned with split_s: demotion wall
+    blocks_quarantined: int = 0  # corrupt (replica, block)s this job found
+    corrupt_retries: int = 0     # splits re-planned after CorruptBlockError
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveConfig:
+    """Lazy adaptive indexing (LIAH) knobs.
+
+    ``offer_rate``: fraction of the store's blocks offered for in-job index
+    building — the per-job build budget is ``ceil(offer_rate * n_blocks)``
+    (so an unindexed store converges in ~``ceil(1/offer_rate)`` jobs), spent
+    by full-scan splits in dispatch order.  ``max_build_per_job`` caps the
+    budget to bound the per-job latency tax of building.
+    """
+    offer_rate: float = 0.25
+    max_build_per_job: int = 64
+
+
+def _build_block_indexes(store: BlockStore, replica_id: int, block_ids,
+                         key: str, *, partition_size: int) -> int:
+    """Sort + index + commit ``block_ids`` of one replica by ``key``, as one
+    batched sort per call (the ``kernels/block_sort`` bitonic kernel when
+    rows is a power of two).  Bad records are forced to the tail with the
+    INT32_MAX sentinel, exactly like the eager upload sort."""
+    from repro_torch.kernels import ops
+
+    rep = store.replicas[replica_id]
+    bsel = np.asarray(block_ids)
+    sel = torch.as_tensor(bsel.astype(np.int64), device=store.device)
+    if store.verify_reads and len(bsel):
+        # verify BEFORE building: sorting corrupt bytes and committing them
+        # would recompute valid checksums over garbage, laundering the
+        # corruption.  Failing blocks are quarantined and dropped.
+        names = sorted(rep.cols)
+        data = torch.stack([rep.cols[c][sel] for c in names])
+        sums = torch.stack([rep.checksums[c][sel] for c in names])
+        okm = ops.verify_blocks(data, sums).all(dim=0).cpu().numpy()
+        for b in bsel[~okm]:
+            store.quarantine_block(replica_id, int(b))
+        bsel = bsel[okm]
+        if len(bsel) == 0:
+            return 0
+        sel = torch.as_tensor(bsel.astype(np.int64), device=store.device)
+    bad = q._bad_mask(store, replica_id)[sel]     # pre-commit (upload order)
+    sent = torch.where(bad, idx.INT32_MAX, rep.cols[key][sel])
+    cols = {c: v[sel] for c, v in rep.cols.items()}
+    _, sorted_cols, _ = ops.sort_block(sent, cols)
+    mins = idx.build_block_roots(sorted_cols[key], partition_size)
+    sums = {c: ck.batched_chunk_checksums(v) for c, v in sorted_cols.items()}
+    return store.commit_block_indexes(replica_id, bsel, key, sorted_cols,
+                                      mins, sums)
+
+
+def adaptive_quantum(store: BlockStore, adaptive: AdaptiveConfig) -> int:
+    """Per-job build budget: offer_rate of the store's blocks (not of the
+    shrinking remainder), so an unindexed store converges in
+    ceil(1/offer_rate) jobs."""
+    return min(adaptive.max_build_per_job,
+               int(np.ceil(adaptive.offer_rate * store.n_blocks)))
+
+
+def claim_adaptive_replica(store: BlockStore, adapt_col: str,
+                           quantum: int) -> tuple[Optional[int], int, float]:
+    """Pick the replica to (keep) converging toward ``adapt_col``: one
+    already keyed on it, else the first unclaimed one.  Without a governor
+    nothing is demoted to make room, so when every replica is claimed by
+    other keys there is none (``quantum`` matters only to the governor).
+
+    Returns (replica_id or None, blocks demoted, demotion wall seconds).
+    """
+    return store.adaptive_replica_for(adapt_col), 0, 0.0
+
+
+def piggyback_build(store: BlockStore, sp: Split, adapt_rid: int,
+                    adapt_col: str, build_budget: int
+                    ) -> tuple[int, int, float, float]:
+    """Adaptive piggyback for ONE full-scan split: this split already read
+    its blocks — sort + index an offered few of the still-unindexed ones
+    and commit them for the NEXT job (the split's own read was dispatched
+    pre-commit, on inputs the commit cannot touch).
+
+    Returns (built, demoted, build wall seconds, demotion wall seconds).
+    """
+    if build_budget <= 0 or sp.index_scan:
+        return 0, 0, 0.0, 0.0
+    rep = store.replicas[adapt_rid]
+    dead = store.namenode.dead
+    offer = [b for b in sp.block_ids
+             if not rep.indexed[b]
+             and int(rep.nodes[b]) not in dead
+             and not store.is_quarantined(adapt_rid, b)][:build_budget]
+    built, b_wall = 0, 0.0
+    if offer:
+        t_b = time.perf_counter()
+        built = _build_block_indexes(store, adapt_rid, offer, adapt_col,
+                                     partition_size=store.partition_size)
+        b_wall = time.perf_counter() - t_b
+        obs_trace.complete_wall("adaptive_build", t_b, b_wall,
+                                track="adaptive",
+                                args={"replica": adapt_rid,
+                                      "column": adapt_col, "blocks": built})
+    return built, 0, b_wall, 0.0
+
+
+def failover_replan(store: BlockStore, query: q.HailQuery,
+                    pending: list, i: int):
+    """Node-death re-plan: kill the node serving ``pending[i]``, re-plan the
+    NOT-yet-executed splits it owned onto surviving replicas as per-block
+    retry splits (falling back to full scan when the lost replica held the
+    only matching index), and splice them after the surviving pending
+    splits.  Splits dispatched before the failure already ran — their
+    results stand, exactly as completed map tasks do in Hadoop.
+
+    Returns (new_pending, new_qplan, failed_node, n_retries).
+    """
+    failed_node = pending[i].node
+    store.namenode.kill_node(failed_node)
+    qplan = q.plan(store, query)
+    survivors = [s for s in pending[i:] if s.node != failed_node]
+    lost = [b for s in pending[i:] if s.node == failed_node
+            for b in s.block_ids]
+    retries = [Split(node=int(qplan.nodes[b]), block_ids=(b,),
+                     index_scan=bool(qplan.index_scan[b])) for b in lost]
+    return (pending[:i] + survivors + retries, qplan, failed_node,
+            len(retries))
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterModel:
+    """Simulated-cluster constants."""
+    sched_overhead_s: float = 3.0      # Hadoop per-task scheduling (paper §6.4)
+    hail_sched_overhead_s: float = 3.0 # same scheduler; fewer tasks is the win
+    disk_bw: float = 100e6             # B/s (paper's 100MB/s disk)
+    n_nodes: int = 10
+    map_slots: int = 4
+
+
+def _completion_event(device: torch.device):
+    """A CUDA event recorded after everything enqueued so far (None on the
+    CPU, where every operation has finished when it returns)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def run_job(store: BlockStore, query: q.HailQuery, *,
+            splitting: str = "hail", cluster: ClusterModel = ClusterModel(),
+            reduce_fn: Optional[Callable] = None,
+            fail_node_at: Optional[float] = None,
+            reader: str = "jnp",
+            adaptive: Optional[AdaptiveConfig] = None,
+            recovery: RecoveryConfig = RecoveryConfig(),
+            on_split_complete: Optional[Callable] = None) -> JobStats:
+    """Execute filter/project (+optional reduce) over all blocks, on the
+    device the store's tensors live on.
+
+    reader: 'jnp' (the batched plain-tensor record reader; the name is the
+    JAX package's) or 'kernels' (the fused split reader — one kernel launch
+    per split).
+
+    adaptive: when set (and the job filters a PAX store), full-scan splits
+    piggyback clustered-index builds for an offered fraction of their
+    unindexed blocks and commit them back into the store — this job's reads
+    keep their dispatch-time plan; the NEXT job plans against the richer
+    store.  Re-queued failover splits full-scan and are offered too.
+
+    recovery: corruption/failover retry policy.  A split whose read-path
+    verification raises ``CorruptBlockError`` quarantines the corrupt
+    (replica, block) at the namenode and re-plans the split's blocks onto
+    surviving replicas as per-block retry splits.  Retries are BOUNDED per
+    block (``recovery.max_retries``); exhausting it, or losing every replica
+    of a block, raises ``UnrecoverableDataError`` — never silent wrong rows.
+
+    on_split_complete: streaming hook — called once per executed split, in
+    completion order, as each result's barrier clears, with
+    ``(split_index, read_result, split_wall_s)``.
+    """
+    gvn.note_job_start(store)
+    with obs_trace.span("job_plan", track="job"):
+        qplan = q.plan(store, query)
+    if store.layout != "pax":
+        splits = hadoop_splits(store, qplan)
+    elif splitting == "hail":
+        splits = hail_splits(store, qplan, cluster.map_slots)
+    else:
+        splits = hadoop_splits(store, qplan)
+
+    fail_after = (int(len(splits) * fail_node_at)
+                  if fail_node_at is not None else None)
+    failed_node = None
+    rescheduled = 0
+
+    # --- adaptive offer budget: ceil(offer_rate * n_blocks), capped --------
+    adapt_rid, adapt_col, build_budget = None, None, 0
+    blocks_demoted = 0
+    demote_pending_s = 0.0    # job-start demotion wall, charged to split 0
+    if (adaptive is not None and store.layout == "pax"
+            and query.filter is not None):
+        adapt_col = query.filter_col
+        quantum = adaptive_quantum(store, adaptive)
+        adapt_rid, claim_demoted, claim_wall = claim_adaptive_replica(
+            store, adapt_col, quantum)
+        blocks_demoted += claim_demoted
+        demote_pending_s += claim_wall
+        if adapt_rid is not None and len(store.unindexed_blocks(adapt_rid)):
+            build_budget = quantum
+
+    def read_split(sp: Split):
+        if store.layout != "pax":
+            return q.read_hadoop(store, query, list(sp.block_ids))
+        if reader == "kernels" and query.filter is not None:
+            return q.read_hail_kernels(store, query, qplan,
+                                       list(sp.block_ids))
+        return q.read_hail(store, query, qplan, list(sp.block_ids))
+
+    # --- dispatch phase: enqueue every split's read without waiting --------
+    dispatched: list[tuple] = []   # (ReadResult, completion event, stamp)
+    build_s: list[float] = []      # per split, aligned with dispatched
+    demote_s: list[float] = []     # per split, aligned with dispatched
+    blocks_indexed = 0
+    full_scan_blocks = 0
+    blocks_quarantined = 0
+    corrupt_retries = 0
+    retry_count: collections.Counter = collections.Counter()
+
+    def note_retries(block_ids):
+        """Charge one re-plan attempt to each block; a block that keeps
+        failing surfaces a typed error instead of looping forever."""
+        for b in block_ids:
+            retry_count[b] += 1
+            if retry_count[b] > recovery.max_retries:
+                raise UnrecoverableDataError(
+                    f"block {b}: re-plan retry budget "
+                    f"({recovery.max_retries}) exhausted")
+
+    t_start = time.perf_counter()
+    with obs_trace.span("job_dispatch", track="job"):
+        i = 0
+        pending = list(splits)
+        while i < len(pending):
+            if (fail_after is not None and i == fail_after
+                    and failed_node is None):
+                # kill the node that would serve the next split and re-plan
+                pending, qplan, failed_node, rescheduled = failover_replan(
+                    store, query, pending, i)
+                if rescheduled:
+                    note_retries(b for s in pending[-rescheduled:]
+                                 for b in s.block_ids)
+                if i >= len(pending):
+                    break
+            sp = pending[i]
+            i += 1
+            try:
+                res = read_split(sp)
+            except CorruptBlockError as e:
+                # detection -> recovery: quarantine the corrupt copy,
+                # re-plan against the now-smaller replica set, and re-queue
+                # this split's blocks as per-block retry splits
+                store.quarantine_block(e.replica_id, e.block_id)
+                blocks_quarantined += 1
+                corrupt_retries += 1
+                obs_trace.instant("corrupt_retry", track="job",
+                                  args={"replica": e.replica_id,
+                                        "block": e.block_id})
+                note_retries(sp.block_ids)
+                qplan = q.plan(store, query)
+                pending.extend(
+                    Split(node=int(qplan.nodes[b]), block_ids=(b,),
+                          index_scan=bool(qplan.index_scan[b]))
+                    for b in sp.block_ids)
+                continue
+            dispatched.append((res, _completion_event(store.device),
+                               time.perf_counter()))
+            if not sp.index_scan:
+                full_scan_blocks += len(sp.block_ids)
+            # --- adaptive piggyback: this full-scan split already read these
+            # blocks — sort + index an offered few and commit them for the
+            # NEXT job (this split's own read was dispatched pre-commit) ------
+            d_wall, demote_pending_s = demote_pending_s, 0.0
+            b_wall = 0.0
+            if build_budget > 0:
+                built, demoted, b_wall, dd_wall = piggyback_build(
+                    store, sp, adapt_rid, adapt_col, build_budget)
+                build_budget -= built
+                blocks_indexed += built
+                blocks_demoted += demoted
+                d_wall += dd_wall
+            build_s.append(b_wall)
+            demote_s.append(d_wall)
+
+    # --- completion phase: one pass of barriers over the queued results ---
+    with obs_trace.span("job_complete", track="job"):
+        bytes_read = 0
+        masks, cols, split_s = [], [], []
+        for k, (res, ev, t_disp) in enumerate(dispatched):
+            if ev is not None:
+                ev.synchronize()
+            split_s.append(time.perf_counter() - t_disp)
+            obs_trace.complete_wall("split", t_disp, split_s[-1], track="job",
+                                    args={"split": k})
+            bytes_read += int(res.bytes_read)   # lazy scalar, post-barrier
+            masks.append(res.mask.cpu().numpy())
+            cols.append({c: v.cpu().numpy() for c, v in res.cols.items()})
+            if on_split_complete is not None:
+                on_split_complete(k, res, split_s[-1])
+    compute_s = time.perf_counter() - t_start
+
+    n_tasks = len(pending)
+    overhead = n_tasks * (cluster.hail_sched_overhead_s
+                          if splitting == "hail" and store.layout == "pax"
+                          else cluster.sched_overhead_s)
+    if failed_node is not None:
+        store.namenode.revive(failed_node)
+
+    mask = np.concatenate(masks, axis=0)
+    out = {c: np.concatenate([d[c] for d in cols], axis=0)
+           for c in cols[0]} if cols else {}
+    results = {"n_rows": int(mask.sum()),
+               "sample": {c: v.reshape(-1)[mask.reshape(-1)][:8]
+                          for c, v in out.items()}}
+    if reduce_fn is not None:
+        results["reduce"] = reduce_fn(out, mask)
+
+    # simulated end-to-end: scheduling overhead amortized over the cluster's
+    # parallel task slots, measured map compute spread over the nodes, and
+    # modeled disk time for the bytes actually read (index scans read less).
+    disk_s = bytes_read / (cluster.disk_bw * cluster.n_nodes)
+    e2e = (overhead / (cluster.n_nodes * cluster.map_slots)
+           + compute_s / cluster.n_nodes + disk_s)
+    modeled = overhead / (cluster.n_nodes * cluster.map_slots) + disk_s
+    stats = JobStats(n_tasks=n_tasks, map_compute_s=compute_s,
+                     overhead_s=overhead, bytes_read=bytes_read,
+                     end_to_end_s=e2e,
+                     record_reader_s=compute_s / cluster.n_nodes + disk_s,
+                     results=results, rescheduled_tasks=rescheduled,
+                     split_s=split_s, blocks_indexed=blocks_indexed,
+                     index_build_s=sum(build_s), build_s=build_s,
+                     full_scan_blocks=full_scan_blocks, modeled_s=modeled,
+                     blocks_demoted=blocks_demoted, rekey_s=sum(demote_s),
+                     demote_s=demote_s,
+                     blocks_quarantined=blocks_quarantined,
+                     corrupt_retries=corrupt_retries)
+    obs_trace.complete_wall("job", t_start, compute_s, track="job",
+                            args={"tasks": n_tasks,
+                                  "bytes_read": bytes_read,
+                                  "blocks_indexed": blocks_indexed,
+                                  "rescheduled": rescheduled})
+    obs_metrics.observe_job(stats)
+    return stats

@@ -1,0 +1,183 @@
+"""Counting wrappers around the kernels the record readers and the adaptive
+build call.
+
+Routing follows the tensor: a CPU tensor takes the kernel's plain PyTorch
+version, a CUDA tensor launches the hand-written kernel or raises — there
+is no fallback.  ``use_kernels(False)`` is an explicit request for the plain
+versions on any device.
+
+Counters (the contract of the JAX package's ``kernels/ops.py``):
+
+* ``DISPATCH_COUNTS`` — one per wrapper call, whichever route it takes
+  (``hail_read`` once per split, plus scan-mode and verification counts);
+* ``TRACE_COUNTS`` — kernel variants built or selected for the first time
+  in this process (the counterpart of a jit retrace).  The reader has one
+  variant, since query ranges and batch width are runtime values, so new
+  ranges never add to it;
+* ``KERNEL_LAUNCHES`` — per kernel, the calls that really launched CUDA
+  work (``_build.check`` counts them; the plain versions never do).
+
+``reader_stats()`` / ``reset_stats()`` expose the first two;
+``stats_scope()`` isolates them for one block of code.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import numpy as np
+import torch
+
+from repro_torch.core import checksum as _ck
+from repro_torch.kernels import _build, block_sort, hail_reader, ref
+from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
+from repro_torch.obs import trace as _obs_trace
+
+_USE_KERNELS = True
+
+DISPATCH_COUNTS: collections.Counter = collections.Counter()
+TRACE_COUNTS: collections.Counter = collections.Counter()
+
+
+def use_kernels(on: bool):
+    global _USE_KERNELS
+    _USE_KERNELS = on
+
+
+def reset_stats():
+    DISPATCH_COUNTS.clear()
+    TRACE_COUNTS.clear()
+
+
+def reader_stats() -> dict:
+    return {"dispatches": dict(DISPATCH_COUNTS),
+            "traces": dict(TRACE_COUNTS)}
+
+
+class StatsScope:
+    """Handle yielded by ``stats_scope`` — holds the scope's counters so
+    assertions can also run after the ``with`` block exits."""
+
+    def __init__(self, dispatches: collections.Counter,
+                 traces: collections.Counter):
+        self.dispatches = dispatches
+        self.traces = traces
+
+
+@contextlib.contextmanager
+def stats_scope(merge: bool = True):
+    """Isolated dispatch/trace counters for one test or measurement block.
+
+    Swaps FRESH counters into the module globals on entry and restores the
+    previous ones on exit (merging the scope's counts back in unless
+    ``merge=False``), so dispatch-count assertions see only the calls made
+    inside the scope.
+
+        with ops.stats_scope() as s:
+            q.read_hail_kernels(store, query, qp)
+        assert s.dispatches["hail_read"] == 1
+    """
+    global DISPATCH_COUNTS, TRACE_COUNTS
+    prev_d, prev_t = DISPATCH_COUNTS, TRACE_COUNTS
+    DISPATCH_COUNTS = collections.Counter()
+    TRACE_COUNTS = collections.Counter()
+    scope = StatsScope(DISPATCH_COUNTS, TRACE_COUNTS)
+    try:
+        yield scope
+    finally:
+        if merge:
+            prev_d.update(scope.dispatches)
+            prev_t.update(scope.traces)
+        DISPATCH_COUNTS, TRACE_COUNTS = prev_d, prev_t
+
+
+def sort_block(keys: torch.Tensor, cols: dict[str, torch.Tensor]):
+    """Sort blocks by key, permuting all PAX columns.
+    keys (blocks, n) -> (sorted_keys, permuted cols, int32 perm).  Rows that
+    are not a power of two take the plain stable sort (a shape rule)."""
+    n = keys.shape[-1]
+    if _USE_KERNELS and n & (n - 1) == 0:
+        sorted_keys, perm = block_sort.bitonic_sort(keys)
+    else:
+        sorted_keys, perm = ref.sort_by_key(keys)
+    idx = perm.long()
+    out = {c: torch.gather(v, 1, idx) for c, v in cols.items()}
+    return sorted_keys, out, perm
+
+
+def verify_blocks(data: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+    """Batched chunk-checksum verify: data (C, B, rows) int32 columns
+    stacked, sums (C, B, chunks) -> bool (C, B).  ``verify_block_cols``
+    counts the (col, block) pairs proven."""
+    DISPATCH_COUNTS["verify_blocks"] += 1
+    DISPATCH_COUNTS["verify_block_cols"] += int(data.shape[0] * data.shape[1])
+    _obs_trace.instant("verify_blocks", track="kernels", cat="dispatch",
+                       args={"cols": int(data.shape[0]),
+                             "blocks": int(data.shape[1])})
+    return _ck.verify_blocks(data, sums)
+
+
+def verify_root(mins, keys, *, partition_size: int) -> torch.Tensor:
+    """Root-directory consistency check (mins vs sorted key column)."""
+    DISPATCH_COUNTS["verify_root"] += 1
+    return _ck.verify_root(mins, keys, partition_size)
+
+
+def _host_flags(use_index) -> np.ndarray:
+    if torch.is_tensor(use_index):
+        return use_index.cpu().numpy()
+    return np.asarray(use_index)
+
+
+def _read(name: str, mins, keys, proj, bad, u: np.ndarray,
+          lohi: np.ndarray, partition_size: int):
+    uidx = torch.as_tensor(u.astype(np.int32), device=keys.device)
+    lohi_t = torch.as_tensor(lohi, device=keys.device)
+    if not _USE_KERNELS:
+        return ref.hail_read_batch(mins, keys, proj, bad, uidx, lohi_t,
+                                   partition_size=partition_size)
+    if keys.is_cuda:
+        TRACE_COUNTS[name] += _build.note_variant("hail_read", None)
+    return hail_reader.hail_read_batch(mins, keys, proj, bad, uidx, lohi_t,
+                                       partition_size=partition_size)
+
+
+def hail_read(mins, keys, proj, bad, use_index, lo, hi, *,
+              partition_size: int):
+    """Fused split reader: ONE dispatch per call (== per split).
+
+    ``use_index`` should be a HOST (numpy) array: the per-block scan-mode
+    counters read it before it ships to the device."""
+    DISPATCH_COUNTS["hail_read"] += 1
+    u = _host_flags(use_index)
+    n_idx = int(u.astype(bool).sum())
+    DISPATCH_COUNTS["index_scan_blocks"] += n_idx
+    DISPATCH_COUNTS["full_scan_blocks"] += u.shape[0] - n_idx
+    _obs_trace.instant("hail_read", track="kernels", cat="dispatch",
+                       args={"index_blocks": n_idx,
+                             "full_blocks": int(u.shape[0]) - n_idx})
+    lohi = np.asarray([[lo, hi]], np.int32)
+    mask, out, frac = _read("hail_read", mins, keys, proj, bad, u, lohi,
+                            partition_size)
+    return mask[..., 0], out, frac[:, 0]
+
+
+def hail_read_batch(mins, keys, proj, bad, use_index, lohi, *,
+                    partition_size: int):
+    """Fused shared-scan reader: ONE dispatch per (split, query-batch).
+
+    The scan-mode counters charge each of the Q queries with the blocks it
+    logically scanned — serially-equivalent accounting."""
+    DISPATCH_COUNTS["hail_read"] += 1
+    DISPATCH_COUNTS["hail_read_batch"] += 1
+    lohi = np.asarray(lohi, np.int32).reshape(-1, 2)
+    n_q = lohi.shape[0]
+    u = _host_flags(use_index)
+    n_idx = int(u.astype(bool).sum())
+    DISPATCH_COUNTS["index_scan_blocks"] += n_q * n_idx
+    DISPATCH_COUNTS["full_scan_blocks"] += n_q * (u.shape[0] - n_idx)
+    _obs_trace.instant("hail_read_batch", track="kernels", cat="dispatch",
+                       args={"queries": n_q, "index_blocks": n_idx,
+                             "full_blocks": int(u.shape[0]) - n_idx})
+    return _read("hail_read_batch", mins, keys, proj, bad, u, lohi,
+                 partition_size)
