@@ -1,26 +1,40 @@
-"""HAIL's main path on one NVIDIA H100, through the PyTorch port.
+"""HAIL's main path and LM serving on one NVIDIA H100, through the
+PyTorch port.
 
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
-port's main path at the paper's widths — UserVisits (91 B a row), 2^19-row
-blocks (47.7 MB, the power of two closest to a 64 MB HDFS block), 1,024-row
-index partitions, three replicas indexed on visitDate / sourceIP /
-adRevenue, 10 nodes with 4 map slots — cut to 64 blocks (33.5 M rows,
-3.05 GB of ASCII):
+port's two paths.  HAIL runs at the paper's widths — UserVisits (91 B a
+row), 2^19-row blocks (47.7 MB, the power of two closest to a 64 MB HDFS
+block), 1,024-row index partitions, three replicas indexed on visitDate /
+sourceIP / adRevenue, 10 nodes with 4 map slots — cut to 64 blocks (33.5 M
+rows, 3.05 GB of ASCII).  Serving runs llama3.2-1b and falcon-mamba-7b at
+full width and depth in bfloat16, with random weights from a seeded
+generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
 
-1. device   the card, its count and its power limit;
+1. device   the card, its count, its power limit and the float32 matmul
+            settings (TF32 off for matmuls and cuDNN);
 2. build    the kernels' build time;
-3. kernels  each kernel against its plain version at main-path shapes, and
-            the whole slice at the test shape on the card against the CPU;
+3. kernels  each kernel against its plain version at main-path shapes
+            (the reader and the sort at HAIL's, flash attention at the
+            llama prefill's, the scan at the falcon-mamba prefill's, plus
+            small and ragged cases), and the HAIL slice at the test shape
+            on the card against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
             the same query over a plain HDFS upload;
 5. shared   one split read for 8 queries at once against 8 single reads;
 6. adaptive a lazy upload that 6 adaptive jobs converge to fully indexed,
             then one eager, HDFS, building and converged job each again
             under the CUDA profiler: device-busy time and host spans;
-7. times    each kernel's time against its bound, its plain version's time
+7. serve    each model: prefill + decode through the serve steps, with
+            one flash-attention (llama, 16) or scan (falcon-mamba, 64)
+            launch per layer in prefill and none in decode; every layer's
+            output on the kernel route against the plain route from the
+            same input, and the logits of both routes; walls, tokens/s,
+            parameter bytes, peak memory, and one profiled prefill and
+            decode step;
+8. times    each kernel's time against its bound, its plain version's time
             and, where one exists, a library call's.
 
 Each phase prints one JSON line; every check that fails raises, so the exit
@@ -29,6 +43,7 @@ comes from a fixed seed.  Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,7 +64,33 @@ KEYS = ("visitDate", "sourceIP", "adRevenue")
 QUICK = ("visitDate", 10000, 10155)    # examples/quickstart.py's query
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT_OPS_PER_S = 67e12          # H100 SXM peak outside the tensor cores
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # dense bf16 on the tensor cores
 INT32_MAX = 2**31 - 1
+
+# LM serving: the traffic of phase 7
+SERVE = (("llama3.2-1b", "flash_attention"),
+         ("falcon-mamba-7b", "selective_scan"))
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# Kernel against plain version, max abs error: the JAX package's own
+# tolerances (tests/test_kernels.py): float32 attention 2e-5, bfloat16
+# attention 2e-2 (one bf16 step of outputs of magnitude < 4), scan 1e-4
+# relative to the output's magnitude (float32 over 512 steps).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_RTOL = 1e-4
+# Serving, kernel route against plain route.  The two routes differ only
+# in float32 summation order inside attention or the scan (~1e-7 of the
+# output's scale, phase 3), but the random-weight models amplify any
+# difference layer by layer: on the CPU, a 1e-3 relative change of every
+# scan output moves the logits of a 64-layer falcon-mamba by 11-33% of
+# their scale in bf16.  So the check is per layer, from the same input:
+# every layer's output (float32 compute, bf16 weights cast at use) on the
+# kernel route against the plain route, as a share of its largest
+# magnitude.  1e-4 is a thousand times the kernels' own difference and
+# far below the order-1 error of a faulty kernel.  The logits of the
+# whole prefill and first decode step are compared too, in bf16 and in
+# float32, and reported with the free-running divergence per layer.
+SERVE_LAYER_TOL = 1e-4
 
 
 def emit(phase: str, **fields):
@@ -83,9 +124,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -161,6 +203,53 @@ def sort_bound(keys):
     return bound_ms(b * n * 12, exchanges)
 
 
+def attn_inputs(b, t, s, h, kv, d, dtype):
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def attn_bound(q, k, v, causal, window):
+    """Each input read once and the output written once, against 4 flops
+    (QK^T and PV, a multiply and an add each) per head dim and per
+    unmasked (query, key) pair, at the tensor-core rate for bf16 inputs
+    and the CUDA-core rate for float32."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    qp = torch.arange(t)[:, None]
+    kp = torch.arange(s)[None, :]
+    m = torch.ones((t, s), dtype=torch.bool)
+    if causal:
+        m &= kp <= qp
+    if window is not None:
+        m &= kp > qp - window
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    n_ops = 4 * b * h * d * int(m.sum())
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound_ms(n_bytes, n_ops, rate)
+
+
+def scan_inputs(b, t, d, n):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    delta = torch.nn.functional.softplus(rn(b, t, d))
+    return delta, rn(b, t, d), rn(b, t, n), rn(b, t, n), -torch.exp(
+        rn(d, n) * 0.3)
+
+
+def scan_bound(delta, b):
+    """delta and x read and y written (4 B each per (b, t, d)), b and c
+    read, a read and h_final written; 7 float32 operations per (b, t, d,
+    n): delta*a, exp, *h, (delta x)*B, +, and the multiply-add into y."""
+    bs, t, d = delta.shape
+    n = b.shape[-1]
+    n_bytes = 4 * (3 * bs * t * d + 2 * bs * t * n + d * n + bs * d * n)
+    return bound_ms(n_bytes, 7 * bs * t * d * n, F32_OPS_PER_S)
+
+
 def max_abs_err(got, want) -> float:
     return max(float((g.to(torch.float64) - w.to(torch.float64)).abs().max())
                if g.numel() else 0.0 for g, w in zip(got, want))
@@ -172,7 +261,8 @@ def max_abs_err(got, want) -> float:
 
 
 def phase_kernels(rng):
-    from repro_torch.kernels import block_sort, hail_reader, ref
+    from repro_torch.kernels import (block_sort, flash_attention, hail_reader,
+                                     ref, selective_scan)
 
     reader_cases = []
     for b, rows, parts, q, mix in [(16, ROWS, 512, 1, True),
@@ -207,9 +297,47 @@ def phase_kernels(rng):
               f"bitonic_sort kernel == stable argsort at ({b}, {n})")
         sort_cases.append({"blocks": b, "n": n,
                            "max_abs_err": max_abs_err(got, want)})
-    emit("kernels", reader=reader_cases, sort=sort_cases)
-    return (max(c["max_abs_err"] for c in reader_cases),
-            max(c["max_abs_err"] for c in sort_cases))
+    flash_cases = []
+    for b, t, s, h, kv, d, causal, window, dtype in [
+            (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
+            (2, 128, 128, 4, 4, 32, False, None, torch.float32),
+            (1, 256, 256, 2, 2, 32, True, 32, torch.float32),
+            (2, 100, 100, 4, 2, 16, True, None, torch.float32),   # ragged
+            (2, 100, 77, 4, 2, 64, False, 24, torch.float32),
+            (1, 300, 300, 4, 1, 64, True, 128, torch.bfloat16)]:
+        q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
+        got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        want = ref.attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
+               f"causal={causal} window={window}"
+        check(err <= FLASH_TOL[dtype], f"flash_attention kernel == plain "
+              f"at {case}: {err} > {FLASH_TOL[dtype]}")
+        flash_cases.append({"case": case, "max_abs_err": err,
+                            "tol": FLASH_TOL[dtype]})
+    scan_cases = []
+    for b, t, d, n in [(SERVE_BATCH, SERVE_PROMPT, 8192, 16),  # falcon-mamba
+                       (2, 100, 300, 8), (1, 70, 130, 5)]:
+        inputs = scan_inputs(b, t, d, n)
+        got = selective_scan.selective_scan(*inputs)
+        want = ref.selective_scan(*inputs)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        tol = SCAN_RTOL * max(1.0, max(float(w.abs().max()) for w in want))
+        check(err <= tol, f"selective_scan kernel == plain at "
+              f"{(b, t, d, n)}: {err} > {tol}")
+        scan_cases.append({"shape": [b, t, d, n], "max_abs_err": err,
+                           "tol": tol})
+        del inputs, got, want
+    emit("kernels", reader=reader_cases, sort=sort_cases, flash=flash_cases,
+         scan=scan_cases)
+    return {name: max(c["max_abs_err"] for c in cases)
+            for name, cases in (("hail_read", reader_cases),
+                                ("bitonic_sort", sort_cases),
+                                ("flash_attention", flash_cases),
+                                ("selective_scan", scan_cases))}
 
 
 def phase_small_slice():
@@ -316,6 +444,186 @@ def rowid_collector():
     return parts, on_split
 
 
+def share(got, want) -> dict:
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return {"max_abs_err": err, "scale": scale, "share": err / scale}
+
+
+def layer_routes(cfg, params, tokens) -> dict:
+    """Prefill layer by layer in float32 compute.  Per layer: its output on
+    the kernel route and on the plain route from the same (plain-route)
+    input ("teacher_forced", the check), and the kernel route run freely
+    from the embedding against the plain route ("free_running", how far the
+    model carries a difference), each as a share of the plain output's
+    largest magnitude."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import default_positions, embed_tokens
+    from repro_torch.models.stack import apply_layer
+
+    (lc,) = cfg.stack.pattern
+    check(not cfg.stack.tail, "single-pattern stack")
+    aux = {"positions": default_positions(*tokens.shape, tokens.device)}
+
+    def layer(x, g, kernels):
+        lp = view(params["stack"]["groups"]["p0"], g)
+        ops.use_kernels(kernels)
+        try:
+            return apply_layer(lc, lp, x, mode="train", cache=None, aux=aux,
+                               eps=cfg.norm_eps)[0]
+        finally:
+            ops.use_kernels(True)
+
+    def view(tree, g):
+        return {k: view(v, g) if isinstance(v, dict) else v[g]
+                for k, v in tree.items()}
+
+    x_ref = embed_tokens(params["embed"], tokens, None, torch.float32)
+    x_free = x_ref
+    forced, free = [], []
+    with torch.no_grad():
+        for g in range(cfg.stack.n_groups):
+            out_ref = layer(x_ref, g, False)
+            forced.append(share(layer(x_ref, g, True), out_ref)["share"])
+            x_free = layer(x_free, g, True)
+            free.append(share(x_free, out_ref)["share"])
+            x_ref = out_ref
+    return {"teacher_forced": forced, "free_running": free}
+
+
+def phase_serve(arch: str, kernel: str, rng) -> dict:
+    """One model through the port's serve steps at full width and depth in
+    bfloat16: warm-up (not counted), then the main path with the launch
+    counts set to 0 — prefill of SERVE_BATCH x SERVE_PROMPT numpy tokens,
+    then SERVE_GEN - 1 greedy decode steps — then the kernel route against
+    the plain route (see SERVE_LAYER_TOL), and one profiled prefill and
+    decode step.  Returns the phase's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import init_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import model_specs
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(model_specs(cfg), gen, "cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    n_params = sum(v.numel() for v in leaves(params))
+    n_bytes = sum(v.numel() * v.element_size() for v in leaves(params))
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    prefill = make_prefill_step(cfg, max_len=SERVE_PROMPT + SERVE_GEN)
+    decode = make_decode_step(cfg)
+
+    logits, cache = prefill(params, {"tokens": tokens})           # warm-up
+    decode(params, cache, {"tokens": logits.argmax(-1), "pos": SERVE_PROMPT})
+    del logits, cache
+    torch.cuda.synchronize()
+
+    # --- the main path, counted -------------------------------------------
+    ops.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(ops.KERNEL_LAUNCHES)
+    prefill_logits, first_tok = logits, tok
+    finite = bool(torch.isfinite(logits).all())
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN - 1):
+        logits, cache = decode(params, cache,
+                               {"tokens": tok, "pos": SERVE_PROMPT + i})
+        tok = logits.argmax(-1)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = dict(ops.KERNEL_LAUNCHES)
+    finite = finite and bool(torch.isfinite(logits).all())
+    check(prefill_launches.get(kernel, 0) == cfg.n_layers,
+          f"{arch}: {kernel} launched {prefill_launches.get(kernel, 0)} "
+          f"times in prefill, want one per layer ({cfg.n_layers})")
+    check(launches == prefill_launches,
+          f"{arch}: decode launched kernels {launches} vs {prefill_launches}")
+    check(finite, f"{arch}: logits are finite")
+    check(prefill_logits.shape == (SERVE_BATCH, cfg.vocab),
+          f"{arch}: logits shape {tuple(prefill_logits.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # --- the kernel route against the plain route ------------------------
+    routes = {"layers_f32": layer_routes(cfg, params, tokens)}
+    worst = max(routes["layers_f32"]["teacher_forced"])
+    check(worst <= SERVE_LAYER_TOL,
+          f"{arch}: a layer's output, kernel route vs plain route from the "
+          f"same input, differs by {worst} of its scale > {SERVE_LAYER_TOL}")
+
+    def both_routes(pf, dc):
+        """(prefill logits, first decode logits) on the kernel and the
+        plain route."""
+        out = []
+        for kernels in (True, False):
+            ops.use_kernels(kernels)
+            try:
+                lg, c = pf(params, {"tokens": tokens})
+                dl, _ = dc(params, c, {"tokens": first_tok,
+                                       "pos": SERVE_PROMPT})
+            finally:
+                ops.use_kernels(True)
+            out.append((lg, dl))
+            del c
+        return out
+
+    ops.use_kernels(False)
+    try:
+        plain_bf16, _ = prefill(params, {"tokens": tokens})
+    finally:
+        ops.use_kernels(True)
+    routes["logits_bf16_prefill"] = share(prefill_logits, plain_bf16)
+    del plain_bf16
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    (k_pre, k_dec), (p_pre, p_dec) = both_routes(
+        make_prefill_step(cfg32, max_len=SERVE_PROMPT + SERVE_GEN),
+        make_decode_step(cfg32))
+    for name, got, want in (("logits_f32_prefill", k_pre, p_pre),
+                            ("logits_f32_decode_1", k_dec, p_dec)):
+        routes[name] = share(got, want)
+        check(bool(torch.isfinite(got).all()), f"{arch}: {name} finite")
+    del k_pre, k_dec, p_pre, p_dec
+
+    profiles = {
+        "prefill": profile_job(lambda: prefill(params, {"tokens": tokens})),
+        "decode_step": profile_job(lambda: decode(
+            params, cache, {"tokens": tok,
+                            "pos": SERVE_PROMPT + SERVE_GEN - 1}))}
+    for prof in profiles.values():
+        prof.pop("host_span_ms")
+    record = {
+        "arch": arch, "kernel": kernel, "layers": cfg.n_layers,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated":
+        SERVE_GEN, "params": n_params, "param_bytes": n_bytes,
+        "init_s": init_s, "prefill_s": prefill_s,
+        "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+        "decode_ms_per_step": decode_s / (SERVE_GEN - 1) * 1e3,
+        "decode_tok_s": SERVE_BATCH * (SERVE_GEN - 1) / decode_s,
+        "launches_prefill": prefill_launches, "launches": launches,
+        "plain_route": routes, "peak_mem_bytes": peak,
+        "tokens_head": torch.stack(generated, 1)[0, :8].tolist(),
+        "profile": profiles}
+    emit("serve", **record)
+    del params, cache, logits, prefill_logits
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -327,13 +635,19 @@ def main() -> int:
     from repro_torch.core import splitting as sp
     from repro_torch.core import upload as up
     from repro_torch.core.parse import format_rows
-    from repro_torch.kernels import _build, block_sort, hail_reader, ops, ref
+    from repro_torch.kernels import (_build, block_sort, flash_attention,
+                                     hail_reader, ops, ref, selective_scan)
 
     t_run = time.perf_counter()
+    # float32 products in full float32: the plain versions are references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
     _build.library()
@@ -341,7 +655,7 @@ def main() -> int:
          library_seconds=_build.build_seconds)
 
     rng = np.random.default_rng(SEED)
-    reader_err, sort_err = phase_kernels(rng)
+    errs = phase_kernels(rng)
     phase_small_slice()
 
     # --- 4. eager main path -------------------------------------------------
@@ -456,7 +770,10 @@ def main() -> int:
     del fresh, raw
     torch.cuda.empty_cache()
 
-    # --- 7. times at main-path shapes ---------------------------------------
+    # --- 7. serve: llama3.2-1b and falcon-mamba-7b at full width ----------
+    served = {kernel: phase_serve(arch, kernel, rng) for arch, kernel in SERVE}
+
+    # --- 8. times at main-path shapes ---------------------------------------
     ps = ROWS // 512
     timed = {}
     for name, b, q_n, mix in [("full_scan_q1", 16, 1, False),
@@ -487,16 +804,39 @@ def main() -> int:
             "library_ms": cuda_ms(lambda: torch.sort(keys, dim=-1,
                                                      stable=True), 20),
             "bound_ms": bound, "bound_by": by}
+    q, k, v = attn_inputs(SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64,
+                          torch.bfloat16)
+    bound, by = attn_bound(q, k, v, True, None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    timed["flash_llama_prefill"] = {
+        "shape": "q (4,512,32,64) k/v (4,512,8,64) bf16 causal",
+        "ms": cuda_ms(lambda: flash_attention.flash_attention(q, k, v), 20),
+        "plain_ms": cuda_ms(lambda: ref.attention(q, k, v), 3, warmup=1),
+        "library_ms": cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+        "bound_ms": bound, "bound_by": by}
+    del q, k, v, qt, kt, vt
+    inputs = scan_inputs(SERVE_BATCH, SERVE_PROMPT, 8192, 16)
+    bound, by = scan_bound(inputs[0], inputs[2])
+    timed["scan_falcon_prefill"] = {
+        "shape": "delta/x (4,512,8192) b/c (4,512,16) a (8192,16) f32",
+        "ms": cuda_ms(lambda: selective_scan.selective_scan(*inputs), 20),
+        "plain_ms": cuda_ms(lambda: ref.selective_scan(*inputs), 3,
+                            warmup=1),
+        "library_ms": None, "bound_ms": bound, "bound_by": by}
+    del inputs
     emit("times", cases=timed)
 
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
+    flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
     kernels = [
         {"name": "hail_read", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hail_reader.cu",
          "replaces": "src/repro/kernels/hail_reader.py:48",
          "launches": eager_launches.get("hail_read", 0)
          + adaptive_launches.get("hail_read", 0),
-         "max_abs_err": reader_err, "ms": reader["ms"],
+         "max_abs_err": errs["hail_read"], "ms": reader["ms"],
          "plain_ms": reader["plain_ms"], "bound_ms": reader["bound_ms"],
          "bound_by": reader["bound_by"], "library_ms": None,
          "shape": reader["shape"]},
@@ -504,10 +844,28 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/block_sort.cu",
          "replaces": "src/repro/kernels/block_sort.py:51",
          "launches": adaptive_launches.get("bitonic_sort", 0),
-         "max_abs_err": sort_err, "ms": sort["ms"],
+         "max_abs_err": errs["bitonic_sort"], "ms": sort["ms"],
          "plain_ms": sort["plain_ms"], "bound_ms": sort["bound_ms"],
          "bound_by": sort["bound_by"], "library_ms": sort["library_ms"],
          "shape": sort["shape"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:25",
+         "launches": served["flash_attention"]["launches"].get(
+             "flash_attention", 0),
+         "max_abs_err": errs["flash_attention"], "ms": flash["ms"],
+         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+         "shape": flash["shape"]},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:28",
+         "launches": served["selective_scan"]["launches"].get(
+             "selective_scan", 0),
+         "max_abs_err": errs["selective_scan"], "ms": scan["ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+         "bound_by": scan["bound_by"], "library_ms": None,
+         "shape": scan["shape"]},
     ]
     emit("done", seconds=time.perf_counter() - t_run)
     print(smi, flush=True)

@@ -1,0 +1,89 @@
+"""Flash attention (forward): the LM prefill's attention, ONE launch per
+layer.
+
+The port of the JAX package's ``kernels/flash_attention.py``.  The CUDA
+kernel (``csrc/flash_attention.cu``) keeps the JAX layout — q (B,T,H,D),
+k/v (B,S,KV,D), no transposes outside the kernel — with one CTA per
+(batch x head, 64-row q tile) looping over kv tiles, an online float32
+softmax, causal and window masks by index and GQA by index (q head h reads
+kv head h // (H/KV)).  It takes float32 or bfloat16, any T and S, and head
+dims 16, 32 and 64.
+
+``flash_attention`` routes by device: a CPU tensor takes the plain version
+(``flash_attention_plain``, the ``ref.py`` counterpart), a CUDA tensor
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+HEAD_DIMS = (16, 32, 64)          # the kernel's compiled head dims
+
+flash_attention_plain = ref.attention
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
+
+
+def _check(q, k, v, window):
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{dev}")
+        if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise ValueError(f"flash_attention: q, k, v must all be float32 "
+                             f"or all bfloat16, got {q.dtype}/{k.dtype}/"
+                             f"{v.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-d, got "
+                             f"{t.dim()}-d")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    b, _, h, d = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or k.shape[2] < 1 or h % k.shape[2] != 0 or k.shape[1] < 1):
+        raise ValueError(f"flash_attention: inconsistent shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+
+
+def _launch(q, k, v, causal: bool, window):
+    _check(q, k, v, window)
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if b == 0 or t == 0:
+        return out
+    fn = _build.entry("flash_attention_launch", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, t, s, h, kvh, d, int(causal),
+                  -1 if window is None else int(window),
+                  int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+    _build.check("flash_attention", code)
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q (B,T,H,D), k/v (B,S,KV,D) on one device, H a multiple of KV
+    -> (B,T,H,D) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _launch(q, k, v, causal, window)

@@ -1,5 +1,5 @@
-"""Counting wrappers around the kernels the record readers and the adaptive
-build call.
+"""Counting wrappers around the kernels the record readers, the adaptive
+build and the LM layers (prefill attention, the Mamba1 scan) call.
 
 Routing follows the tensor: a CPU tensor takes the kernel's plain PyTorch
 version, a CUDA tensor launches the hand-written kernel or raises — there
@@ -9,7 +9,8 @@ versions on any device.
 Counters (the contract of the JAX package's ``kernels/ops.py``):
 
 * ``DISPATCH_COUNTS`` — one per wrapper call, whichever route it takes
-  (``hail_read`` once per split, plus scan-mode and verification counts);
+  (``hail_read`` once per split, plus scan-mode and verification counts;
+  ``attention`` and ``selective_scan`` once per layer and prefill);
 * ``TRACE_COUNTS`` — kernel variants built or selected for the first time
   in this process (the counterpart of a jit retrace).  The reader has one
   variant, since query ranges and batch width are runtime values, so new
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import checksum as _ck
-from repro_torch.kernels import _build, block_sort, hail_reader, ref
+from repro_torch.kernels import (_build, block_sort, flash_attention,
+                                 hail_reader, ref, selective_scan as _scan)
 from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
 from repro_torch.obs import trace as _obs_trace
 
@@ -181,3 +183,30 @@ def hail_read_batch(mins, keys, proj, bad, use_index, lohi, *,
                              "full_blocks": int(u.shape[0]) - n_idx})
     return _read("hail_read_batch", mins, keys, proj, bad, u, lohi,
                  partition_size)
+
+
+def attention(q, k, v, *, causal=True, window=None):
+    """Forward attention, q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D): the
+    flash kernel on a CUDA tensor, the plain version on a CPU tensor or
+    under ``use_kernels(False)``."""
+    DISPATCH_COUNTS["attention"] += 1
+    if not _USE_KERNELS:
+        return ref.attention(q, k, v, causal=causal, window=window)
+    if q.is_cuda:
+        TRACE_COUNTS["attention"] += _build.note_variant(
+            "flash_attention", (q.dtype, q.shape[-1], causal, window))
+    return flash_attention.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+
+
+def selective_scan(delta, x, b, c, a):
+    """Mamba1 recurrence from a zero state -> (y (B,T,D), h_final (B,D,N)):
+    the fused kernel on a CUDA tensor, the plain version on a CPU tensor or
+    under ``use_kernels(False)``."""
+    DISPATCH_COUNTS["selective_scan"] += 1
+    if not _USE_KERNELS:
+        return ref.selective_scan(delta, x, b, c, a)
+    if delta.is_cuda:
+        TRACE_COUNTS["selective_scan"] += _build.note_variant(
+            "selective_scan", a.shape[-1])
+    return _scan.selective_scan(delta, x, b, c, a)

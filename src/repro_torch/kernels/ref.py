@@ -1,13 +1,18 @@
-"""Plain PyTorch versions of the kernels on the HAIL read and build path.
+"""Plain PyTorch versions of the kernels on the HAIL read and build path
+and on the LM serving path.
 
 Each function computes what the matching function of the JAX package's
-``kernels/ref.py`` computes, bit for bit — except where the JAX package
-misses rows: ``index_search`` starts an index scan one partition earlier
-when a partition's minimum equals the range's lower bound.  The parity
-tests hold them against the JAX package, and the CUDA kernels are held
-against them.  CPU tensors always take these versions.
+``kernels/ref.py`` computes — bit for bit on the integer HAIL path, except
+where the JAX package misses rows: ``index_search`` starts an index scan one
+partition earlier when a partition's minimum equals the range's lower bound.
+The float ones (``attention``, ``selective_scan``) repeat the JAX oracles'
+arithmetic in float32, summing in another order.  The parity tests hold
+them against the JAX package, and the CUDA kernels are held against them.
+CPU tensors always take these versions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,3 +75,41 @@ def hail_read_batch(mins, keys, proj, bad, use_index, lohi, *,
     mask = torch.stack(masks, dim=-1)
     out = torch.where(mask.any(dim=-1)[..., None], proj, 0)
     return mask, out, torch.stack(fracs, dim=-1)
+
+
+def selective_scan(delta, x, b, c, a):
+    """Plain Mamba1 recurrence from a zero state, one time step at a time.
+    delta, x (B,T,D); b, c (B,T,N); a (D,N) negative
+    -> y (B,T,D) in delta's dtype, h_final (B,D,N) float32."""
+    bs, t, d = delta.shape
+    h = torch.zeros((bs, d, a.shape[-1]), dtype=torch.float32,
+                    device=delta.device)
+    ys = []
+    for i in range(t):
+        dt_t = delta[:, i]
+        at = torch.exp(dt_t[..., None] * a)                  # (B,D,N)
+        bt = (dt_t * x[:, i])[..., None] * b[:, i, None, :]
+        h = at * h + bt
+        ys.append((h * c[:, i, None, :]).sum(-1))            # (B,D)
+    return torch.stack(ys, dim=1).to(delta.dtype), h
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D), float32 softmax; query and
+    key positions are their indices; q head h reads kv head h // (H/KV)."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, t, kvh, rep, d).float()
+    sc = torch.einsum("btgrk,bsgk->bgrts", qg, k.float()) / math.sqrt(d)
+    qp = torch.arange(t, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    m = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (kp <= qp)
+    if window is not None:
+        m = m & (kp > qp - window)
+    sc = torch.where(m, sc, -1e30)
+    w = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bgrts,bsgk->btgrk", w, v.float())
+    return out.reshape(b, t, h, d).to(q.dtype)

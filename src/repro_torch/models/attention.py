@@ -1,0 +1,188 @@
+"""GQA self-attention with full-length KV caches.
+
+The port of the JAX package's ``models/attention.py`` for self-attention.
+Cache layout per layer: {"k": (B, S, KV, Dh), "v": (B, S, KV, Dh),
+"pos": (B, S) int32 absolute positions (-1 = empty)}.  Keys are stored
+post-RoPE (absolute rotary), the standard serving convention.
+
+* **Prefill and train** call ``ops.attention(q, k, v, causal=cfg.causal,
+  window=cfg.window)``: the flash kernel on the card, ``ref.attention`` on
+  the CPU.  This computes what the JAX package's ``_sdpa_full`` and
+  ``_sdpa_chunked`` compute over the prompt: prefill positions are always
+  ``default_positions`` (the model's ``forward`` takes no others outside
+  decode), so query and key position ``i`` is index ``i``, and the kernel's
+  masks by index (``k <= q`` causal, ``k > q - window``) equal ``_mask``
+  over those positions, with no empty slots among the prompt's keys.
+* **Decode** (T = 1 against the padded cache, empty slots pos = -1) stays a
+  plain product over the whole cache (``_sdpa_full``), as in the JAX
+  package, which computes it outside any Pallas kernel.
+* **The cache is written in place at decode**: ``_write_slot`` stores the
+  new key, value and position into the caller's cache tensors, where the
+  JAX package donates the cache to the decode step and gets a new one.
+
+Softcap, qk-norm, cross-attention, M-RoPE and ring caches for windows
+shorter than the sequence wait for the families that need them; such a
+config raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import AttnCfg
+from repro_torch.dist.sharding import TensorSpec, tspec
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Parameter / cache specs
+# ---------------------------------------------------------------------------
+
+
+def _supported(cfg: AttnCfg):
+    for name, on in (("softcap", cfg.softcap), ("qk_norm", cfg.qk_norm),
+                     ("cross-attention", cfg.cross),
+                     ("M-RoPE", cfg.mrope_section)):
+        if on:
+            raise NotImplementedError(
+                f"attention: {name} waits for the family that needs it")
+
+
+def attn_specs(cfg: AttnCfg, d_model: int) -> dict[str, TensorSpec]:
+    _supported(cfg)
+    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    return {
+        "wq": tspec((d_model, h, dh), ("embed", "heads", "head_dim")),
+        "wk": tspec((d_model, kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": tspec((d_model, kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": tspec((h, dh, d_model), ("heads", "head_dim", "embed")),
+    }
+
+
+def attn_cache_specs(cfg: AttnCfg, batch: int, cache_len: int,
+                     dtype=torch.bfloat16) -> dict[str, TensorSpec]:
+    kv, dh = cfg.n_kv, cfg.head_dim
+    axes = ("batch", "kv_seq", "act_kv_heads", "head_dim")
+    return {
+        "k": tspec((batch, cache_len, kv, dh), axes, dtype, init="zeros"),
+        "v": tspec((batch, cache_len, kv, dh), axes, dtype, init="zeros"),
+        "pos": tspec((batch, cache_len), ("batch", "kv_seq"), torch.int32,
+                     init="zeros"),
+    }
+
+
+def cache_len_for(cfg: AttnCfg, seq_len: int) -> int:
+    if cfg.window is not None and seq_len > cfg.window:
+        return cfg.window
+    return seq_len
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,T,D) @ w (D,H,Dh) -> (B,T,H,Dh), contiguous."""
+    b, t, _ = x.shape
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(
+        b, t, w.shape[1], w.shape[2])
+
+
+def _project(params, x, cfg: AttnCfg, positions):
+    """x (B,T,D) -> q (B,T,H,Dh), k,v (B,T,KV,Dh); rope applied."""
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_section)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_section)
+    return q, k, v
+
+
+def _mask(q_pos, k_pos, cfg: AttnCfg):
+    """(..., T, S) boolean validity from absolute positions."""
+    m = k_pos[..., None, :] >= 0
+    if cfg.causal:
+        m = m & (k_pos[..., None, :] <= q_pos[..., :, None])
+    if cfg.window is not None:
+        m = m & (k_pos[..., None, :] > q_pos[..., :, None] - cfg.window)
+    return m
+
+
+def _sdpa_full(q, k, v, q_pos, k_pos, cfg: AttnCfg):
+    """Materialized-scores attention. q (B,T,H,Dh), k/v (B,S,KV,Dh)."""
+    b, t, h, dh = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, t, kvh, rep, dh)
+    scores = torch.einsum("btgrk,bsgk->bgrts", qg, k).float()
+    scores = scores / math.sqrt(dh)
+    mask = _mask(q_pos, k_pos, cfg)[:, None, None]        # (B,1,1,T,S)
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrts,bsgk->btgrk", w, v)
+    return out.reshape(b, t, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# Layer-level entry point
+# ---------------------------------------------------------------------------
+
+
+def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
+              cache: Optional[dict], cache_len: Optional[int] = None):
+    """Returns (out (B,T,D), new_cache).
+
+    mode='train'   : no cache.
+    mode='prefill' : builds the cache with capacity ``cache_len`` (>= T;
+                     empty slots pos=-1) so decode steps append.
+    mode='decode'  : T == 1; writes the cache IN PLACE at ``positions``
+                     (B,1) and returns it.
+    """
+    _supported(cfg)
+    b, t, _ = x.shape
+    q, k, v = _project(params, x, cfg, positions)
+
+    if mode == "decode":
+        if cache is None or t != 1:
+            raise ValueError("attention: decode takes T == 1 and a cache")
+        slot = positions[:, 0].long() % cache["k"].shape[1]
+        _write_slot(cache["k"], k[:, 0], slot)
+        _write_slot(cache["v"], v[:, 0], slot)
+        _write_slot(cache["pos"], positions[:, 0], slot)
+        new_cache = cache
+        out = _sdpa_full(q, cache["k"], cache["v"], positions, cache["pos"],
+                         cfg)
+    else:
+        new_cache = None
+        if mode == "prefill":
+            want = max(cache_len or t, t)
+            clen = cache_len_for(cfg, want)
+            if clen < want:
+                raise NotImplementedError(
+                    "attention: ring caches (window shorter than the "
+                    "sequence) wait for the family that needs them")
+            pad = clen - t
+            new_cache = {
+                "k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+                "pos": F.pad(positions.to(torch.int32), (0, pad), value=-1),
+            }
+        out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window)
+
+    wo = params["wo"]
+    out = out.reshape(b, t, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
+    return out, new_cache
+
+
+def _write_slot(buf, val, slot):
+    """buf (B,S,...) <- val (B,...) at per-batch slot (B,), in place."""
+    bidx = torch.arange(buf.shape[0], device=buf.device)
+    buf[bidx, slot] = val.to(buf.dtype)

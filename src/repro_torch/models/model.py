@@ -1,0 +1,177 @@
+"""Top-level decoder-only LM.
+
+The port of the JAX package's ``models/model.py`` (no encoder yet).
+Pure-function API over parameter trees (nested dicts of tensors, the JAX
+package's paths and layouts):
+
+  model_specs(cfg)                      -> param spec tree (no allocation)
+  model_cache_specs(cfg, batch, S)      -> KV/SSM cache spec tree
+  forward(params, cfg, tokens, ...)     -> logits (+ cache for prefill/decode)
+
+``LM`` is the same model as an ``nn.Module`` that owns the tree as
+parameters under the tree's paths.  ``params_from_numpy`` carries a JAX
+parameter tree across (a copy, no transposes); ``cache_from_numpy`` and
+``cache_to_numpy`` do the same for caches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelCfg
+from repro_torch.models.common import (default_positions, embed_spec,
+                                       embed_tokens, rmsnorm, rmsnorm_spec,
+                                       unembed_spec)
+from repro_torch.models.stack import (apply_stack, stack_cache_specs,
+                                      stack_specs)
+
+
+def model_specs(cfg: ModelCfg) -> dict[str, Any]:
+    d = cfg.d_model
+    s: dict[str, Any] = {
+        "embed": embed_spec(cfg.vocab, d),
+        "stack": stack_specs(cfg.stack, d),
+        "final_norm": rmsnorm_spec(d),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = unembed_spec(d, cfg.vocab)
+    return s
+
+
+def model_cache_specs(cfg: ModelCfg, batch: int, seq_len: int,
+                      dtype=torch.bfloat16) -> dict[str, Any]:
+    return stack_cache_specs(cfg.stack, cfg.d_model, batch, seq_len, dtype)
+
+
+def lm_head(params, cfg: ModelCfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
+            cache=None, positions=None, cache_len: Optional[int] = None):
+    """inputs: tokens (B,T) int.  Returns float32 logits (B,T,V) for train;
+    (logits, cache) for prefill/decode.  (The JAX package's
+    ``return_hidden`` and ``logits_f32`` serve its chunked training loss and
+    come with the training slice.)
+
+    Train and prefill run at ``default_positions`` (the attention kernel
+    masks by index), so they take no ``positions``; decode takes (B,1)
+    positions (``decode_positions``) and updates ``cache`` in place."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"forward: unknown mode {mode!r}")
+    if inputs.dim() != 2:
+        raise NotImplementedError(
+            "forward: embedding inputs wait for the audio/vlm families")
+    dt = cfg.compute_dtype
+    scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
+    x = embed_tokens(params["embed"], inputs, scale, dt)
+    b, t = x.shape[:2]
+
+    if mode == "decode":
+        if positions is None:
+            raise ValueError("forward: decode needs (B,1) positions")
+    elif positions is not None:
+        raise ValueError("forward: train and prefill run at default "
+                         "positions")
+    else:
+        positions = default_positions(b, t, x.device)
+
+    aux = {"positions": positions, "cache_len": cache_len}
+    x, new_cache = apply_stack(params["stack"], x, cfg.stack, mode=mode,
+                               cache=cache, aux=aux, eps=cfg.norm_eps)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ lm_head(params, cfg).to(dt)).float()
+    if mode == "train":
+        return logits
+    return logits, new_cache
+
+
+def decode_positions(pos, batch: int, device=None) -> torch.Tensor:
+    """pos: scalar int -> (B,1) int32 positions."""
+    return torch.full((batch, 1), int(pos), dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The model as an nn.Module, and trees carried across from numpy
+# ---------------------------------------------------------------------------
+
+
+class _Node(nn.Module):
+    """One dict of the parameter tree: tensors as parameters, sub-dicts as
+    child modules, so ``named_parameters()`` yields the tree's paths."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Node(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        out: dict[str, Any] = dict(self._parameters)
+        for k, m in self._modules.items():
+            out[k] = m.tree()
+        return out
+
+
+class LM(_Node):
+    """The decoder-only LM: owns ``params`` (a tree from ``init_params`` or
+    ``params_from_numpy``) as parameters under the tree's paths, e.g.
+    ``stack.groups.p0.attn.wq``.  Parameters take no gradients: the port
+    serves, it does not train yet."""
+
+    def __init__(self, cfg: ModelCfg, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+    def forward(self, inputs, *, mode: str = "train", cache=None,
+                positions=None, cache_len: Optional[int] = None):
+        return forward(self.tree(), self.cfg, inputs, mode=mode, cache=cache,
+                       positions=positions, cache_len=cache_len)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _from_numpy(a, device) -> torch.Tensor:
+    """One numpy array -> a tensor on ``device``; bfloat16 arrays
+    (ml_dtypes, as JAX hands them out) travel as float32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device, dtype=None) -> dict:
+    """A JAX parameter tree as nested dicts of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, init_params(model_specs(cfg), key))``) ->
+    the port's tree on ``device``: same paths and layouts, values copied.
+    ``dtype`` casts floating leaves."""
+    def one(a):
+        t = _from_numpy(a, device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return _tree_map(one, tree)
+
+
+def cache_from_numpy(tree, device) -> dict:
+    """A cache tree of numpy arrays -> tensors on ``device``."""
+    return _tree_map(lambda a: _from_numpy(a, device), tree)
+
+
+def cache_to_numpy(tree) -> dict:
+    """A cache tree of tensors -> numpy arrays; bfloat16 as float32."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _tree_map(one, tree)

@@ -1,0 +1,173 @@
+"""Layer-stack pattern machinery.
+
+The port of the JAX package's ``models/stack.py``.  A model stack is a
+repeated *pattern* of layer configs, with group-stacked parameters and
+caches: every leaf has a leading ``n_groups`` axis, as in the JAX package.
+Where the JAX package runs ``lax.scan`` over the groups, the port runs a
+Python loop, and each layer takes the view ``[g]`` of every leaf.  Decode
+caches are written through those views, in place; prefill stacks the
+layers' new caches once at the end.  A partial ``tail`` runs after the
+groups.  Shared layers, MoE and remat wait for the families that need them.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerCfg, StackCfg
+from repro_torch.dist.sharding import TensorSpec, map_specs
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models.attention import (attn_cache_specs, attn_specs,
+                                          cache_len_for)
+from repro_torch.models.common import rmsnorm, rmsnorm_spec
+from repro_torch.models.mlp import mlp, mlp_specs
+
+
+def _kind(lc: LayerCfg):
+    if lc.kind not in ("attn_mlp", "mamba1"):
+        raise NotImplementedError(
+            f"layer kind {lc.kind!r} waits for the family that needs it")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer specs / caches / apply
+# ---------------------------------------------------------------------------
+
+
+def layer_specs(lc: LayerCfg, d_model: int) -> dict[str, Any]:
+    _kind(lc)
+    if lc.kind == "attn_mlp":
+        return {"ln1": rmsnorm_spec(d_model),
+                "attn": attn_specs(lc.attn, d_model),
+                "ln2": rmsnorm_spec(d_model),
+                "ffn": mlp_specs(lc.mlp, d_model)}
+    return {"ln": rmsnorm_spec(d_model),
+            "ssm": mamba_mod.mamba1_specs(lc.ssm, d_model)}
+
+
+def layer_cache_specs(lc: LayerCfg, d_model: int, batch: int, seq_len: int,
+                      dtype=torch.bfloat16) -> dict[str, Any]:
+    _kind(lc)
+    if lc.kind == "attn_mlp":
+        return {"self": attn_cache_specs(lc.attn, batch,
+                                         cache_len_for(lc.attn, seq_len),
+                                         dtype)}
+    return {"ssm": mamba_mod.mamba1_cache_specs(lc.ssm, d_model, batch,
+                                                dtype)}
+
+
+def apply_layer(lc: LayerCfg, params, x, *, mode: str, cache, aux: dict,
+                eps: float):
+    _kind(lc)
+    if lc.kind == "attn_mlp":
+        h = rmsnorm(x, params["ln1"], eps)
+        a, c_self = attn_mod.attention(
+            params["attn"], h, lc.attn, positions=aux["positions"],
+            mode=mode, cache=cache.get("self") if cache else None,
+            cache_len=aux.get("cache_len"))
+        x = x + a
+        h = rmsnorm(x, params["ln2"], eps)
+        x = x + mlp(params["ffn"], h, lc.mlp)
+        return x, ({"self": c_self} if c_self is not None else None)
+    h = rmsnorm(x, params["ln"], eps)
+    y, c = mamba_mod.mamba1(params["ssm"], h, lc.ssm, mode=mode,
+                            cache=cache.get("ssm") if cache else None)
+    x = x + y
+    return x, ({"ssm": c} if c is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Stack-level specs
+# ---------------------------------------------------------------------------
+
+
+def _stack_tree(tree, n: int):
+    return map_specs(
+        lambda s: TensorSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype,
+                             s.init, s.scale), tree)
+
+
+def stack_specs(sc: StackCfg, d_model: int) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    group = {f"p{i}": layer_specs(lc, d_model)
+             for i, lc in enumerate(sc.pattern)}
+    if sc.n_groups > 0 and group:
+        out["groups"] = _stack_tree(group, sc.n_groups)
+    if sc.tail:
+        out["tail"] = {f"t{i}": layer_specs(lc, d_model)
+                       for i, lc in enumerate(sc.tail)}
+    return out
+
+
+def stack_cache_specs(sc: StackCfg, d_model: int, batch: int, seq_len: int,
+                      dtype=torch.bfloat16) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    group = {f"p{i}": layer_cache_specs(lc, d_model, batch, seq_len, dtype)
+             for i, lc in enumerate(sc.pattern)}
+    if sc.n_groups > 0:
+        out["groups"] = _stack_tree(group, sc.n_groups)
+    if sc.tail:
+        out["tail"] = {f"t{i}": layer_cache_specs(lc, d_model, batch,
+                                                  seq_len, dtype)
+                       for i, lc in enumerate(sc.tail)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stack apply
+# ---------------------------------------------------------------------------
+
+
+def _index(tree, g: int):
+    """The view [g] of every leaf of a group-stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _stack(trees: list):
+    """Per-group trees -> one tree with a leading group axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def apply_stack(params, x, sc: StackCfg, *, mode: str, cache, aux: dict,
+                eps: float):
+    """Returns (x, new_cache_or_None).  Decode updates ``cache`` in place
+    and returns it."""
+    new_cache: dict[str, Any] = {}
+    if sc.n_groups > 0:
+        gp_all = params["groups"]
+        gc_all = cache.get("groups") if cache is not None else None
+        built = []
+        for g in range(sc.n_groups):
+            gp = _index(gp_all, g)
+            gc = _index(gc_all, g) if gc_all is not None else None
+            new_c: dict[str, Any] = {}
+            for i, lc in enumerate(sc.pattern):
+                key = f"p{i}"
+                x, nc = apply_layer(lc, gp[key], x, mode=mode,
+                                    cache=gc.get(key) if gc else None,
+                                    aux=aux, eps=eps)
+                if nc is not None:
+                    new_c[key] = nc
+            built.append(new_c)
+        if mode == "decode":
+            new_cache["groups"] = gc_all
+        elif mode == "prefill":
+            new_cache["groups"] = _stack(built)
+
+    for i, lc in enumerate(sc.tail):
+        key = f"t{i}"
+        c: Optional[dict] = ((cache.get("tail") or {}).get(key)
+                             if cache is not None else None)
+        x, nc = apply_layer(lc, params["tail"][key], x, mode=mode, cache=c,
+                            aux=aux, eps=eps)
+        if nc is not None:
+            new_cache.setdefault("tail", {})[key] = nc
+
+    return x, (new_cache if mode in ("prefill", "decode") else None)
