@@ -17,12 +17,17 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             settings (TF32 off for matmuls and cuDNN);
 2. build    the kernels' build time;
 3. kernels  each kernel against its plain version at main-path shapes
-            (the reader and the sort at HAIL's, flash attention at the
-            llama prefill's, the scan at the falcon-mamba prefill's, plus
-            small and ragged cases), and the HAIL slice at the test shape
-            on the card against the CPU;
+            (the reader, the sort, the root-directory lookup and the range
+            scan at HAIL's, flash attention at the llama prefill's, the
+            scan at the falcon-mamba prefill's, plus small and ragged
+            cases; flash in bf16 at every head dim, ragged, non-causal and
+            windowed), and the HAIL slice at the test shape on the card
+            against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
-            the same query over a plain HDFS upload;
+            the same query over a plain HDFS upload; then the same query
+            read by the two standalone primitives (``ops.index_search`` on
+            every block's root directory, ``ops.pax_scan`` on each block's
+            selected partitions), against the fused reader's rows;
 5. shared   one split read for 8 queries at once against 8 single reads;
 6. adaptive a lazy upload that 6 adaptive jobs converge to fully indexed,
             then one eager, HDFS, building and converged job each again
@@ -34,8 +39,9 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             same input, and the logits of both routes; walls, tokens/s,
             parameter bytes, peak memory, and one profiled prefill and
             decode step;
-8. times    each kernel's time against its bound, its plain version's time
-            and, where one exists, a library call's.
+8. times    each kernel's own device time (from the CUDA profiler) against
+            its bound, its plain version's and, where one exists, a library
+            call's, each beside CUDA events around back-to-back calls.
 
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
@@ -72,6 +78,9 @@ INT32_MAX = 2**31 - 1
 SERVE = (("llama3.2-1b", "flash_attention"),
          ("falcon-mamba-7b", "selective_scan"))
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# the CUDA function each serving kernel launches in bf16 (profiler names)
+KERNEL_NAMES = {"flash_attention": "flash_bf16_kernel",
+                "selective_scan": "scan_kernel"}
 # Kernel against plain version, max abs error: the JAX package's own
 # tolerances (tests/test_kernels.py): float32 attention 2e-5, bfloat16
 # attention 2e-2 (one bf16 step of outputs of magnitude < 4), scan 1e-4
@@ -122,6 +131,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_us(event) -> float:
+    """An averaged profiler event's own device time in us."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, iters: int, match: str | None = None) -> float:
+    """Device time per call of ``fn`` in ms, from the CUDA profiler: the
+    summed duration of the device work (kernels and copies) it issued, or
+    of the kernels whose name holds ``match``, over ``iters`` calls after a
+    warm-up.  Unlike ``cuda_ms`` it leaves out the time the card waits for
+    the host between calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and (match is None or match in e.key)]
+    check(bool(events), f"device work {match or ''} was traced")
+    return sum(device_us(e) for e in events) / iters / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -250,6 +288,45 @@ def scan_bound(delta, b):
     return bound_ms(n_bytes, 7 * bs * t * d * n, F32_OPS_PER_S)
 
 
+def search_inputs(rng, b, parts):
+    """Root directories as an indexed store holds them: sorted partition
+    minima of visitDate-like keys, with duplicates (so some minima equal
+    the range's bound)."""
+    mins = np.sort(rng.integers(3500, 6000, (b, parts)) * 2, axis=1)
+    return torch.from_numpy(mins.astype(np.int32)).cuda()
+
+
+def search_bound(mins):
+    """Each minimum read once, the pair and the (blocks, 2) output; two
+    compares a minimum."""
+    b, parts = mins.shape
+    return bound_ms(4 * b * parts + 8 + 8 * b, 2 * b * parts)
+
+
+def scan_block_inputs(rng, rows, n_cols, dtype):
+    keys = rng.integers(0, 10000, rows).astype(np.int32)
+    proj = rng.integers(-2**31, INT32_MAX, (rows, n_cols)).astype(np.int32)
+    proj = torch.from_numpy(proj).cuda()
+    if dtype == torch.float32:   # any 32-bit pattern, NaNs included
+        proj = proj.view(torch.float32)
+    return torch.from_numpy(keys).cuda(), proj
+
+
+def pax_bound(keys, proj, mask, tile):
+    """The keys, the projection of the kept rows and the pair read; the
+    mask, the output and the per-tile counts written; two compares a row."""
+    rows, n_cols = proj.shape
+    kept = int(mask.sum())
+    n_bytes = (4 * rows + 4 * n_cols * kept + 8
+               + rows + 4 * n_cols * rows + 4 * (rows // tile))
+    return bound_ms(n_bytes, 2 * rows)
+
+
+def bits(t):
+    """A tensor's 32-bit words, so float outputs compare bit for bit."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def max_abs_err(got, want) -> float:
     return max(float((g.to(torch.float64) - w.to(torch.float64)).abs().max())
                if g.numel() else 0.0 for g, w in zip(got, want))
@@ -262,7 +339,8 @@ def max_abs_err(got, want) -> float:
 
 def phase_kernels(rng):
     from repro_torch.kernels import (block_sort, flash_attention, hail_reader,
-                                     ref, selective_scan)
+                                     index_search, pax_scan, ref,
+                                     selective_scan)
 
     reader_cases = []
     for b, rows, parts, q, mix in [(16, ROWS, 512, 1, True),
@@ -297,6 +375,50 @@ def phase_kernels(rng):
               f"bitonic_sort kernel == stable argsort at ({b}, {n})")
         sort_cases.append({"blocks": b, "n": n,
                            "max_abs_err": max_abs_err(got, want)})
+    search_cases = []
+    for b, parts in [(BLOCKS, 512), (3, 8), (5, 64), (13, 7), (1, 1),
+                     (9, 33)]:
+        mins = search_inputs(rng, b, parts)
+        flat = mins.flatten().cpu().numpy()
+        # a bound equal to a minimum, below all, above all, lo > hi, and
+        # the range as device scalars (no host sync)
+        ranges = [(int(flat[len(flat) // 2]), int(flat[len(flat) // 2]) + 300),
+                  (10000, 10155), (-50, 6999), (12001, 20000), (9000, 8000),
+                  (-2**31, INT32_MAX),
+                  (torch.tensor(8000, device="cuda"),
+                   torch.tensor(9000, device="cuda"))]
+        for lo, hi in ranges:
+            got = index_search.index_search(mins, lo, hi)
+            want = index_search.index_search_plain(mins, lo, hi)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"index_search kernel == plain at {(b, parts)} "
+                  f"lo={int(lo)} hi={int(hi)}")
+        search_cases.append({"blocks": b, "parts": parts,
+                             "ranges": len(ranges),
+                             "max_abs_err": max_abs_err([got], [want])})
+    pax_cases = []
+    for rows, n_cols, tile, dtype in [(ROWS, 2, 1024, torch.int32),
+                                      (ROWS, 3, 1024, torch.float32),
+                                      (1000, 3, 1024, torch.int32),
+                                      (1031, 1, 1024, torch.float32),
+                                      (2048, 4, 256, torch.int32),
+                                      (300, 5, 64, torch.float32)]:
+        keys, proj = scan_block_inputs(rng, rows, n_cols, dtype)
+        for lo, hi in [(2000, 4999), (5000, 5000), (9000, 100),
+                       (-2**31, INT32_MAX)]:
+            got = pax_scan.pax_scan(keys, proj, lo, hi, row_tile=tile)
+            want = pax_scan.pax_scan_plain(keys, proj, lo, hi, row_tile=tile)
+            torch.cuda.synchronize()
+            check(all(torch.equal(bits(g), bits(w))
+                      for g, w in zip(got, want)),
+                  f"pax_scan kernel == plain at rows={rows} C={n_cols} "
+                  f"tile={tile} {dtype} lo={lo} hi={hi}")
+        pax_cases.append({"rows": rows, "cols": n_cols, "tile": tile,
+                          "dtype": str(dtype), "tiles": int(got[2].numel()),
+                          "max_abs_err": max_abs_err(
+                              [bits(g) for g in got],
+                              [bits(w) for w in want])})
     flash_cases = []
     for b, t, s, h, kv, d, causal, window, dtype in [
             (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
@@ -304,7 +426,17 @@ def phase_kernels(rng):
             (1, 256, 256, 2, 2, 32, True, 32, torch.float32),
             (2, 100, 100, 4, 2, 16, True, None, torch.float32),   # ragged
             (2, 100, 77, 4, 2, 64, False, 24, torch.float32),
-            (1, 300, 300, 4, 1, 64, True, 128, torch.bfloat16)]:
+            (1, 300, 300, 4, 1, 64, True, 128, torch.bfloat16),
+            # the tensor-core path at every head dim, ragged T and S,
+            # non-causal and windowed, and rows with no key in their band
+            (2, 128, 128, 4, 4, 32, False, None, torch.bfloat16),
+            (1, 256, 256, 2, 2, 32, True, 32, torch.bfloat16),
+            (2, 100, 100, 4, 2, 16, True, None, torch.bfloat16),
+            (2, 100, 77, 4, 2, 16, False, 24, torch.bfloat16),
+            (2, 100, 77, 4, 2, 64, False, 24, torch.bfloat16),
+            (1, 70, 130, 4, 1, 32, False, None, torch.bfloat16),
+            (1, 200, 50, 2, 1, 64, True, 16, torch.bfloat16),
+            (1, 200, 50, 2, 1, 64, True, 16, torch.float32)]:
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         got = flash_attention.flash_attention(q, k, v, causal=causal,
                                               window=window)
@@ -331,11 +463,14 @@ def phase_kernels(rng):
         scan_cases.append({"shape": [b, t, d, n], "max_abs_err": err,
                            "tol": tol})
         del inputs, got, want
-    emit("kernels", reader=reader_cases, sort=sort_cases, flash=flash_cases,
+    emit("kernels", reader=reader_cases, sort=sort_cases,
+         index_search=search_cases, pax_scan=pax_cases, flash=flash_cases,
          scan=scan_cases)
     return {name: max(c["max_abs_err"] for c in cases)
             for name, cases in (("hail_read", reader_cases),
                                 ("bitonic_sort", sort_cases),
+                                ("index_search", search_cases),
+                                ("pax_scan", pax_cases),
                                 ("flash_attention", flash_cases),
                                 ("selective_scan", scan_cases))}
 
@@ -386,11 +521,12 @@ def phase_small_slice():
          curve=[j[2] for j in jobs_g[2:]], rows=jobs_g[0][1])
 
 
-def profile_job(run) -> dict:
+def profile_job(run, match: str | None = None) -> dict:
     """One more run of a job under the CUDA profiler and the port's span
     tracer: host wall, device-busy time (the sum of the device-side events:
     kernels and copies; the port uses one stream, so they do not overlap),
-    the busiest of them, and host time per traced span (the per-split and
+    the busiest of them, the device time and launches of the kernels whose
+    name holds ``match``, and host time per traced span (the per-split and
     whole-job slices left out: they overlap the others).  Walls here include
     the profiler's own cost; the phases above report walls without it."""
     from torch.autograd import DeviceType
@@ -409,14 +545,11 @@ def profile_job(run) -> dict:
     finally:
         trace.uninstall()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy_ms = sum(device_us(e) for e in events) / 1e3
     top = sorted(events, key=device_us, reverse=True)[:6]
+    matched = [e for e in events if match is not None and match in e.key]
     spans: dict[str, float] = {}
     opened: dict[tuple, list] = {}
     for ev in tracer.events:
@@ -431,6 +564,8 @@ def profile_job(run) -> dict:
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
             "top_device_ms": [[e.key[:160], device_us(e) / 1e3] for e in top],
+            "kernel_device_ms": sum(device_us(e) for e in matched) / 1e3,
+            "kernel_calls": sum(e.count for e in matched),
             "host_span_ms": spans}
 
 
@@ -442,6 +577,68 @@ def rowid_collector():
         parts.append(q.collect(res)["__rowid__"])
 
     return parts, on_split
+
+
+def phase_two_kernel_read(store, query) -> dict:
+    """The query read by the two standalone primitives on the eager store's
+    real data: ``ops.index_search`` over every block's root directory on the
+    filter column's replica, then ``ops.pax_scan`` over each block's
+    selected partition range (rowid and the projected column).  Its kept
+    rows, bad rows removed, must equal the fused reader's rows for the same
+    blocks, and each block's tile counts must sum to its kept rows.
+    Returns the launch counts of the read."""
+    from repro_torch.core import query as q
+    from repro_torch.core import schema as sc
+    from repro_torch.kernels import ops
+
+    col, lo, hi = query.filter
+    (proj_col,) = query.projection
+    qplan = q.plan(store, query)
+    rid = int(qplan.replica_for_block[0])
+    rep = store.replicas[rid]
+    check(bool((qplan.replica_for_block == rid).all())
+          and bool(np.asarray(qplan.index_scan, bool).all())
+          and rep.sort_key == col,
+          f"every block index-scans the {col} replica")
+    bad = q._bad_mask(store, rid)
+    ps, rows = store.partition_size, store.rows_per_block
+    ops.KERNEL_LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr = ops.index_search(rep.mins, lo, hi).cpu()   # one sync, to slice
+    kept, partitions = [], 0
+    for b in range(store.n_blocks):
+        p0, p1 = int(pr[b, 0]), int(pr[b, 1])
+        partitions += p1 - p0 + 1
+        r0, r1 = p0 * ps, min((p1 + 1) * ps, rows)
+        proj = torch.stack([rep.cols[sc.ROWID][b, r0:r1],
+                            rep.cols[proj_col][b, r0:r1]], dim=-1)
+        mask, out, counts = ops.pax_scan(rep.cols[col][b, r0:r1], proj, lo,
+                                         hi)
+        check(int(counts.sum()) == int(mask.sum()),
+              f"block {b}: tile counts sum to the kept rows")
+        check(torch.equal(out[mask], proj[mask])
+              and not bool(out[~mask].any()),
+              f"block {b}: kept rows keep their projection, others are 0")
+        kept.append(out[mask & ~bad[b, r0:r1], 0])
+    two_ids = torch.sort(torch.cat(kept)).values
+    torch.cuda.synchronize()
+    two_s = time.perf_counter() - t0
+    launches = dict(ops.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    res = q.read_hail_kernels(store, query, qplan)
+    fused_ids = torch.sort(res.cols[sc.ROWID][res.mask]).values
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    check(torch.equal(two_ids, fused_ids),
+          "two-kernel read rowid set == fused reader rowid set")
+    check(launches.get("index_search", 0) == 1
+          and launches.get("pax_scan", 0) == store.n_blocks,
+          f"one index_search and one pax_scan a block: {launches}")
+    emit("two_kernel", blocks=store.n_blocks, partitions_read=partitions,
+         rows=int(two_ids.numel()), two_kernel_s=two_s,
+         fused_reader_s=fused_s, launches=launches)
+    return launches
 
 
 def share(got, want) -> dict:
@@ -600,7 +797,8 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
     del k_pre, k_dec, p_pre, p_dec
 
     profiles = {
-        "prefill": profile_job(lambda: prefill(params, {"tokens": tokens})),
+        "prefill": profile_job(lambda: prefill(params, {"tokens": tokens}),
+                               KERNEL_NAMES[kernel]),
         "decode_step": profile_job(lambda: decode(
             params, cache, {"tokens": tok,
                             "pos": SERVE_PROMPT + SERVE_GEN - 1}))}
@@ -636,7 +834,8 @@ def main() -> int:
     from repro_torch.core import upload as up
     from repro_torch.core.parse import format_rows
     from repro_torch.kernels import (_build, block_sort, flash_attention,
-                                     hail_reader, ops, ref, selective_scan)
+                                     hail_reader, index_search, ops,
+                                     pax_scan, ref, selective_scan)
 
     t_run = time.perf_counter()
     # float32 products in full float32: the plain versions are references
@@ -697,6 +896,8 @@ def main() -> int:
          hdfs_bytes_read=hdfs_job.bytes_read,
          rows=hail_job.results["n_rows"], launches=eager_launches,
          peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    two_kernel_launches = phase_two_kernel_read(hail, query)
 
     eager_profiles = {
         "hail_job": profile_job(lambda: mr.run_job(hail, query,
@@ -774,6 +975,25 @@ def main() -> int:
     served = {kernel: phase_serve(arch, kernel, rng) for arch, kernel in SERVE}
 
     # --- 8. times at main-path shapes ---------------------------------------
+    # Each case: the kernel's own device time per call from the profiler
+    # ("ms", the table's number) and CUDA events around back-to-back calls
+    # ("events_ms", which also counts the gaps where the card waits for the
+    # host: for calls that launch a few microseconds of work, those gaps
+    # are most of it); the same two for the plain version and the library
+    # call.
+    def case(shape, kernel, plain, bound, match, library=None,
+             plain_iters=3):
+        return {"shape": shape,
+                "ms": device_ms(kernel, 20, match),
+                "events_ms": cuda_ms(kernel, 20),
+                "plain_ms": device_ms(plain, plain_iters),
+                "plain_events_ms": cuda_ms(plain, plain_iters, warmup=1),
+                "library_ms": None if library is None else device_ms(
+                    library, 20),
+                "library_events_ms": None if library is None else cuda_ms(
+                    library, 20),
+                "bound_ms": bound[0], "bound_by": bound[1]}
+
     ps = ROWS // 512
     timed = {}
     for name, b, q_n, mix in [("full_scan_q1", 16, 1, False),
@@ -783,53 +1003,66 @@ def main() -> int:
         uidx = (np.arange(b) % 3 != 2) if mix else np.zeros(b, bool)
         inputs = reader_inputs(rng, b, ROWS, 512, 2, q_n, uidx)
         out = hail_reader.hail_read_batch(*inputs, partition_size=ps)
-        bound, by = reader_bound(inputs, out, ps)
-        timed[name] = {
-            "shape": f"B={b} R={ROWS} P=512 C=2 Q={q_n} "
-                     f"{'mixed index' if mix else 'full scan'}",
-            "ms": cuda_ms(lambda: hail_reader.hail_read_batch(
-                *inputs, partition_size=ps), 20),
-            "plain_ms": cuda_ms(lambda: ref.hail_read_batch(
-                *inputs, partition_size=ps), 3, warmup=1),
-            "bound_ms": bound, "bound_by": by}
+        timed[name] = case(
+            f"B={b} R={ROWS} P=512 C=2 Q={q_n} "
+            f"{'mixed index' if mix else 'full scan'}",
+            lambda: hail_reader.hail_read_batch(*inputs, partition_size=ps),
+            lambda: ref.hail_read_batch(*inputs, partition_size=ps),
+            reader_bound(inputs, out, ps), "reader_kernel")
         del inputs, out
     for b in (1, 16):
         keys = sort_inputs(rng, b, ROWS)
-        bound, by = sort_bound(keys)
-        timed[f"sort_{b}x2^19"] = {
-            "shape": f"({b}, {ROWS}) int32",
-            "ms": cuda_ms(lambda: block_sort.bitonic_sort(keys), 20),
-            "plain_ms": cuda_ms(lambda: block_sort.bitonic_sort_plain(keys),
-                                3, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.sort(keys, dim=-1,
-                                                     stable=True), 20),
-            "bound_ms": bound, "bound_by": by}
+        timed[f"sort_{b}x2^19"] = case(
+            f"({b}, {ROWS}) int32", lambda: block_sort.bitonic_sort(keys),
+            lambda: block_sort.bitonic_sort_plain(keys), sort_bound(keys),
+            None, library=lambda: torch.sort(keys, dim=-1, stable=True))
     q, k, v = attn_inputs(SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64,
                           torch.bfloat16)
-    bound, by = attn_bound(q, k, v, True, None)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    timed["flash_llama_prefill"] = {
-        "shape": "q (4,512,32,64) k/v (4,512,8,64) bf16 causal",
-        "ms": cuda_ms(lambda: flash_attention.flash_attention(q, k, v), 20),
-        "plain_ms": cuda_ms(lambda: ref.attention(q, k, v), 3, warmup=1),
-        "library_ms": cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20),
-        "bound_ms": bound, "bound_by": by}
+    timed["flash_llama_prefill"] = case(
+        "q (4,512,32,64) k/v (4,512,8,64) bf16 causal",
+        lambda: flash_attention.flash_attention(q, k, v),
+        lambda: ref.attention(q, k, v), attn_bound(q, k, v, True, None),
+        "flash_bf16_kernel",
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
     del q, k, v, qt, kt, vt
     inputs = scan_inputs(SERVE_BATCH, SERVE_PROMPT, 8192, 16)
-    bound, by = scan_bound(inputs[0], inputs[2])
-    timed["scan_falcon_prefill"] = {
-        "shape": "delta/x (4,512,8192) b/c (4,512,16) a (8192,16) f32",
-        "ms": cuda_ms(lambda: selective_scan.selective_scan(*inputs), 20),
-        "plain_ms": cuda_ms(lambda: ref.selective_scan(*inputs), 3,
-                            warmup=1),
-        "library_ms": None, "bound_ms": bound, "bound_by": by}
+    timed["scan_falcon_prefill"] = case(
+        "delta/x (4,512,8192) b/c (4,512,16) a (8192,16) f32",
+        lambda: selective_scan.selective_scan(*inputs),
+        lambda: ref.selective_scan(*inputs),
+        scan_bound(inputs[0], inputs[2]), "scan_kernel")
     del inputs
+
+    # the two primitives with their bounds on the card, as a caller that
+    # keeps them there passes them: each call also stacks the pair (one
+    # small launch), which "ms" leaves out
+    def on_card(*xs):
+        return [torch.tensor(x, dtype=torch.int32, device="cuda") for x in xs]
+
+    mins = search_inputs(rng, BLOCKS, 512)
+    lohi = on_card(*QUICK[1:])
+    timed["index_search_64x512"] = case(
+        f"mins ({BLOCKS}, 512) int32, (lo, hi) on the card",
+        lambda: index_search.index_search(mins, *lohi),
+        lambda: index_search.index_search_plain(mins, *lohi),
+        search_bound(mins), "search_kernel", plain_iters=20)
+    keys, proj = scan_block_inputs(rng, ROWS, 2, torch.int32)
+    lohi = on_card(2000, 4999)
+    mask = pax_scan.pax_scan(keys, proj, *lohi)[0]
+    timed["pax_scan_2^19x2"] = case(
+        f"key ({ROWS},) proj ({ROWS}, 2) int32, {int(mask.sum())} rows "
+        f"kept, (lo, hi) on the card",
+        lambda: pax_scan.pax_scan(keys, proj, *lohi),
+        lambda: pax_scan.pax_scan_plain(keys, proj, *lohi),
+        pax_bound(keys, proj, mask, 1024), "scan_kernel", plain_iters=20)
+    del keys, proj, mask
     emit("times", cases=timed)
 
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
     flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
+    search, pax = timed["index_search_64x512"], timed["pax_scan_2^19x2"]
     kernels = [
         {"name": "hail_read", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hail_reader.cu",
@@ -848,6 +1081,22 @@ def main() -> int:
          "plain_ms": sort["plain_ms"], "bound_ms": sort["bound_ms"],
          "bound_by": sort["bound_by"], "library_ms": sort["library_ms"],
          "shape": sort["shape"]},
+        {"name": "index_search", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/index_search.cu",
+         "replaces": "src/repro/kernels/index_search.py:22",
+         "launches": two_kernel_launches.get("index_search", 0),
+         "max_abs_err": errs["index_search"], "ms": search["ms"],
+         "plain_ms": search["plain_ms"], "bound_ms": search["bound_ms"],
+         "bound_by": search["bound_by"], "library_ms": None,
+         "shape": search["shape"]},
+        {"name": "pax_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pax_scan.cu",
+         "replaces": "src/repro/kernels/pax_scan.py:23",
+         "launches": two_kernel_launches.get("pax_scan", 0),
+         "max_abs_err": errs["pax_scan"], "ms": pax["ms"],
+         "plain_ms": pax["plain_ms"], "bound_ms": pax["bound_ms"],
+         "bound_by": pax["bound_by"], "library_ms": None,
+         "shape": pax["shape"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",

@@ -1,4 +1,5 @@
-// Flash attention (forward) for Hopper (sm_90a), on the CUDA cores.
+// Flash attention (forward) for Hopper (sm_90a): bf16 on the tensor cores,
+// float32 on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `_flash_kernel`, reached
 // through `flash_attention` (and `ops.attention`): tiled online-softmax
@@ -6,27 +7,62 @@
 // (q head h reads kv head h / rep), float32 running max, denominator and
 // accumulator, output in q's dtype.
 //
+// Semantics shared by both kernels: masked scores are -1e30, as in the TPU
+// kernel, so a row with no key in its band keeps the reference's uniform
+// average; keys past S weigh exactly 0 (any T and S work); the result is
+// divided by max(l, 1e-30).  Tiles wholly outside the causal or window band
+// are skipped only when every row of the q tile has some key in the band:
+// their weights are then exactly zero, so the result is unchanged.  The q
+// tiles run heaviest (latest) first.
+//
 // What bounds it on the H100: at the llama3.2-1b prefill shape (q
 // (4,512,32,64), k/v (4,512,8,64), bf16, causal) the function moves 21 MB
 // (6.3 us at 3.35 TB/s) and does 4.3 GFLOP (4.3 us at the bf16 tensor-core
-// rate), so bytes bound it.  This first version does its products on the
-// CUDA cores in float32, so it is bound by those cores' FMA rate and by the
-// shared-memory reads that feed them, far above either bound.  Tensor cores
-// (mma/wgmma), TMA and a pipelined K/V ring are later work.
+// rate), so bytes bound it, closely followed by the tensor cores.  The
+// bf16 kernel is held back by neither: with its K/V loads removed it still
+// takes ~80% of its time (scripts/flash_bf16_variants.py), which goes to
+// each warp's dependent chain of `mma.sync`, softmax and `mma.sync` per
+// tile and the two barriers a tile, with 16 warps an SM to hide it.
 //
-// What the design does: the TPU kernel walks kv tiles as a sequential grid
-// axis with its running statistics in VMEM.  Here one CTA owns one (batch x
-// head, 64-row q tile), one thread per query row, and loops over kv tiles
-// itself.  The q tile is staged through shared memory for coalesced loads,
-// then held pre-scaled by 1/sqrt(D) in registers with the row's float32
-// accumulator, max and denominator.  Each 32-key K and V tile is loaded
-// once, coalesced, into shared memory as float32, and every thread reads it
-// as a broadcast.  Masked scores are -1e30 and the result is divided by
-// max(l, 1e-30), as in the TPU kernel.  Tiles wholly outside the causal or
-// window band are skipped when every row of the q tile has some key in the
-// band: their weights are then exactly zero, so the result is unchanged.
-// Ragged T and S are masked here (keys past S weigh nothing), so any
-// lengths work.  The q tiles run heaviest (latest) first.
+// bf16, the serving path (`flash_bf16_kernel`).  The earlier version ran
+// these products on the CUDA cores in float32, one thread per query row,
+// with bf16 K/V widened to float32 in shared memory: shared-memory
+// broadcasts and the FMA rate held it at 40x its bound.  Here:
+// - a CTA is 4 warps over a 64-row q tile, 16 rows a warp.  The q tile is
+//   staged once through shared memory and held in `mma` A fragments
+//   (`ldmatrix`);
+// - 64-key K and V tiles stay bf16 in shared memory, double-buffered with
+//   `cp.async`, so the next tile loads while this one computes.  Rows are
+//   padded by 8 elements (16 B), so the 8 row addresses of each `ldmatrix`
+//   fall in distinct bank groups.  Rows past T or S are zero-filled by the
+//   copy's src-size operand, never read;
+// - S = Q K^T by `mma.sync.m16n8k16` bf16 -> float32 (the products of bf16
+//   values are exact in float32); 1/sqrt(D) and log2(e) scale S in
+//   float32, and the softmax runs in base 2 on the accumulator fragments,
+//   its row max and sum reduced across each quad with `__shfl_xor_sync`.
+//   Running max, denominator and O stay in float32 registers;
+// - O += P V: P is rounded to bf16 in registers and reused as the A
+//   operand (the accumulator layout of two 8-key tiles is the A layout of
+//   one 16-key step); V's B fragments come from `ldmatrix.trans`.  That
+//   rounding of P (2^-9 relative a weight) is the only one the bf16 path
+//   adds to the reference's arithmetic;
+// - only the tiles the band's edge crosses, or that reach past S, are
+//   masked element by element;
+// - registers are capped at 128 a thread so 4 CTAs (16 warps) share an SM
+//   to hide the latency of each warp's dependent mma -> softmax -> mma
+//   chain, and 2^x runs as one `ex2.approx` (each faster at the llama
+//   shape, spills included: scripts/flash_bf16_variants.py);
+// - the output is staged through the q tile's shared memory and written
+//   16 bytes a lane.
+// `wgmma`, TMA and warp specialisation are later steps.
+//
+// float32 (`flash_f32_kernel`), what the per-layer route checks compute:
+// one CTA owns one (batch x head, 64-row q tile), one thread per query row,
+// and loops over 32-key tiles loaded coalesced into shared memory, read by
+// every thread as a broadcast.  The q row is held pre-scaled by 1/sqrt(D)
+// in registers with its float32 accumulator, max and denominator.  TF32
+// tensor cores would keep 10 bits of the mantissa, too few for the float32
+// checks, so this path stays on the CUDA cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,25 +70,45 @@
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per CTA, one thread each
-constexpr int kBK = 32;            // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// ---------------------------------------------------------------------------
+// Which key tiles a q tile visits
+// ---------------------------------------------------------------------------
+
+struct Band {
+  int k_begin, k_end;
+};
+
+// Keys [k_begin, k_end) that the q tile [q0, q_hi] visits, in steps of
+// `tile` from k_begin.  Does every row of the tile keep some key?  Validity
+// only gets harder as the row grows, so the last row decides; if one row
+// keeps none, every key is visited so that row averages them all.
+__device__ __forceinline__ Band band(int q0, int q_hi, int s_len, int causal,
+                                     int window, int tile) {
+  const int k_max = causal ? min(q_hi, s_len - 1) : s_len - 1;
+  const int k_min = window > 0 ? max(q_hi - window + 1, 0) : 0;
+  Band bd{0, s_len};
+  if (k_max >= k_min) {
+    if (causal) bd.k_end = min(s_len, q_hi + 1);
+    if (window > 0) bd.k_begin = max(q0 - window + 1, 0) / tile * tile;
+  }
+  return bd;
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;  // query rows per CTA, one thread each
+constexpr int kBK = 32;  // keys per shared-memory tile
+
+template <int D>
 __global__ void __launch_bounds__(kBQ)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int t_len,
-             int s_len, int n_heads, int n_kv, int causal, int window,
-             float scale) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 int t_len, int s_len, int n_heads, int n_kv, int causal,
+                 int window, float scale) {
   __shared__ __align__(16) float s_k[kBK][D];
   __shared__ __align__(16) float s_v[kBK][D];
   __shared__ float s_q[kBQ][D + 1];  // q in, o out; +1 avoids bank conflicts
@@ -71,7 +127,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < kBQ * D; i += kBQ) {
     const int r = i / D, d = i % D;
-    s_q[r][d] = r < rows ? load_f32(q + q_off + r * q_row + d) * scale : 0.f;
+    s_q[r][d] = r < rows ? q[q_off + r * q_row + d] * scale : 0.f;
   }
   __syncthreads();
   float qr[D], acc[D];
@@ -82,26 +138,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = kNegInf, l = 0.f;
   const int qpos = q0 + tid;
+  const Band bd = band(q0, q0 + rows - 1, s_len, causal, window, kBK);
 
-  // Does every row of the tile keep some key?  Validity only gets harder as
-  // the row grows, so the last row decides.
-  const int q_hi = q0 + rows - 1;
-  const int k_max = causal ? min(q_hi, s_len - 1) : s_len - 1;
-  const int k_min = window > 0 ? max(q_hi - window + 1, 0) : 0;
-  int k_begin = 0, k_end = s_len;
-  if (k_max >= k_min) {  // yes: skip the tiles outside every row's band
-    if (causal) k_end = min(s_len, q_hi + 1);
-    if (window > 0) k_begin = max(q0 - window + 1, 0) / kBK * kBK;
-  }
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+  for (int k0 = bd.k_begin; k0 < bd.k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed
     for (int i = tid; i < kBK * D; i += kBQ) {
       const int r = i / D, d = i % D;
       const int kp = k0 + r;
       const bool in = kp < s_len;
-      s_k[r][d] = in ? load_f32(k + kv_off + kp * kv_row + d) : 0.f;
-      s_v[r][d] = in ? load_f32(v + kv_off + kp * kv_row + d) : 0.f;
+      s_k[r][d] = in ? k[kv_off + kp * kv_row + d] : 0.f;
+      s_v[r][d] = in ? v[kv_off + kp * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -158,45 +204,307 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   for (int i = tid; i < rows * D; i += kBQ) {
     const int r = i / D, d = i % D;
-    store_f32(o + q_off + r * q_row + d, s_q[r][d]);
+    o[q_off + r * q_row + d] = s_q[r][d];
   }
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTQ = 64;     // query rows per CTA
+constexpr int kTK = 64;     // keys per K/V tile
+constexpr int kWarps = 4;   // 16 query rows a warp
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;     // bf16 elements of padding a shared-memory row
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (the
+// source is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (about 2 ulp; 0 for -inf and for
+// -1e30, 1 for 0), without exp2f's extra range handling
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats -> bf16x2, the first in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 64 rows [row0, row0 + 64) of a (rows, D) slab with `stride` elements
+// between rows -> shared memory; rows >= n_rows are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16 (*dst)[D + kPad],
+                                          const bf16* __restrict__ src,
+                                          int row0, int n_rows,
+                                          int64_t stride) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = row0 + r < n_rows;
+    cp_async16(&dst[r][c], src + (in ? row0 + r : 0) * stride + c, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 4)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  int t_len, int s_len, int n_heads, int n_kv, int causal,
+                  int window, float scale) {
+  __shared__ __align__(128) bf16 s_q[kTQ][D + kPad];  // q in, o out
+  __shared__ __align__(128) bf16 s_k[2][kTK][D + kPad];
+  __shared__ __align__(128) bf16 s_v[2][kTK][D + kPad];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
+  const int b = blockIdx.x / n_heads;
+  const int h = blockIdx.x % n_heads;
+  const int g = h / (n_heads / n_kv);                  // GQA: kv head h / rep
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTQ;   // heaviest tiles first
+  const int q_hi = min(q0 + kTQ, t_len) - 1;
+  const int64_t q_row = (int64_t)n_heads * D;          // stride between tokens
+  const int64_t kv_row = (int64_t)n_kv * D;
+  const int64_t q_off = (int64_t)b * t_len * q_row + (int64_t)h * D;
+  const int64_t kv_off = (int64_t)b * s_len * kv_row + (int64_t)g * D;
+  const bf16* kb = k + kv_off;
+  const bf16* vb = v + kv_off;
+
+  const Band bd = band(q0, q_hi, s_len, causal, window, kTK);
+  const int n_tiles = (bd.k_end - bd.k_begin + kTK - 1) / kTK;
+
+  load_tile<D>(s_q, q + q_off, q0, t_len, q_row);
+  load_tile<D>(s_k[0], kb, bd.k_begin, s_len, kv_row);
+  load_tile<D>(s_v[0], vb, bd.k_begin, s_len, kv_row);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];   // this warp's 16 q rows as A fragments
+  float acc[D / 8][4];      // O, 16 rows x D
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // rows gr and gr + 8 (base-2 scores)
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the sums
+  const int qp[2] = {q0 + warp * 16 + gr, q0 + warp * 16 + gr + 8};
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = bd.k_begin + it * kTK;
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_tile<D>(s_k[buf ^ 1], kb, k0 + kTK, s_len, kv_row);
+      load_tile<D>(s_v[buf ^ 1], vb, k0 + kTK, s_len, kv_row);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        ldsm_x4(qf[kc],
+                &s_q[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
+    }
+
+    // S = Q K^T: 16 rows x 64 keys, as 8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t kf[4];  // B fragments of key tiles 2jp and 2jp + 1
+        ldsm_x4(kf, &s_k[buf][jp * 16 + (lane & 7) + ((lane >> 4) << 3)]
+                         [kc * 16 + ((lane >> 3) & 1) * 8]);
+        mma_bf16(s[2 * jp], qf[kc], kf[0], kf[1]);
+        mma_bf16(s[2 * jp + 1], qf[kc], kf[2], kf[3]);
+      }
+    }
+
+    // scale to base 2; mask only where the band's edge or S crosses the tile
+    const bool inside = k0 + kTK <= s_len && (!causal || k0 + kTK - 1 <= q0) &&
+                        (window <= 0 || k0 > q_hi - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (!inside) {
+          const int kp = k0 + j * 8 + tc * 2 + (e & 1);
+          const int row = qp[e >> 1];
+          const bool keep = (!causal || kp <= row) &&
+                            (window <= 0 || kp > row - window);
+          x = kp >= s_len ? -INFINITY : (keep ? x : kNegInf);
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // online softmax: row max across the quad, rescale, P = 2^(S - max)
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    float alpha[2], p_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = fast_exp2(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - mx[e >> 1]);
+        p_sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + p_sum[r];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V, 16 keys a step; P in bf16 as the A operand
+#pragma unroll
+    for (int kc = 0; kc < kTK / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t vf[4];  // B fragments of d tiles 2np and 2np + 1
+        ldsm_x4_trans(vf, &s_v[buf][kc * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8]
+                               [np * 16 + (lane >> 4) * 8]);
+        mma_bf16(acc[2 * np], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * np + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this buffer is consumed before it is loaded again
+  }
+
+  // epilogue: the row sums across the quad, O / l through the warp's own
+  // rows of s_q (no other warp reads them), 16 bytes a lane to global
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    den[r] = fmaxf(l_run[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + tc * 2;
+    *reinterpret_cast<uint32_t*>(&s_q[warp * 16 + gr][c]) =
+        pack_bf16(acc[n][0] / den[0], acc[n][1] / den[0]);
+    *reinterpret_cast<uint32_t*>(&s_q[warp * 16 + gr + 8][c]) =
+        pack_bf16(acc[n][2] / den[1], acc[n][3] / den[1]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+  bf16* ob = o + q_off;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = warp * 16 + i / kChunks, c = (i % kChunks) * 8;
+    if (q0 + r < t_len)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * q_row + c) =
+          *reinterpret_cast<const uint4*>(&s_q[r][c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int t_len, int s_len, int n_heads, int n_kv, int causal,
-           int window, float scale, cudaStream_t stream) {
-  const dim3 grid(batch * n_heads, (t_len + kBQ - 1) / kBQ);
-  flash_kernel<T, D><<<grid, kBQ, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, t_len, s_len, n_heads,
-      n_kv, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(int head_dim, const void* q, const void* k, const void* v,
-             void* o, int batch, int t_len, int s_len, int n_heads, int n_kv,
-             int causal, int window, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
-                           causal, window, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
-                           causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
-                           causal, window, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+           int window, int is_bf16, float scale, cudaStream_t stream) {
+  if (is_bf16) {
+    const dim3 grid(batch * n_heads, (t_len + kTQ - 1) / kTQ);
+    flash_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, t_len,
+        s_len, n_heads, n_kv, causal, window, scale);
+  } else {
+    const dim3 grid(batch * n_heads, (t_len + kBQ - 1) / kBQ);
+    flash_f32_kernel<D><<<grid, kBQ, 0, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, t_len,
+        s_len, n_heads, n_kv, causal, window, scale);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,T,H,D), k/v (B,S,KV,D), o (B,T,H,D), all contiguous and of one dtype
-// (is_bf16 ? bfloat16 : float32).  window <= 0 means none.  Returns the
-// cudaGetLastError() of the launch.
+// (is_bf16 ? bfloat16, 16-byte aligned : float32).  window <= 0 means none.
+// Returns the cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int batch,
                                       int t_len, int s_len, int n_heads,
@@ -204,9 +512,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, int is_bf16, float scale,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(head_dim, q, k, v, o, batch, t_len, s_len,
-                                   n_heads, n_kv, causal, window, scale, st);
-  return launch_d<float>(head_dim, q, k, v, o, batch, t_len, s_len, n_heads,
-                         n_kv, causal, window, scale, st);
+  switch (head_dim) {
+    case 16:
+      return launch<16>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
+                        causal, window, is_bf16, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
+                        causal, window, is_bf16, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
+                        causal, window, is_bf16, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,12 +2,14 @@
 layer.
 
 The port of the JAX package's ``kernels/flash_attention.py``.  The CUDA
-kernel (``csrc/flash_attention.cu``) keeps the JAX layout — q (B,T,H,D),
+source (``csrc/flash_attention.cu``) keeps the JAX layout — q (B,T,H,D),
 k/v (B,S,KV,D), no transposes outside the kernel — with one CTA per
 (batch x head, 64-row q tile) looping over kv tiles, an online float32
 softmax, causal and window masks by index and GQA by index (q head h reads
 kv head h // (H/KV)).  It takes float32 or bfloat16, any T and S, and head
-dims 16, 32 and 64.
+dims 16, 32 and 64.  bfloat16 runs on the tensor cores (``mma.sync``, P
+rounded to bfloat16 before P·V, the only rounding beyond the reference's);
+float32 runs on the CUDA cores in full float32.
 
 ``flash_attention`` routes by device: a CPU tensor takes the plain version
 (``flash_attention_plain``, the ``ref.py`` counterpart), a CUDA tensor
@@ -59,6 +61,11 @@ def _check(q, k, v, window):
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k, v must start on "
+                         "16-byte boundaries (the kernel copies 16-byte "
+                         "chunks)")
 
 
 def _launch(q, k, v, causal: bool, window):

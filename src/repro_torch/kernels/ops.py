@@ -1,5 +1,7 @@
 """Counting wrappers around the kernels the record readers, the adaptive
-build and the LM layers (prefill attention, the Mamba1 scan) call.
+build and the LM layers (prefill attention, the Mamba1 scan) call, and
+around the two standalone primitives the fused reader inlines
+(``index_search``, ``pax_scan``).
 
 Routing follows the tensor: a CPU tensor takes the kernel's plain PyTorch
 version, a CUDA tensor launches the hand-written kernel or raises — there
@@ -10,11 +12,13 @@ Counters (the contract of the JAX package's ``kernels/ops.py``):
 
 * ``DISPATCH_COUNTS`` — one per wrapper call, whichever route it takes
   (``hail_read`` once per split, plus scan-mode and verification counts;
-  ``attention`` and ``selective_scan`` once per layer and prefill);
+  ``attention`` and ``selective_scan`` once per layer and prefill;
+  ``index_search`` and ``pax_scan`` once per call);
 * ``TRACE_COUNTS`` — kernel variants built or selected for the first time
-  in this process (the counterpart of a jit retrace).  The reader has one
-  variant, since query ranges and batch width are runtime values, so new
-  ranges never add to it;
+  in this process (the counterpart of a jit retrace).  The reader,
+  ``index_search`` and ``pax_scan`` have one variant each, since query
+  ranges, batch width and tile size are runtime values, so new ranges
+  never add to it;
 * ``KERNEL_LAUNCHES`` — per kernel, the calls that really launched CUDA
   work (``_build.check`` counts them; the plain versions never do).
 
@@ -31,7 +35,9 @@ import torch
 
 from repro_torch.core import checksum as _ck
 from repro_torch.kernels import (_build, block_sort, flash_attention,
-                                 hail_reader, ref, selective_scan as _scan)
+                                 hail_reader, index_search as _search,
+                                 pax_scan as _pax, ref,
+                                 selective_scan as _scan)
 from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
 from repro_torch.obs import trace as _obs_trace
 
@@ -183,6 +189,30 @@ def hail_read_batch(mins, keys, proj, bad, use_index, lohi, *,
                              "full_blocks": int(u.shape[0]) - n_idx})
     return _read("hail_read_batch", mins, keys, proj, bad, u, lohi,
                  partition_size)
+
+
+def index_search(mins, lo, hi):
+    """Root-directory lookup: mins (blocks, P) sorted -> (blocks, 2) int32
+    [p_first, p_last], by the port's lower-bound rule."""
+    DISPATCH_COUNTS["index_search"] += 1
+    if not _USE_KERNELS:
+        return ref.index_search(mins, lo, hi)
+    if mins.is_cuda:
+        TRACE_COUNTS["index_search"] += _build.note_variant("index_search",
+                                                            None)
+    return _search.index_search(mins, lo, hi)
+
+
+def pax_scan(key_col, proj, lo, hi):
+    """Single-block range scan -> (mask, masked proj, per-tile counts) from
+    the kernel route, (mask, masked proj, 0-d total) under
+    ``use_kernels(False)``: the JAX package's two contracts."""
+    DISPATCH_COUNTS["pax_scan"] += 1
+    if not _USE_KERNELS:
+        return ref.pax_scan(key_col, proj, lo, hi)
+    if key_col.is_cuda:
+        TRACE_COUNTS["pax_scan"] += _build.note_variant("pax_scan", None)
+    return _pax.pax_scan(key_col, proj, lo, hi)
 
 
 def attention(q, k, v, *, causal=True, window=None):

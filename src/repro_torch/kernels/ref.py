@@ -38,6 +38,14 @@ def index_search(mins: torch.Tensor, lo, hi) -> torch.Tensor:
     return torch.stack([first, last], dim=-1)
 
 
+def pax_scan(key_col: torch.Tensor, proj: torch.Tensor, lo, hi):
+    """key_col (rows,), proj (rows, C) -> (mask (rows,) bool, proj masked to
+    0, 0-d int32 count of the rows kept)."""
+    mask = (key_col >= lo) & (key_col <= hi)
+    out = torch.where(mask[:, None], proj, 0)
+    return mask, out, mask.sum(dtype=torch.int32)
+
+
 def hail_read(mins, keys, proj, bad, use_index, lo, hi, *,
               partition_size: int):
     """Fused split reader: per-block root lookup + pruned range scan.

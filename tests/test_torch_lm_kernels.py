@@ -17,7 +17,8 @@ from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: 
 from repro.kernels.selective_scan import selective_scan as jax_scan  # noqa: E402
 from repro.models import mamba as jax_mamba  # noqa: E402
 from repro_torch.kernels import (_build, block_sort, flash_attention,  # noqa: E402
-                                 hail_reader, ops, ref, selective_scan)
+                                 hail_reader, index_search, ops, pax_scan,
+                                 ref, selective_scan)
 
 F32_TOL = 2e-5      # tests/test_kernels.py, flash attention in float32
 BF16_TOL = 2e-2     # tests/test_kernels.py, flash attention in bfloat16
@@ -154,6 +155,7 @@ def test_cpu_route_counts_dispatches_not_launches():
     ("gqa", "inconsistent shapes"),
     ("layout", "contiguous"),
     ("window", "window"),
+    ("align", "16-byte boundaries"),
 ])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     """The checks run before any launch, so they hold on the CPU too."""
@@ -169,6 +171,9 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
         k = v = torch.zeros((1, 8, 3, 16))
     elif bad == "layout":
         q = torch.zeros((1, 4, 8, 16)).transpose(1, 2)
+    elif bad == "align":     # a contiguous bf16 view 2 bytes into its buffer
+        q, k, v = (torch.zeros(t.numel() + 1, dtype=torch.bfloat16)[1:]
+                   .view(t.shape) for t in (q, k, v))
     else:
         window = 0
     with pytest.raises(ValueError, match=match):
@@ -200,6 +205,8 @@ def test_scan_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     (selective_scan, "selective_scan_launch"),
     (hail_reader, "hail_read_launch"),
     (block_sort, "bitonic_sort_launch"),
+    (index_search, "index_search_launch"),
+    (pax_scan, "pax_scan_launch"),
 ])
 def test_ctypes_signature_matches_the_c_entry_point(module, entry):
     """``ctypes`` passes exactly the arguments the C entry point declares,
