@@ -38,10 +38,11 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             output on the kernel route against the plain route from the
             same input, and the logits of both routes; walls, tokens/s,
             parameter bytes, peak memory, and one profiled prefill and
-            decode step;
+            decode step (with the kernel's share of the device time);
 8. times    each kernel's own device time (from the CUDA profiler) against
             its bound, its plain version's and, where one exists, a library
-            call's, each beside CUDA events around back-to-back calls.
+            call's, each beside CUDA events around back-to-back calls (the
+            sort at one block and at 16).
 
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
@@ -78,9 +79,10 @@ INT32_MAX = 2**31 - 1
 SERVE = (("llama3.2-1b", "flash_attention"),
          ("falcon-mamba-7b", "selective_scan"))
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
-# the CUDA function each serving kernel launches in bf16 (profiler names)
+# the CUDA function each serving kernel launches (profiler names; the range
+# scan's is "scan_kernel", which no other name contains)
 KERNEL_NAMES = {"flash_attention": "flash_bf16_kernel",
-                "selective_scan": "scan_kernel"}
+                "selective_scan": "selective_scan_lanes"}
 # Kernel against plain version, max abs error: the JAX package's own
 # tolerances (tests/test_kernels.py): float32 attention 2e-5, bfloat16
 # attention 2e-2 (one bf16 step of outputs of magnitude < 4), scan 1e-4
@@ -227,18 +229,27 @@ def reader_bound(inputs, outputs, partition_size):
     return bound_ms(n_bytes, 2 * live * n_q)
 
 
-def sort_inputs(rng, b, n):
-    """Heavy duplicates and INT32_MAX bad-row sentinels."""
-    keys = rng.integers(7000, 7050, (b, n)).astype(np.int32)
-    keys[rng.random((b, n)) < 0.01] = INT32_MAX
-    return torch.from_numpy(keys).cuda()
+def sort_inputs(rng, b, n, kind="dupes"):
+    """Heavy duplicates and INT32_MAX bad-row sentinels; or one key value
+    throughout ("equal"), or keys over all of int32 ("full")."""
+    if kind == "equal":
+        keys = np.full((b, n), -7, np.int32)
+    elif kind == "full":
+        keys = rng.integers(-2**31, INT32_MAX, (b, n), endpoint=True)
+    else:
+        keys = rng.integers(7000, 7050, (b, n))
+        keys[rng.random((b, n)) < 0.01] = INT32_MAX
+    return torch.from_numpy(keys.astype(np.int32)).cuda()
 
 
 def sort_bound(keys):
+    """Keys read once, sorted keys and the permutation written once, against
+    the radix sort's integer work: per key and 8-bit digit, its extraction
+    (xor, shift, mask) and its count in the histogram, then its rank and
+    place in the digit's pass (a compare, an add, an address): 7 operations
+    for each of 4 digits."""
     b, n = keys.shape
-    log_n = n.bit_length() - 1
-    exchanges = b * n // 2 * log_n * (log_n + 1) // 2
-    return bound_ms(b * n * 12, exchanges)
+    return bound_ms(b * n * 12, 7 * 4 * b * n)
 
 
 def attn_inputs(b, t, s, h, kv, d, dtype):
@@ -363,17 +374,22 @@ def phase_kernels(rng):
                              "rows_kept": int(got[0].any(-1).sum()),
                              "max_abs_err": max_abs_err(got, want)})
     sort_cases = []
-    for b, n in [(1, ROWS), (16, ROWS), (4, 1024)]:
-        keys = sort_inputs(rng, b, n)
+    # the main path's shape, then one tile padded (n < 4096), one tile,
+    # several, a block of one key and keys over all of int32
+    for b, n, kind in [(1, ROWS, "dupes"), (16, ROWS, "dupes"),
+                       (4, 1024, "dupes"), (3, 2, "dupes"), (2, 64, "full"),
+                       (1, 4096, "dupes"), (2, 8192, "equal"),
+                       (2, 1 << 16, "full")]:
+        keys = sort_inputs(rng, b, n, kind)
         got = block_sort.bitonic_sort(keys)
         want = block_sort.bitonic_sort_plain(keys)
         lib = ref.sort_by_key(keys)
         torch.cuda.synchronize()
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"bitonic_sort kernel == plain at ({b}, {n})")
+              f"bitonic_sort kernel == plain at ({b}, {n}) {kind}")
         check(all(torch.equal(g, w) for g, w in zip(got, lib)),
-              f"bitonic_sort kernel == stable argsort at ({b}, {n})")
-        sort_cases.append({"blocks": b, "n": n,
+              f"bitonic_sort kernel == stable argsort at ({b}, {n}) {kind}")
+        sort_cases.append({"blocks": b, "n": n, "keys": kind,
                            "max_abs_err": max_abs_err(got, want)})
     search_cases = []
     for b, parts in [(BLOCKS, 512), (3, 8), (5, 64), (13, 7), (1, 1),
@@ -561,10 +577,12 @@ def profile_job(run, match: str | None = None) -> dict:
                                  + (ev["ts"] - opened[key].pop()) / 1e3)
         elif ev["ph"] == "X" and ev["name"] not in ("split", "job"):
             spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    kernel_ms = sum(device_us(e) for e in matched) / 1e3
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
             "top_device_ms": [[e.key[:160], device_us(e) / 1e3] for e in top],
-            "kernel_device_ms": sum(device_us(e) for e in matched) / 1e3,
+            "kernel_device_ms": kernel_ms,
+            "kernel_share_of_busy": kernel_ms / busy_ms if busy_ms else 0.0,
             "kernel_calls": sum(e.count for e in matched),
             "host_span_ms": spans}
 
@@ -946,7 +964,7 @@ def main() -> int:
     check(all(j.results["n_rows"] == hail_job.results["n_rows"]
               for j in jobs), "adaptive rows == eager rows")
     check(adaptive_launches.get("bitonic_sort", 0) > 0,
-          "adaptive builds sort with the bitonic kernel")
+          "adaptive builds sort with the sort kernel")
     check(adaptive_launches.get("hail_read", 0) == sum(j.n_tasks
                                                         for j in jobs),
           "one fused reader launch per adaptive split")
@@ -1032,7 +1050,7 @@ def main() -> int:
         "delta/x (4,512,8192) b/c (4,512,16) a (8192,16) f32",
         lambda: selective_scan.selective_scan(*inputs),
         lambda: ref.selective_scan(*inputs),
-        scan_bound(inputs[0], inputs[2]), "scan_kernel")
+        scan_bound(inputs[0], inputs[2]), KERNEL_NAMES["selective_scan"])
     del inputs
 
     # the two primitives with their bounds on the card, as a caller that
@@ -1061,6 +1079,11 @@ def main() -> int:
     emit("times", cases=timed)
 
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
+    sort_shapes = {k: {f: timed[k][f] for f in ("shape", "ms", "events_ms",
+                                                 "library_ms",
+                                                 "library_events_ms",
+                                                 "bound_ms")}
+                   for k in ("sort_1x2^19", "sort_16x2^19")}
     flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
     search, pax = timed["index_search_64x512"], timed["pax_scan_2^19x2"]
     kernels = [
@@ -1080,7 +1103,7 @@ def main() -> int:
          "max_abs_err": errs["bitonic_sort"], "ms": sort["ms"],
          "plain_ms": sort["plain_ms"], "bound_ms": sort["bound_ms"],
          "bound_by": sort["bound_by"], "library_ms": sort["library_ms"],
-         "shape": sort["shape"]},
+         "shape": sort["shape"], "shapes": sort_shapes},
         {"name": "index_search", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/index_search.cu",
          "replaces": "src/repro/kernels/index_search.py:22",

@@ -1,15 +1,19 @@
-"""Stable bitonic block sort: the adaptive index build's per-block sort.
+"""Stable block sort: the adaptive index build's per-block sort.
 
-The port of the JAX package's ``kernels/block_sort.py``.  The network sorts
-each block's int32 keys under the lexicographic (key, original position)
-comparator, so its permutation is the stable argsort an eager upload
-produces; ``ops.sort_block`` then gathers every PAX column by it.
+The port of the JAX package's ``kernels/block_sort.py``.  Its bitonic
+network sorts each block's int32 keys under the lexicographic (key,
+original position) comparator, so its permutation is the stable argsort an
+eager upload produces; ``ops.sort_block`` then gathers every PAX column by
+it.  ``bitonic_sort_plain`` runs that network with tensor operations.
 
-The CUDA kernel (``csrc/block_sort.cu``) sorts tiles of up to 4096 elements
-in shared memory and runs the longer-distance steps of a 2^19-row block as
-global-memory passes.  ``bitonic_sort_plain`` runs the same network with
-tensor operations.  ``bitonic_sort`` routes by device: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel or raises.
+The CUDA kernel (``csrc/block_sort.cu``) computes the same function as a
+stable LSD radix sort over four 8-bit digits, in the one-sweep style: one
+histogram launch and one launch per digit, each tile's digit offsets from
+decoupled look-back.  A stable radix sort's permutation is the stable
+argsort, bit for bit, and it moves each key four times where the network
+makes log n (log n + 1) / 2 steps (36 launches for a 2^19-row block).
+``bitonic_sort`` routes by device: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -19,7 +23,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+TILE = 4096      # keys a CTA ranks in one digit pass (csrc kTile)
+DIGITS = 4       # 8-bit digit passes over 32-bit keys
+RADIX = 256
 
 
 def _compare_exchange(keys, perm, j: int, k: int):
@@ -65,15 +72,28 @@ def _launch(keys: torch.Tensor):
     if not keys.is_contiguous():
         raise ValueError("bitonic_sort: keys must be contiguous")
     b, n = keys.shape
+    if n >= 1 << 30:
+        raise ValueError(f"bitonic_sort: {n} rows do not fit the kernel's "
+                         f"30-bit counts")
     out = torch.empty_like(keys)
     perm = torch.empty_like(keys)
     if b == 0 or n == 0:
         return out, perm
+    tmp_keys = torch.empty_like(keys)
+    tmp_perm = torch.empty_like(keys)
+    tiles = max(1, n // TILE)
+    # one zeroed allocation: the histogram (b, 4, 256), the look-back words
+    # (4, b, tiles, 256) and the tile counters (4, b)
+    n_hist, n_status = b * DIGITS * RADIX, DIGITS * b * tiles * RADIX
+    scratch = torch.zeros(n_hist + n_status + DIGITS * b, dtype=torch.int32,
+                          device=keys.device)
+    hist, status, counters = scratch.split([n_hist, n_status, DIGITS * b])
     fn = _build.entry("bitonic_sort_launch", _ARGTYPES)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        code = fn(keys.data_ptr(), out.data_ptr(), perm.data_ptr(), b, n,
-                  stream)
+        code = fn(keys.data_ptr(), out.data_ptr(), perm.data_ptr(),
+                  tmp_keys.data_ptr(), tmp_perm.data_ptr(), hist.data_ptr(),
+                  status.data_ptr(), counters.data_ptr(), b, n, stream)
     _build.check("bitonic_sort", code)
     return out, perm
 

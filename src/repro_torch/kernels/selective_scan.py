@@ -2,10 +2,13 @@
 launch per layer.
 
 The port of the JAX package's ``kernels/selective_scan.py``.  The CUDA
-kernel (``csrc/selective_scan.cu``) runs the time loop inside the thread:
-one thread per (batch, channel) keeps its N <= 16 states in registers from
-a zero state to ``h_final``, with coalesced loads of delta and x and the
-B_t, C_t rows staged in shared memory.
+kernel (``csrc/selective_scan.cu``, function ``selective_scan_lanes``) runs
+the time loop sequentially inside the thread, with each channel's N <= 16
+states split over 1, 2 or 4 neighbouring lanes (4 at N = 16) and kept in
+registers from a zero state to ``h_final``, each lane working on two
+channels that share its reads of B_t and C_t; delta, x and the B_t, C_t rows
+come through a 3-stage ``cp.async`` ring in shared memory, and y is summed
+over the lanes by a shuffle butterfly and stored as coalesced rows.
 
 ``selective_scan`` routes by device: a CPU tensor takes the plain version
 (``selective_scan_plain``, the ``ref.py`` counterpart), a CUDA tensor
