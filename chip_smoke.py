@@ -29,6 +29,17 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             every block's root directory, ``ops.pax_scan`` on each block's
             selected partitions), against the fused reader's rows;
 5. shared   one split read for 8 queries at once against 8 single reads;
+5b. server  HAIL serving on the eager store: 8 queries of 4 tenants through
+            ``HailServer`` flushes (one reader launch per split and batch,
+            each ticket's rows == its own job's), re-flushed from the
+            result cache (exact and subsumed hits, no launch) and from the
+            block cache (no verification); then 4 corrupted (replica,
+            block) pairs found by a flush and by the scrubber and repaired
+            bit-equal to copies taken before (2 sort launches per repaired
+            indexed block); then a ReplicationController adding a replica
+            for the unindexed duration column (one batched sort of
+            (64, 2^19)), bit-equal to its reference permutation, claimed
+            and built on by an adaptive flush, and decommissioned;
 6. adaptive a lazy upload that 6 adaptive jobs converge to fully indexed,
             then one eager, HDFS, building and converged job each again
             under the CUDA profiler: device-busy time and host spans;
@@ -42,7 +53,7 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
 8. times    each kernel's own device time (from the CUDA profiler) against
             its bound, its plain version's and, where one exists, a library
             call's, each beside CUDA events around back-to-back calls (the
-            sort at one block and at 16).
+            sort at one block, at 16 and at 64).
 
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
@@ -354,15 +365,17 @@ def phase_kernels(rng):
                                      selective_scan)
 
     reader_cases = []
-    for b, rows, parts, q, mix in [(16, ROWS, 512, 1, True),
-                                   (16, ROWS, 512, 8, True),
-                                   (16, ROWS, 512, 1, False),
-                                   (1, ROWS, 512, 1, True),
-                                   (2, ROWS, 512, 1, False),
-                                   (4, 1024, 8, 1, True),
-                                   (4, 1024, 8, 8, True)]:
+    # the server's batches read (visitDate, sourceIP, __rowid__): C = 3
+    for b, rows, parts, q, mix, c in [(16, ROWS, 512, 1, True, 2),
+                                      (16, ROWS, 512, 8, True, 2),
+                                      (2, ROWS, 512, 8, False, 3),
+                                      (16, ROWS, 512, 1, False, 2),
+                                      (1, ROWS, 512, 1, True, 2),
+                                      (2, ROWS, 512, 1, False, 2),
+                                      (4, 1024, 8, 1, True, 2),
+                                      (4, 1024, 8, 8, True, 2)]:
         uidx = (np.arange(b) % 3 != 2) if mix else np.zeros(b, bool)
-        inputs = reader_inputs(rng, b, rows, parts, 2, q, uidx)
+        inputs = reader_inputs(rng, b, rows, parts, c, q, uidx)
         ps = rows // parts
         got = hail_reader.hail_read_batch(*inputs, partition_size=ps)
         want = ref.hail_read_batch(*inputs, partition_size=ps)
@@ -370,13 +383,15 @@ def phase_kernels(rng):
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         check(equal, f"hail_read kernel == plain at B={b} R={rows} Q={q}")
         reader_cases.append({"blocks": b, "rows": rows, "parts": parts,
-                             "queries": q, "mixed_index": mix,
+                             "cols": c, "queries": q, "mixed_index": mix,
                              "rows_kept": int(got[0].any(-1).sum()),
                              "max_abs_err": max_abs_err(got, want)})
     sort_cases = []
-    # the main path's shape, then one tile padded (n < 4096), one tile,
+    # the main path's shapes (a repaired block, an adaptive build, a donor
+    # replica of add_replica), then one tile padded (n < 4096), one tile,
     # several, a block of one key and keys over all of int32
     for b, n, kind in [(1, ROWS, "dupes"), (16, ROWS, "dupes"),
+                       (BLOCKS, ROWS, "dupes"),
                        (4, 1024, "dupes"), (3, 2, "dupes"), (2, 64, "full"),
                        (1, 4096, "dupes"), (2, 8192, "equal"),
                        (2, 1 << 16, "full")]:
@@ -659,6 +674,255 @@ def phase_two_kernel_read(store, query) -> dict:
     return launches
 
 
+def phase_hail_server(store, query_rows) -> dict:
+    """HAIL serving on the eager store: eight tenants' queries through
+    ``HailServer`` flushes over both cache tiers, corruption found on the
+    read path and by the scrubber and repaired bit for bit, then heat-driven
+    replication adding a replica that an adaptive flush claims and builds
+    on, and its decommission.  ``query_rows(query)`` gives a query's sorted
+    row ids from its own ``run_job``.  Returns the kernel launches of the
+    phase's flushes, repairs and replica transitions."""
+    from repro_torch.core import checksum as ck
+    from repro_torch.core import governor as gv
+    from repro_torch.core import mapreduce as mr
+    from repro_torch.core import query as q
+    from repro_torch.core import schema as sc
+    from repro_torch.core.fault import FaultInjector
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.runtime.jobserver import (FlushPolicy, HailServer,
+                                               ServerConfig, ServerFrontend)
+    from repro_torch.runtime.scrubber import ScrubConfig, Scrubber
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    proj = ("visitDate", "sourceIP")
+    los = [7000, 7400, 8000, 9000, 10000, 10500, 11000, 11900]
+    queries = [q.HailQuery(filter=("visitDate", lo, lo + 155 + 10 * i),
+                           projection=proj) for i, lo in enumerate(los)]
+    want = [query_rows(qq) for qq in queries]
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+
+    def server(**cfg) -> HailServer:
+        """A server with fresh caches of both tiers."""
+        store.block_cache = store.result_cache = None
+        return HailServer(store, ServerConfig(max_batch=8, **cfg))
+
+    def counted(name: str, fn):
+        """Run ``fn`` with the launch counts set to 0; its wall (ending in
+        a synchronize) lands in ``walls[name]``, its launches are added to
+        the phase's and returned."""
+        ops.KERNEL_LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        got = dict(ops.KERNEL_LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, got
+
+    def flush(name: str, srv, qs, **kw):
+        tickets = [srv.submit(qq, tenant=f"tenant{i % 4}")
+                   for i, qq in enumerate(qs)]
+        with ops.stats_scope() as s:
+            stats, got = counted(name, lambda: srv.flush(**kw))
+        check(all(t.status == "done" for t in tickets), f"{name}: answered")
+        return tickets, stats, got, s.dispatches
+
+    def ids(t):
+        return np.sort(t.result.rows[sc.ROWID])
+
+    def same_answers(name, tickets):
+        check(all(np.array_equal(ids(t), w) for t, w in zip(tickets, want)),
+              f"{name}: every ticket's row ids == its own run_job's")
+
+    # --- 1. cold flush: one shared scan, one reader launch per split ------
+    srv = server()
+    tickets, cold, got, _ = flush("cold", srv, queries)
+    same_answers("cold flush", tickets)
+    outer = [t.result.rows for t in tickets]
+    check(cold.batch_sizes == [8], f"one batch of 8: {cold.batch_sizes}")
+    check(got.get("hail_read", 0) == cold.n_splits > 0,
+          f"one hail_read launch per (split, batch): {got} vs "
+          f"{cold.n_splits} splits")
+    # --- 2. tier 2: the same ranges and ranges inside them, no scan -------
+    tickets, hits, got, _ = flush("result_hit", srv, queries)
+    same_answers("result-cache flush", tickets)
+    check(hits.result_cache_hits == 8 and got.get("hail_read", 0) == 0,
+          f"the re-flush is answered by the result cache: {got}")
+    inner = [q.HailQuery(filter=("visitDate", f[1] + 20, f[2] - 20),
+                         projection=proj)
+             for f in (qq.filter for qq in queries)]
+    tickets, sub, got, _ = flush("subsumed", srv, inner)
+    subsumed = srv.result_cache.stats.subsumed_hits
+    for t, qq, rows in zip(tickets, inner, outer):
+        keep = (rows["visitDate"] >= qq.filter[1]) & (
+            rows["visitDate"] <= qq.filter[2])
+        check(np.array_equal(ids(t), np.sort(rows[sc.ROWID][keep])),
+              f"subsumed answer == the cold answer cut to {qq.filter}")
+    check(sub.result_cache_hits == 8 and subsumed == 8
+          and got.get("hail_read", 0) == 0,
+          f"contained ranges are subsumed hits: {subsumed}, {got}")
+    result_hit_rate = srv.result_cache.stats.hit_rate
+    # --- 3. tier 1: a warm re-flush gathers from the block cache ----------
+    srv = server(result_cache=False)
+    flush("block_fill", srv, queries)
+    tickets, warm, got, disp = flush("block_warm", srv, queries)
+    same_answers("warm block-cache flush", tickets)
+    check(warm.cache_misses == 0 and warm.cache_hits > 0
+          and disp.get("verify_blocks", 0) == 0,
+          f"every gather hits the block cache, no verify: "
+          f"{warm.cache_hits} hits, {warm.cache_misses} misses, "
+          f"{disp.get('verify_blocks', 0)} verifies")
+    check(got.get("hail_read", 0) == warm.n_splits,
+          "the warm flush still reads once per (split, batch)")
+    block_hit_rate = srv.cache.stats.hit_rate
+    # latency as ServerFrontend reports it for the eight queries
+    fe = ServerFrontend(server(), FlushPolicy(window_s=0.05))
+
+    def offer_all():
+        for i, qq in enumerate(queries):
+            fe.offer(qq, tenant=f"tenant{i % 4}", at=0.001 * i)
+        fe.drain()
+
+    counted("frontend", offer_all)
+    check(len(fe.latencies) == 8 and not fe.failed,
+          "the frontend answers the eight queries")
+    profile = profile_job(lambda: flush("profiled", server(), queries),
+                          match="reader_kernel")
+
+    # --- 4. faults: read-path quarantine, scrubber, bit-exact repair ------
+    rid = {k: store.replica_for(k) for k in ("visitDate", "sourceIP",
+                                             "adRevenue")}
+    n = store.n_blocks                   # blocks 5, 40, 17, 33 of 64
+    targets = [(rid["visitDate"], n * 5 // 64), (rid["visitDate"], n * 5 // 8),
+               (rid["sourceIP"], n * 17 // 64), (rid["adRevenue"], n * 33 // 64)]
+    clones = {(r, b): ({c: v[b].clone() for c, v in
+                        store.replicas[r].cols.items()},
+                       store.replicas[r].mins[b].clone(),
+                       {c: v[b].clone() for c, v in
+                        store.replicas[r].checksums.items()})
+              for r, b in targets}
+    inj = FaultInjector(store, seed=SEED)
+    events = [inj.corrupt_chunk(*targets[0], col="visitDate"),
+              inj.corrupt_chunk(*targets[1], col="sourceIP"),
+              inj.corrupt_root(*targets[2]),
+              inj.truncate_checksums(*targets[3], col="adRevenue")]
+    corrupted = {(e.replica_id, e.block_id) for e in events}
+    tracer = trace.install()
+    try:
+        tickets, faulty, got_faulty, _ = flush("faulty", server(), queries)
+        same_answers("flush over corrupt blocks", tickets)
+        on_read = {(r, b) for r, b in corrupted
+                   if store.is_quarantined(r, b)}
+        check(on_read == set(targets[:2]) and faulty.blocks_quarantined == 2,
+              f"the flush quarantines the visitDate replica's corrupt "
+              f"blocks it reads: {sorted(on_read)}")
+        scrubber = Scrubber(store, ScrubConfig(blocks_per_tick=64))
+        pairs = len(store.live_replica_ids()) * store.n_blocks
+        ticks = -(-pairs // 64)          # one revolution over every pair
+        _, got_scrub = counted("scrub", lambda: [scrubber.tick()
+                                                  for _ in range(ticks)])
+        t_repaired = tracer.now_us()
+    finally:
+        trace.uninstall()
+    quarantined = {(ev["args"]["replica"], ev["args"]["block"])
+                   for ev in tracer.events if ev.get("name") == "quarantine"}
+    first_quarantine = min(ev["ts"] for ev in tracer.events
+                           if ev.get("name") == "quarantine")
+    repair_s = sum(ev["dur"] for ev in tracer.events
+                   if ev.get("name") == "repair_blocks") / 1e6
+    sstats = scrubber.stats
+    check(quarantined == corrupted,
+          f"quarantined pairs == corrupted pairs: {sorted(quarantined)}")
+    check(sstats.blocks_repaired == 4 and not store.namenode.quarantined,
+          f"all four repaired: {sstats}")
+    for (r, b), (cols, mins, sums) in clones.items():
+        rep = store.replicas[r]
+        check(all(torch.equal(rep.cols[c][b], v) for c, v in cols.items())
+              and torch.equal(rep.mins[b], mins)
+              and all(torch.equal(rep.checksums[c][b], v)
+                      for c, v in sums.items()),
+              f"replica {r} block {b} repaired bit-equal to its clone")
+    indexed = sum(store.replicas[r].block_indexed(b) for r, b in targets)
+    check(got_scrub.get("bitonic_sort", 0) == 2 * indexed,
+          f"two sort launches per repaired indexed block: {got_scrub}")
+    del clones
+    tickets, after, _, _ = flush("repaired", server(), queries)
+    same_answers("flush after the repair", tickets)
+    check(after.blocks_quarantined == 0 and not store.namenode.quarantined,
+          "nothing quarantined after the repair")
+
+    # --- 5. replication: a hot unindexed column earns a replica -----------
+    ctl = gv.ReplicationController(store, gv.ReplicationConfig(
+        max_replication=4, hot_misses=1, n_nodes=N_NODES))
+    dq = [q.HailQuery(filter=("duration", 1000 * i, 1000 * i + 400),
+                      projection=("duration",)) for i in range(4)]
+    dur, dstats, _, _ = flush("duration", server(), dq)
+    dwant = [ids(t) for t in dur]
+    check(dstats.split_scan_modes and all(
+        n_idx == 0 for n_idx, _ in dstats.split_scan_modes),
+          "no replica indexes duration: every block full-scans")
+    added, got_add = counted("add_replica", ctl.tick)
+    check([(e.kind, e.column) for e in added] == [("add", "duration")],
+          f"one tick adds one replica for duration: {added}")
+    check(got_add.get("bitonic_sort", 0) == 1,
+          f"one batched sort for the one donor replica: {got_add}")
+    new_id = added[0].replica_id
+    new, donor = store.replicas[new_id], store.replicas[0]
+    perm = torch.sort(donor.cols[sc.ROWID], dim=-1, stable=True).indices
+    for c, v in donor.cols.items():
+        ref_col = torch.gather(v, 1, perm)
+        check(torch.equal(new.cols[c], ref_col)
+              and torch.equal(new.checksums[c],
+                              ck.batched_chunk_checksums(ref_col)),
+              f"added replica column {c} == donor permuted by the stable "
+              f"sort of __rowid__, checksums recomputed")
+        del ref_col
+    del perm
+    check(new.sort_key is None and not bool(new.mins.any()),
+          "the added replica is unclaimed")
+    adapt = server(adaptive=mr.AdaptiveConfig(offer_rate=0.25))
+    dur2, astats, got_adapt, _ = flush("adaptive", adapt, dq)
+    check(all(np.array_equal(ids(t), w) for t, w in zip(dur2, dwant)),
+          "the adaptive flush's rows == the full scan's")
+    check(new.sort_key == "duration" and astats.blocks_indexed > 0
+          and int(new.indexed.sum()) == astats.blocks_indexed
+          and got_adapt.get("bitonic_sort", 0) > 0,
+          f"the adaptive flush claims the new replica and builds on it "
+          f"with the sort kernel: {astats.blocks_indexed} blocks, "
+          f"{got_adapt}")
+    ctl.detach()
+    mem_before = torch.cuda.memory_allocated()
+    store.block_cache = store.result_cache = None
+    store.decommission_replica(new_id)
+    del new
+    freed = mem_before - torch.cuda.memory_allocated()
+    check(store.replicas[new_id].retired
+          and store.live_replica_ids() == [0, 1, 2] and freed > 0,
+          f"decommission frees the replica ({freed} bytes)")
+    emit("hail_server", blocks=store.n_blocks, queries=len(queries),
+         flush_s=walls, n_splits=cold.n_splits,
+         latency_p50_s=fe.percentile_latency(50),
+         latency_p99_s=fe.percentile_latency(99),
+         result_cache_hit_rate=result_hit_rate,
+         block_cache_hit_rate=block_hit_rate,
+         faults=[dataclasses.astuple(e) for e in events],
+         quarantined_on_read=sorted(on_read),
+         scrub_ticks=ticks, scrub=dataclasses.asdict(sstats),
+         repair_s=repair_s, repair_bytes=sstats.bytes_rewritten,
+         recover_s=(t_repaired - first_quarantine) / 1e6,
+         add_replica_s=walls["add_replica"],
+         adaptive_blocks_indexed=astats.blocks_indexed,
+         decommission_freed_bytes=freed, launches=launches,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         profile=profile, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def share(got, want) -> dict:
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     return {"max_abs_err": err, "scale": scale, "share": err / scale}
@@ -917,6 +1181,11 @@ def main() -> int:
 
     two_kernel_launches = phase_two_kernel_read(hail, query)
 
+    def query_rows(qq):
+        rows, on_split = rowid_collector()
+        mr.run_job(hail, qq, reader="kernels", on_split_complete=on_split)
+        return np.sort(np.concatenate(rows))
+
     eager_profiles = {
         "hail_job": profile_job(lambda: mr.run_job(hail, query,
                                                    reader="kernels")),
@@ -938,6 +1207,9 @@ def main() -> int:
               f"shared-scan mask == single read for {qq.filter}")
     emit("shared", blocks=len(split.block_ids), queries=len(queries),
          rows=[int(r.mask.sum()) for r in batch])
+
+    # --- 5b. server: flushes over both cache tiers, faults, replication ---
+    server_launches = phase_hail_server(hail, query_rows)
     del hail, hdfs, batch, single
     torch.cuda.empty_cache()
 
@@ -1028,7 +1300,7 @@ def main() -> int:
             lambda: ref.hail_read_batch(*inputs, partition_size=ps),
             reader_bound(inputs, out, ps), "reader_kernel")
         del inputs, out
-    for b in (1, 16):
+    for b in (1, 16, BLOCKS):           # a repair, a build, add_replica
         keys = sort_inputs(rng, b, ROWS)
         timed[f"sort_{b}x2^19"] = case(
             f"({b}, {ROWS}) int32", lambda: block_sort.bitonic_sort(keys),
@@ -1083,7 +1355,8 @@ def main() -> int:
                                                  "library_ms",
                                                  "library_events_ms",
                                                  "bound_ms")}
-                   for k in ("sort_1x2^19", "sort_16x2^19")}
+                   for k in ("sort_1x2^19", "sort_16x2^19",
+                             f"sort_{BLOCKS}x2^19")}
     flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
     search, pax = timed["index_search_64x512"], timed["pax_scan_2^19x2"]
     kernels = [
@@ -1091,6 +1364,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/hail_reader.cu",
          "replaces": "src/repro/kernels/hail_reader.py:48",
          "launches": eager_launches.get("hail_read", 0)
+         + server_launches.get("hail_read", 0)
          + adaptive_launches.get("hail_read", 0),
          "max_abs_err": errs["hail_read"], "ms": reader["ms"],
          "plain_ms": reader["plain_ms"], "bound_ms": reader["bound_ms"],
@@ -1099,7 +1373,8 @@ def main() -> int:
         {"name": "bitonic_sort", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_sort.cu",
          "replaces": "src/repro/kernels/block_sort.py:51",
-         "launches": adaptive_launches.get("bitonic_sort", 0),
+         "launches": server_launches.get("bitonic_sort", 0)
+         + adaptive_launches.get("bitonic_sort", 0),
          "max_abs_err": errs["bitonic_sort"], "ms": sort["ms"],
          "plain_ms": sort["plain_ms"], "bound_ms": sort["bound_ms"],
          "bound_by": sort["bound_by"], "library_ms": sort["library_ms"],

@@ -19,7 +19,10 @@ sort + index an offered fraction of their still-unindexed blocks — the
 bitonic ``kernels/block_sort`` kernel does the sort, the clustered root
 directory comes from ``core/index`` — and commit the result back into the
 ``BlockStore`` mid-job, so repeated jobs over the same store converge from
-all-full-scan to all-index-scan with no eager upload cost.
+all-full-scan to all-index-scan with no eager upload cost.  With an
+index governor attached (``governor.govern``), adaptive jobs also DEMOTE
+replicas to make room, and at the job boundary the store's scrubber and
+replication controller tick.
 """
 from __future__ import annotations
 
@@ -63,12 +66,16 @@ class JobStats:
     #   backed on that split (0.0 for splits that offered nothing)
     full_scan_blocks: int = 0  # blocks this job read WITHOUT an index
     modeled_s: float = 0.0     # deterministic latency: scheduling + disk
-    blocks_demoted: int = 0    # governor demotions (none without a governor)
+    blocks_demoted: int = 0    # governor: per-block indexes dropped by THIS
+    #   job's demotions (workload shift re-claiming / budget eviction)
     rekey_s: float = 0.0       # measured wall spent demoting
     demote_s: list = dataclasses.field(default_factory=list)
-    # ^ per executed split, aligned with split_s: demotion wall
+    # ^ per executed split, aligned with split_s: demotion wall charged to
+    #   the split that needed the room (0.0 otherwise)
     blocks_quarantined: int = 0  # corrupt (replica, block)s this job found
     corrupt_retries: int = 0     # splits re-planned after CorruptBlockError
+    scrub_s: float = 0.0         # background-scrubber wall at the job
+    #   boundary (verify + repair of quarantined blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,13 +138,33 @@ def adaptive_quantum(store: BlockStore, adaptive: AdaptiveConfig) -> int:
 def claim_adaptive_replica(store: BlockStore, adapt_col: str,
                            quantum: int) -> tuple[Optional[int], int, float]:
     """Pick the replica to (keep) converging toward ``adapt_col``: one
-    already keyed on it, else the first unclaimed one.  Without a governor
-    nothing is demoted to make room, so when every replica is claimed by
-    other keys there is none (``quantum`` matters only to the governor).
+    already keyed on it, else the first unclaimed one.
+
+    When every replica is claimed by other keys, ask the governor for its
+    LRU victim, demote it, and re-claim — splits already planned keep
+    reading the demoted replica as a full scan (upload order + original bad
+    mask: the row set is preserved).  Gated on (a) a usable build quantum —
+    a job that cannot rebuild must not destroy an index for nothing — and
+    (b) the governor's claim-time hysteresis (``may_reclaim``).
 
     Returns (replica_id or None, blocks demoted, demotion wall seconds).
     """
-    return store.adaptive_replica_for(adapt_col), 0, 0.0
+    governor = store.governor
+    adapt_rid = store.adaptive_replica_for(adapt_col)
+    demoted, d_wall = 0, 0.0
+    if (adapt_rid is None and governor is not None and quantum > 0
+            and governor.may_reclaim(store, adapt_col)):
+        victim = governor.victim(store, protect=(adapt_col,))
+        if victim is not None:
+            t_d = time.perf_counter()
+            demoted = store.demote_replica(victim)
+            d_wall = time.perf_counter() - t_d
+            obs_trace.complete_wall("demote", t_d, d_wall, track="adaptive",
+                                    args={"replica": victim,
+                                          "blocks": demoted,
+                                          "reclaim_for": adapt_col})
+            adapt_rid = store.adaptive_replica_for(adapt_col)
+    return adapt_rid, demoted, d_wall
 
 
 def piggyback_build(store: BlockStore, sp: Split, adapt_rid: int,
@@ -146,10 +173,13 @@ def piggyback_build(store: BlockStore, sp: Split, adapt_rid: int,
     """Adaptive piggyback for ONE full-scan split: this split already read
     its blocks — sort + index an offered few of the still-unindexed ones
     and commit them for the NEXT job (the split's own read was dispatched
-    pre-commit, on inputs the commit cannot touch).
+    pre-commit, on inputs the commit cannot touch).  Under budget pressure,
+    evict LRU victims until the offer fits, else trim it (the budget is
+    never exceeded).
 
     Returns (built, demoted, build wall seconds, demotion wall seconds).
     """
+    governor = store.governor
     if build_budget <= 0 or sp.index_scan:
         return 0, 0, 0.0, 0.0
     rep = store.replicas[adapt_rid]
@@ -158,7 +188,24 @@ def piggyback_build(store: BlockStore, sp: Split, adapt_rid: int,
              if not rep.indexed[b]
              and int(rep.nodes[b]) not in dead
              and not store.is_quarantined(adapt_rid, b)][:build_budget]
-    built, b_wall = 0, 0.0
+    demoted, d_wall, b_wall = 0, 0.0, 0.0
+    if offer and governor is not None:
+        room = governor.room(store)
+        while len(offer) > room:
+            victim = governor.victim(store, protect=(adapt_col,))
+            if victim is None:
+                offer = offer[:max(int(room), 0)]
+                break
+            t_d = time.perf_counter()
+            demoted += store.demote_replica(victim)
+            d_wall += time.perf_counter() - t_d
+            obs_trace.complete_wall("demote", t_d,
+                                    time.perf_counter() - t_d,
+                                    track="adaptive",
+                                    args={"replica": victim,
+                                          "reason": "budget"})
+            room = governor.room(store)
+    built = 0
     if offer:
         t_b = time.perf_counter()
         built = _build_block_indexes(store, adapt_rid, offer, adapt_col,
@@ -168,7 +215,7 @@ def piggyback_build(store: BlockStore, sp: Split, adapt_rid: int,
                                 track="adaptive",
                                 args={"replica": adapt_rid,
                                       "column": adapt_col, "blocks": built})
-    return built, 0, b_wall, 0.0
+    return built, demoted, b_wall, d_wall
 
 
 def failover_replan(store: BlockStore, query: q.HailQuery,
@@ -204,6 +251,21 @@ class ClusterModel:
     map_slots: int = 4
 
 
+def job_tasks(stats: JobStats) -> list:
+    """Bridge a finished job into the event-driven cluster simulator: one
+    ``runtime/scheduler.Task`` per executed split, with the measured
+    per-split read wall as the duration and the index-build and demotion
+    walls the split piggybacked charged through ``Task.index_build_s`` and
+    ``Task.rekey_s``."""
+    from repro_torch.runtime.scheduler import Task
+    demote = stats.demote_s or [0.0] * len(stats.split_s)
+    return [Task(i, dur, preferred_nodes=(), index_build_s=build,
+                 rekey_s=rekey)
+            for i, (dur, build, rekey) in enumerate(zip(stats.split_s,
+                                                        stats.build_s,
+                                                        demote))]
+
+
 def _completion_event(device: torch.device):
     """A CUDA event recorded after everything enqueued so far (None on the
     CPU, where every operation has finished when it returns)."""
@@ -235,12 +297,23 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
     keep their dispatch-time plan; the NEXT job plans against the richer
     store.  Re-queued failover splits full-scan and are offered too.
 
+    When the store carries an index governor (``governor.govern(store)``),
+    adaptive jobs also DEMOTE: if every replica is claimed by other keys,
+    the governor's LRU victim is dropped back to unclaimed so this workload
+    can re-claim it; if committing an offer would exceed the storage
+    budget, victims are evicted (or the offer trimmed) first.  Demotion
+    walls are charged per split (``JobStats.demote_s``/``rekey_s``).
+
     recovery: corruption/failover retry policy.  A split whose read-path
     verification raises ``CorruptBlockError`` quarantines the corrupt
     (replica, block) at the namenode and re-plans the split's blocks onto
     surviving replicas as per-block retry splits.  Retries are BOUNDED per
     block (``recovery.max_retries``); exhausting it, or losing every replica
     of a block, raises ``UnrecoverableDataError`` — never silent wrong rows.
+    With ``recovery.scrub`` and a scrubber attached (``store.scrubber``),
+    the job boundary also verifies a budgeted batch of blocks and repairs
+    whatever is quarantined (``JobStats.scrub_s``); an attached replication
+    controller (``store.replicator``) ticks there too.
 
     on_split_complete: streaming hook — called once per executed split, in
     completion order, as each result's barrier clears, with
@@ -383,6 +456,20 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
     if failed_node is not None:
         store.namenode.revive(failed_node)
 
+    # job boundary: budgeted background scrub (verify cold blocks, repair
+    # anything quarantined) — corruption is found before queries hit it
+    scrub_s = 0.0
+    if recovery.scrub and store.scrubber is not None:
+        t_s = time.perf_counter()
+        store.scrubber.tick()
+        scrub_s = time.perf_counter() - t_s
+        obs_trace.complete_wall("scrub_tick", t_s, scrub_s, track="job")
+
+    # job boundary: replication-controller quantum — the heat this job just
+    # wrote into the AccessLog moves replica COUNTS (add hot / retire cold)
+    if store.layout == "pax" and store.replicator is not None:
+        store.replicator.tick()
+
     mask = np.concatenate(masks, axis=0)
     out = {c: np.concatenate([d[c] for d in cols], axis=0)
            for c in cols[0]} if cols else {}
@@ -410,7 +497,7 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
                      blocks_demoted=blocks_demoted, rekey_s=sum(demote_s),
                      demote_s=demote_s,
                      blocks_quarantined=blocks_quarantined,
-                     corrupt_retries=corrupt_retries)
+                     corrupt_retries=corrupt_retries, scrub_s=scrub_s)
     obs_trace.complete_wall("job", t_start, compute_s, track="job",
                             args={"tasks": n_tasks,
                                   "bytes_read": bytes_read,

@@ -312,18 +312,36 @@ def read_hail(store: BlockStore, query: HailQuery, qplan: QueryPlan,
 def _gather_replica_inputs(store: BlockStore, rid: int, bsel: np.ndarray,
                            col: str, proj_cols: tuple):
     """Decoded reader inputs for one replica's blocks: (keys, stacked
-    projection, bad mask, root directories), verified against the stored
-    checksums first.  Each is a fresh tensor, so a later commit cannot
-    change a read already in flight."""
+    projection, bad mask, root directories).  Each is a fresh tensor, so a
+    later commit cannot change a read already in flight.
+
+    When the store carries a hot-block cache (``core/cache.BlockCache``,
+    attached by the HailServer) the gathered tensors are served from it;
+    the store's destructive transitions invalidate the touched replica's
+    entries, so a hit never observes a half-committed replica.  Checksums
+    are verified when the cache is FILLED, not when it is hit: a cached
+    gather is a separate tensor already proven against the stored
+    checksums, which nothing writes afterwards."""
+    cache = store.block_cache
+    key = (rid, tuple(int(b) for b in bsel), col, proj_cols)
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None:
+            obs_trace.instant("block_cache_hit", track="cache",
+                              args={"replica": rid, "blocks": len(bsel)})
+            return hit
     rep = store.replicas[rid]
     bt = _sel(bsel, store.device)
     with obs_trace.span("cache_fill", track="cache",
                         args={"replica": rid, "blocks": len(bsel)}):
         _verify_replica_blocks(store, rid, bsel, (col,) + proj_cols)
-        return (rep.cols[col][bt],
-                torch.stack([rep.cols[c][bt] for c in proj_cols], dim=-1),
-                _bad_mask(store, rid)[bt],
-                rep.mins[bt])
+        val = (rep.cols[col][bt],
+               torch.stack([rep.cols[c][bt] for c in proj_cols], dim=-1),
+               _bad_mask(store, rid)[bt],
+               rep.mins[bt])
+    if cache is not None:
+        cache.put(key, val)
+    return val
 
 
 def _gather_split_inputs(store: BlockStore, qplan: QueryPlan,

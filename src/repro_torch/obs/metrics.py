@@ -2,26 +2,32 @@
 
 The port's copy of the JAX package's ``obs/metrics.py`` (which is
 framework-free), with its collector pointed at this package's kernel layer.
+It makes four surfaces — ``ops.reader_stats`` counters,
+``JobStats``/``FlushStats``, the governor's ``AccessLog`` and the
+scrubber's ``ScrubStats`` — one self-describing surface:
 
 * **Instruments**: ``Counter`` (monotone), ``Gauge`` (sampled level) and
   ``Histogram`` (count/sum/min/max + nearest-rank percentiles), each keyed
-  by name + a label set (column, replica, scan-mode — whatever the call
-  site knows).
+  by name + a label set (tenant, column, replica, scan-mode, cache-tier —
+  whatever the call site knows).
 * **Collectors**: pull adapters registered on the registry and run at
   ``snapshot()`` time.  The reader-stats collector (installed on the
   default ``REGISTRY`` at import) samples every ``ops.DISPATCH_COUNTS`` /
   ``TRACE_COUNTS`` key — per-column attribution like
   ``index_scan_blocks[visitDate]`` becomes a ``column`` label —  so a
   registry snapshot always reflects the live kernel counters.
-  ``register_store`` adds governor heat and the store's index state for
-  one store.
+  ``register_store`` adds governor heat, demotion totals, cache tiers and
+  the scrubber cursor for one store.
 * **Snapshot/delta**: ``snapshot()`` returns a flat ``{series: value}``
-  dict; ``delta(before)`` subtracts two snapshots.
-* **Observers**: ``observe_job`` / ``observe_upload`` fold the stats
-  dataclasses into first-class instruments (walls into histograms, counts
-  into counters) — called by ``run_job`` and the upload pipelines.
+  dict; ``delta(before)`` subtracts two snapshots (what the replication
+  controller reads its heat from).
+* **Observers**: ``observe_job`` / ``observe_flush`` / ``observe_upload``
+  fold the existing stats dataclasses into first-class instruments (walls
+  into histograms, counts into counters) — called by ``run_job``,
+  ``HailServer.flush`` and the upload pipelines.
 
-``nearest_rank`` is the pinned percentile semantics (see its doctest).
+``nearest_rank`` is the pinned percentile semantics shared with
+``ServerFrontend.percentile_latency`` (see its doctest).
 """
 from __future__ import annotations
 
@@ -272,9 +278,9 @@ REGISTRY.register_collector(reader_stats_collector)
 
 
 def register_store(store, registry: Optional[MetricsRegistry] = None):
-    """Register a per-store collector: governor heat and the store's
-    index state become sampled gauges.  Returns the collector (pass to
-    ``unregister_collector`` when the store is done)."""
+    """Register a per-store collector: governor heat/demotions, both cache
+    tiers and the scrubber cursor become sampled gauges.  Returns the
+    collector (pass to ``unregister_collector`` when the store is done)."""
     reg = registry if registry is not None else REGISTRY
 
     def _collect(r: MetricsRegistry):
@@ -288,11 +294,35 @@ def register_store(store, registry: Optional[MetricsRegistry] = None):
                 r.gauge("governor.last_used", replica=rid, column=col).set(
                     rec.last_used)
             r.gauge("governor.job_clock").set(log.job_clock)
+        gov = store.governor
+        if gov is not None:
+            r.gauge("governor.blocks_demoted").set(gov.blocks_demoted_total)
+            r.gauge("governor.demotions").set(len(gov.events))
+        if store.block_cache is not None:
+            st = store.block_cache.stats
+            r.gauge("cache.hits", tier="block").set(st.hits)
+            r.gauge("cache.misses", tier="block").set(st.misses)
+            r.gauge("cache.evictions", tier="block").set(st.evictions)
+            # (the JAX package reads a ``resident_bytes`` field CacheStats
+            # does not have, so its snapshot raises while a block cache is
+            # attached; the field is ``bytes_cached``)
+            r.gauge("cache.resident_bytes", tier="block").set(
+                st.bytes_cached)
+        if store.result_cache is not None:
+            st = store.result_cache.stats
+            r.gauge("cache.hits", tier="result").set(st.hits)
+            r.gauge("cache.misses", tier="result").set(st.misses)
+        if store.scrubber is not None:
+            sc = store.scrubber
+            r.gauge("scrubber.cursor").set(sc._cursor)
+            r.gauge("scrubber.ticks").set(sc.stats.ticks)
+            r.gauge("scrubber.blocks_verified").set(sc.stats.blocks_verified)
+            r.gauge("scrubber.blocks_repaired").set(sc.stats.blocks_repaired)
         r.gauge("store.version").set(store.version)
         r.gauge("store.total_indexed_blocks").set(
             store.total_indexed_blocks() if store.layout == "pax" else 0)
         if store.layout == "pax":
-            r.gauge("store.live_replicas").set(len(store.replicas))
+            r.gauge("store.live_replicas").set(len(store.live_replica_ids()))
 
     reg.register_collector(_collect)
     return _collect
@@ -320,8 +350,41 @@ def observe_job(stats, registry: Optional[MetricsRegistry] = None, **labels):
     reg.observe("job.modeled_s", stats.modeled_s, **labels)
     reg.observe("job.build_s", stats.index_build_s, **labels)
     reg.observe("job.rekey_s", stats.rekey_s, **labels)
+    reg.observe("job.scrub_s", stats.scrub_s, **labels)
     for s in stats.split_s:
         reg.observe("job.split_s", s, **labels)
+
+
+def observe_flush(stats, registry: Optional[MetricsRegistry] = None,
+                  tenants=(), **labels):
+    """Fold one ``FlushStats`` into the registry (called by ``flush``).
+    ``tenants``: the flush's tickets' tenants, counted per label."""
+    reg = registry if registry is not None else REGISTRY
+    reg.inc("flush.flushes", 1, **labels)
+    reg.inc("flush.queries", stats.n_queries, **labels)
+    reg.inc("flush.batches", stats.n_batches, **labels)
+    reg.inc("flush.splits", stats.n_splits, **labels)
+    reg.inc("flush.bytes_read", stats.bytes_read, **labels)
+    reg.inc("flush.blocks_indexed", stats.blocks_indexed, **labels)
+    reg.inc("flush.blocks_demoted", stats.blocks_demoted, **labels)
+    reg.inc("flush.blocks_quarantined", stats.blocks_quarantined, **labels)
+    reg.inc("flush.corrupt_retries", stats.corrupt_retries, **labels)
+    reg.inc("flush.failed_queries", len(stats.failed_queries), **labels)
+    reg.inc("flush.cache_hits", stats.cache_hits, tier="block", **labels)
+    reg.inc("flush.cache_misses", stats.cache_misses, tier="block", **labels)
+    reg.inc("flush.cache_hits", stats.result_cache_hits,
+            tier="result", **labels)
+    reg.inc("flush.cache_misses", stats.result_cache_misses,
+            tier="result", **labels)
+    for tenant in tenants:
+        reg.inc("flush.tenant_queries", 1, tenant=tenant, **labels)
+    reg.observe("flush.wall_s", stats.wall_s, **labels)
+    reg.observe("flush.modeled_s", stats.modeled_s, **labels)
+    reg.observe("flush.scrub_s", stats.scrub_s, **labels)
+    for s in stats.split_s:
+        reg.observe("flush.split_s", s, **labels)
+    for done in stats.query_done_s.values():
+        reg.observe("flush.query_done_s", done, **labels)
 
 
 def observe_upload(kind: str, stats,

@@ -41,8 +41,9 @@ BYTES_RTOL = 1e-6     # float32 sums of per-block fractions, order may differ
 
 
 def jax_state(store) -> dict:
-    """A JAX store's state in ``store_to_numpy``'s layout; arrays that
-    replicas share stay shared."""
+    """A JAX store's state in ``store_to_numpy``'s layout (retired
+    replicas, the namenode's quarantine set and the store version
+    included); arrays that replicas share stay shared."""
     seen: dict[int, np.ndarray] = {}
 
     def arr(a):
@@ -64,9 +65,12 @@ def jax_state(store) -> dict:
             "mins": arr(r.mins),
             "checksums": {c: arr(v) for c, v in r.checksums.items()},
             "nodes": np.asarray(r.nodes), "indexed": np.asarray(r.indexed),
+            "retired": r.retired,
         } for r in store.replicas],
         "namenode": [dataclasses.astuple(i)
                      for i in store.namenode.dir_rep.values()],
+        "quarantined": sorted(store.namenode.quarantined),
+        "version": store.version,
     }
 
 
