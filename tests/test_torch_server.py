@@ -245,9 +245,13 @@ def _explained(rec, walls: bool):
     d["flush"] = {k: v for k, v in d["flush"].items()
                   if k not in ("wall_s", "modeled_s")}
     if not walls:
-        d["splits"] = [{k: v for k, v in s.items()
-                        if k in ("task_id", "batch_width", "index_blocks",
-                                 "full_blocks")} for s in d["splits"]]
+        # the shares come in modeled start order, which the measured walls
+        # decide; without walls compare them in task order
+        d["splits"] = sorted(
+            ({k: v for k, v in s.items()
+              if k in ("task_id", "batch_width", "index_blocks",
+                       "full_blocks")} for s in d["splits"]),
+            key=lambda s: s["task_id"])
     return d
 
 
