@@ -20,9 +20,11 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             (the reader, the sort, the root-directory lookup and the range
             scan at HAIL's, flash attention at the llama prefill's, the
             scan at the falcon-mamba prefill's, plus small and ragged
-            cases; flash in bf16 at every head dim, ragged, non-causal and
-            windowed), and the HAIL slice at the test shape on the card
-            against the CPU;
+            cases; the reader also at Q = 3, at Q = 1,500, at C = 1, at
+            R = 1,000, over an out-of-order root directory and over inputs
+            that are views off 16-byte boundaries; flash in bf16 at every
+            head dim, ragged, non-causal and windowed), and the HAIL slice
+            at the test shape on the card against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
             the same query over a plain HDFS upload; then the same query
             read by the two standalone primitives (``ops.index_search`` on
@@ -53,7 +55,11 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
 8. times    each kernel's own device time (from the CUDA profiler) against
             its bound, its plain version's and, where one exists, a library
             call's, each beside CUDA events around back-to-back calls (the
-            sort at one block, at 16 and at 64).
+            reader at 16 and 64 blocks and at the paths' shapes: the
+            server's 2 blocks at Q = 8, C = 3, the eager job's 2 indexed
+            blocks and the adaptive jobs' one lazy block at Q = 1, each
+            with its launches on its path; the sort at one block, at 16
+            and at 64).
 
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
@@ -200,30 +206,70 @@ def bound_ms(n_bytes: float, n_ops: float,
 # ---------------------------------------------------------------------------
 
 
-def reader_inputs(rng, b, rows, parts, n_cols, n_q, use_index):
+def reader_inputs(rng, b, rows, parts, n_cols, n_q, use_index,
+                  ranges="edges", kind="sorted"):
     """Blocks as the store holds them: indexed blocks sorted by key with a
     root directory of partition minima, unindexed ones in upload order
     with a zeroed directory; bad rows at ~0.1%.  Keys are even, so an odd
-    point range matches nothing; the ranges include ones below the minimum,
-    above the maximum, lo > hi and the whole int32 range."""
+    point range matches nothing.  ``ranges``: "edges" are ranges below the
+    minimum, above the maximum, lo > hi and the whole int32 range, then
+    random ones past the eighth; "server" are phase 5b's eight visitDate
+    ranges (lo 7000 ... 11900, widths 155 + 10 i).  ``kind``: "shifted"
+    takes keys near INT32_MAX and adds to each indexed block's minima the
+    int32 shift that wraps (``FaultInjector.corrupt_root``), so the
+    directory is out of order; "offset" passes keys, bad flags and the
+    projection as views one element past a 16-byte boundary."""
     ps = rows // parts
-    keys = (rng.integers(3500, 6000, (b, rows)) * 2).astype(np.int32)
+    keys = (rng.integers(3500, 6000, (b, rows)) * 2).astype(np.int64)
+    if kind == "shifted":          # keys in [INT32_MAX - 5100, - 100]
+        keys += INT32_MAX - 12100
     keys[use_index > 0] = np.sort(keys[use_index > 0], axis=1)
-    mins = np.where(use_index[:, None] > 0, keys[:, ::ps], 0).astype(np.int32)
+    mins = np.where(use_index[:, None] > 0, keys[:, ::ps], 0)
+    if kind == "shifted":
+        shift = int(rng.integers(1000, 4000))     # the later minima wrap
+        mins = np.where(use_index[:, None] > 0,
+                        (mins + shift + 2**31) % 2**32 - 2**31, 0)
+        check(bool((np.diff(mins[use_index > 0], axis=1) < 0).any()),
+              "the shifted directory is out of order")
     proj = rng.integers(-2**31, INT32_MAX, (b, rows, n_cols)).astype(np.int32)
     bad = rng.random((b, rows)) < 0.001
-    lohi = np.array([[10000, 10155], [-50, 6999], [12001, 20000],
-                     [9000, 8000], [8001, 8001], [7000, 7500],
-                     [-2**31, INT32_MAX], [11000, 11999]], np.int32)[:n_q]
-    arrays = (mins, keys, proj, bad, use_index.astype(np.int32), lohi)
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+    if kind == "shifted":
+        top = INT32_MAX
+        lohi = np.array([[top - 4000, top - 3000], [top - 5100, top],
+                         [-2**31, -2**31 + 5000], [-2**31, top],
+                         [top - 2000, top - 2500]], np.int64)
+    elif ranges == "server":
+        lohi = np.array([[lo, lo + 155 + 10 * i] for i, lo in enumerate(
+            [7000, 7400, 8000, 9000, 10000, 10500, 11000, 11900])])
+    else:
+        lohi = np.array([[10000, 10155], [-50, 6999], [12001, 20000],
+                         [9000, 8000], [8001, 8001], [7000, 7500],
+                         [-2**31, INT32_MAX], [11000, 11999]], np.int64)
+    while len(lohi) < n_q:
+        extra = np.sort(rng.integers(6900, 12100, (n_q - len(lohi), 2)), 1)
+        lohi = np.concatenate([lohi, extra])
+    lohi = lohi[:n_q]
+    arrays = [a.astype(np.int32) if a.dtype == np.int64 else a for a in (
+        mins, keys, proj, bad, use_index.astype(np.int32), lohi)]
+    out = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+    if kind == "offset":        # keys, proj, bad: views one element on
+        for i in (1, 2, 3):
+            flat = torch.empty(out[i].numel() + 1, dtype=out[i].dtype,
+                               device="cuda")
+            view = flat[1:].view(out[i].shape)
+            view.copy_(out[i])
+            check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+                  "an unaligned contiguous view")
+            out[i] = view
+    return out
 
 
 def reader_bound(inputs, outputs, partition_size):
     """Least bytes the reader must move for these inputs: keys and bad flags
-    of the rows some query's partition range covers, the projection of the
-    rows some query keeps, the root directories of indexed blocks, every
-    output byte; and two compares per live row and query."""
+    of the rows some query's partition range covers (by the port's
+    lower-bound rule), the projection of the rows some query keeps, the
+    root directories of indexed blocks, every output byte; and two compares
+    per live row and query."""
     mins, keys, proj, _, uidx, lohi = inputs
     mins, uidx, lohi = (t.cpu().numpy() for t in (mins, uidx, lohi))
     mask = outputs[0]
@@ -236,7 +282,7 @@ def reader_bound(inputs, outputs, partition_size):
             continue
         spans = []
         for lo, hi in lohi:
-            p0 = max(int((mins[i] <= lo).sum()) - 1, 0)
+            p0 = max(int((mins[i] < lo).sum()) - 1, 0)
             p1 = max(int((mins[i] <= hi).sum()) - 1, 0)
             spans.append((p0 * partition_size,
                           min((p1 + 1) * partition_size, rows)))
@@ -378,27 +424,42 @@ def phase_kernels(rng):
                                      selective_scan)
 
     reader_cases = []
-    # the server's batches read (visitDate, sourceIP, __rowid__): C = 3
-    for b, rows, parts, q, mix, c in [(16, ROWS, 512, 1, True, 2),
-                                      (16, ROWS, 512, 8, True, 2),
-                                      (2, ROWS, 512, 8, False, 3),
-                                      (16, ROWS, 512, 1, False, 2),
-                                      (1, ROWS, 512, 1, True, 2),
-                                      (2, ROWS, 512, 1, False, 2),
-                                      (4, 1024, 8, 1, True, 2),
-                                      (4, 1024, 8, 8, True, 2)]:
+    # the server's batches read (visitDate, sourceIP, __rowid__): C = 3; then
+    # the kernel's edges: an odd Q (mask rows off 16-byte boundaries), Q =
+    # 1,500 at a small R (more queries than shared memory stages), C = 1, R
+    # not a multiple of 16 or of the tile, an out-of-order root directory
+    # (corrupt_root's wrap) at the server's shape, and inputs that are
+    # views off 16-byte boundaries
+    for b, rows, parts, q, mix, c, kind in [
+            (16, ROWS, 512, 1, True, 2, "sorted"),
+            (16, ROWS, 512, 8, True, 2, "sorted"),
+            (2, ROWS, 512, 8, False, 3, "sorted"),
+            (16, ROWS, 512, 1, False, 2, "sorted"),
+            (1, ROWS, 512, 1, True, 2, "sorted"),
+            (2, ROWS, 512, 1, False, 2, "sorted"),
+            (4, 1024, 8, 1, True, 2, "sorted"),
+            (4, 1024, 8, 8, True, 2, "sorted"),
+            (3, 4096, 8, 3, True, 2, "sorted"),
+            (2, 4096, 8, 1500, True, 3, "sorted"),
+            (4, ROWS, 512, 8, True, 1, "sorted"),
+            (3, 1000, 8, 5, True, 3, "sorted"),
+            (2, ROWS, 512, 8, True, 3, "shifted"),
+            (3, 1000, 8, 9, True, 3, "offset")]:
         uidx = (np.arange(b) % 3 != 2) if mix else np.zeros(b, bool)
-        inputs = reader_inputs(rng, b, rows, parts, c, q, uidx)
+        inputs = reader_inputs(rng, b, rows, parts, c, q, uidx, kind=kind)
         ps = rows // parts
         got = hail_reader.hail_read_batch(*inputs, partition_size=ps)
         want = ref.hail_read_batch(*inputs, partition_size=ps)
         torch.cuda.synchronize()
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        check(equal, f"hail_read kernel == plain at B={b} R={rows} Q={q}")
+        check(equal, f"hail_read kernel == plain at B={b} R={rows} Q={q} "
+              f"C={c} {kind}")
         reader_cases.append({"blocks": b, "rows": rows, "parts": parts,
                              "cols": c, "queries": q, "mixed_index": mix,
+                             "inputs": kind,
                              "rows_kept": int(got[0].any(-1).sum()),
                              "max_abs_err": max_abs_err(got, want)})
+        del inputs, got, want
     sort_cases = []
     # the main path's shapes (a repaired block, an adaptive build, a donor
     # replica of add_replica), then one tile padded (n < 4096), one tile,
@@ -616,7 +677,8 @@ def profile_job(run, match: str | None = None) -> dict:
             "top_device_ms": [[e.key[:160], device_us(e) / 1e3] for e in top],
             "kernel_device_ms": kernel_ms,
             "kernel_share_of_busy": kernel_ms / busy_ms if busy_ms else 0.0,
-            "kernel_calls": sum(e.count for e in matched),
+            # launches: each runs every kernel of its entry point once
+            "kernel_calls": max((e.count for e in matched), default=0),
             "host_span_ms": spans}
 
 
@@ -1309,19 +1371,34 @@ def main() -> int:
 
     ps = ROWS // 512
     timed = {}
-    for name, b, q_n, mix in [("full_scan_q1", 16, 1, False),
-                              ("mixed_q1", 16, 1, True),
-                              ("mixed_q8", 16, 8, True),
-                              ("full_scan_q1_64blocks", 64, 1, False)]:
+    # four rows at 16 and 64 blocks, comparable with earlier runs, then the
+    # shapes the paths launch: splits of 1-2 blocks, the server's batches of 8
+    # narrow visitDate ranges over (visitDate, sourceIP, __rowid__), the
+    # eager job's index scan and the adaptive jobs' lazy full scans
+    path_launches = {"server_q8": server_launches.get("hail_read", 0),
+                     "eager_q1": eager_launches.get("hail_read", 0),
+                     "adaptive_q1": adaptive_launches.get("hail_read", 0)}
+    for name, b, q_n, c, mix, ranges in [
+            ("full_scan_q1", 16, 1, 2, False, "edges"),
+            ("mixed_q1", 16, 1, 2, True, "edges"),
+            ("mixed_q8", 16, 8, 2, True, "edges"),
+            ("full_scan_q1_64blocks", 64, 1, 2, False, "edges"),
+            ("server_q8", 2, 8, 3, True, "server"),
+            ("eager_q1", 2, 1, 2, True, "edges"),
+            ("adaptive_q1", 1, 1, 2, False, "edges")]:
         uidx = (np.arange(b) % 3 != 2) if mix else np.zeros(b, bool)
-        inputs = reader_inputs(rng, b, ROWS, 512, 2, q_n, uidx)
+        inputs = reader_inputs(rng, b, ROWS, 512, c, q_n, uidx, ranges)
         out = hail_reader.hail_read_batch(*inputs, partition_size=ps)
+        scan = ("index scan" if uidx.all() else "mixed index" if mix
+                else "full scan")
         timed[name] = case(
-            f"B={b} R={ROWS} P=512 C=2 Q={q_n} "
-            f"{'mixed index' if mix else 'full scan'}",
+            f"B={b} R={ROWS} P=512 C={c} Q={q_n} {scan}"
+            + (", phase 5b's ranges" if ranges == "server" else ""),
             lambda: hail_reader.hail_read_batch(*inputs, partition_size=ps),
             lambda: ref.hail_read_batch(*inputs, partition_size=ps),
             reader_bound(inputs, out, ps), "reader_kernel")
+        if name in path_launches:
+            timed[name]["launches_on_path"] = path_launches[name]
         del inputs, out
     for b in (1, 16, BLOCKS):           # a repair, a build, add_replica
         keys = sort_inputs(rng, b, ROWS)
@@ -1374,6 +1451,11 @@ def main() -> int:
     emit("times", cases=timed, profiler_misses=PROFILER_MISSES)
 
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
+    reader_shapes = {k: {f: timed[k].get(f) for f in (
+        "shape", "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
+        "ms_by", "launches_on_path")}
+        for k in ("full_scan_q1", "mixed_q8", "server_q8", "eager_q1",
+                  "adaptive_q1")}
     sort_shapes = {k: {f: timed[k][f] for f in ("shape", "ms", "events_ms",
                                                  "library_ms",
                                                  "library_events_ms",
@@ -1392,7 +1474,8 @@ def main() -> int:
          "max_abs_err": errs["hail_read"], "ms": reader["ms"],
          "plain_ms": reader["plain_ms"], "bound_ms": reader["bound_ms"],
          "bound_by": reader["bound_by"], "library_ms": None,
-         "shape": reader["shape"], "ms_by": reader["ms_by"]},
+         "shape": reader["shape"], "ms_by": reader["ms_by"],
+         "shapes": reader_shapes},
         {"name": "bitonic_sort", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_sort.cu",
          "replaces": "src/repro/kernels/block_sort.py:51",

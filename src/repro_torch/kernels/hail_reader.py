@@ -1,12 +1,17 @@
 """Fused HAIL record reader: ONE launch per (split, query batch).
 
-The port of the JAX package's ``kernels/hail_reader.py``.  The CUDA kernel
-(``csrc/hail_reader.cu``) runs a whole split — per-block root-directory
+The port of the JAX package's ``kernels/hail_reader.py``.  The CUDA entry
+point (``csrc/hail_reader.cu``) runs a whole split — per-block root-directory
 lookup, tile-pruned range scan over Q queries, bad-row mask, union-masked
-projection, per-(block, query) rows-read fractions — with one CTA per
-(row tile, block).  The query ranges travel as a (Q, 2) device tensor, so
-new ranges never build a new kernel; Q is a runtime size, so there is one
-kernel variant in all.
+projection, per-(block, query) rows-read fractions — in two kernels:
+``reader_kernel_ranges`` counts each block's root directory once per
+(block, query) into a (B, Q, 4) scratch table, and ``reader_kernel_scan``,
+one CTA per (row tile, block), stages each live tile's keys and bad flags
+in shared memory, computes the tile's mask bytes into a shared-memory
+window and writes the window and the masked projection as 16-byte stores,
+with scalar heads and tails where a range is not 16-byte aligned.  The query ranges travel as a
+(Q, 2) device tensor, so new ranges never build a new kernel; Q is a
+runtime size of any value >= 1.
 
 ``hail_read_batch`` routes by device: a CPU tensor takes the plain version
 (``hail_read_batch_plain``, the ``ref.py`` counterpart), a CUDA tensor
@@ -21,13 +26,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-MAX_QUERIES = 1024          # the kernel keeps 6 ints per query in shared memory
-
 hail_read_batch_plain = ref.hail_read_batch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
 
 
 def _check(mins, keys, proj, bad, use_index, lohi):
@@ -54,9 +57,9 @@ def _check(mins, keys, proj, bad, use_index, lohi):
             f"{tuple(keys.shape)}, proj {tuple(proj.shape)}, bad "
             f"{tuple(bad.shape)}, use_index {tuple(use_index.shape)}, lohi "
             f"{tuple(lohi.shape)}")
-    if not 1 <= lohi.shape[0] <= MAX_QUERIES:
-        raise ValueError(f"hail_read: 1..{MAX_QUERIES} queries, "
-                         f"got {lohi.shape[0]}")
+    if lohi.shape[0] < 1:
+        raise ValueError(f"hail_read: at least one query, got "
+                         f"{lohi.shape[0]}")
 
 
 def _launch(mins, keys, proj, bad, use_index, lohi, partition_size: int):
@@ -68,13 +71,16 @@ def _launch(mins, keys, proj, bad, use_index, lohi, partition_size: int):
     frac = torch.empty((b, n_q), dtype=torch.float32, device=keys.device)
     if b == 0 or rows == 0:
         return mask, out, frac
+    # {lo, hi, r0, r1} per (block, query), written by the first kernel
+    ranges = torch.empty((b, n_q, 4), dtype=torch.int32, device=keys.device)
     fn = _build.entry("hail_read_launch", _ARGTYPES)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         code = fn(mins.data_ptr(), keys.data_ptr(), proj.data_ptr(),
                   bad.data_ptr(), use_index.data_ptr(), lohi.data_ptr(),
                   mask.data_ptr(), out.data_ptr(), frac.data_ptr(),
-                  b, rows, mins.shape[1], n_cols, n_q, partition_size, stream)
+                  ranges.data_ptr(), b, rows, mins.shape[1], n_cols, n_q,
+                  partition_size, stream)
     _build.check("hail_read", code)
     return mask, out, frac
 
