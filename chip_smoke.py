@@ -42,9 +42,25 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             for the unindexed duration column (one batched sort of
             (64, 2^19)), bit-equal to its reference permutation, claimed
             and built on by an adaptive flush, and decommissioned;
+5c. wave    the multi-device wave dispatch on the eager store, with slots
+            of the card: a (1,) mesh takes the per-split path (rows, bytes,
+            counters, launches equal); a (4,) mesh of four streams on
+            cuda:0 reads the 40 splits in 10 waves, one reader launch a
+            split, with the per-split job's row ids, fractions, bytes and
+            scan-mode counters (three runs, and once under a node
+            failure); two adaptive jobs on a lazy store (full scans 64,
+            48); a HailServer cold flush of phase 5b's queries; and
+            ``spmd_aggregate`` of adRevenue by countryCode (exact counts,
+            sums within 1e-5 of float64); walls and idle shares of both
+            jobs;
 6. adaptive a lazy upload that 6 adaptive jobs converge to fully indexed,
             then one eager, HDFS, building and converged job each again
             under the CUDA profiler: device-busy time and host spans;
+6b. data    the LM data pipeline at the served model's widths: 2^15
+            documents of 513 tokens (vocabulary 128,256) uploaded in
+            blocks of 4,096 rows, selected by the indexed query domain = 3
+            (doc ids and tokens bit-equal to the generated corpus), and
+            the first (4, 512) batch;
 7. serve    each model: prefill + decode through the serve steps, with
             one flash-attention (llama, 16) or scan (falcon-mamba, 64)
             launch per layer in prefill and none in decode; every layer's
@@ -64,6 +80,12 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
 comes from a fixed seed.  Needs one CUDA card; exits non-zero without one.
+
+    python3 chip_smoke.py --profiler-probe [ROUNDS]
+
+counts instead how often ``torch.profiler`` loses the device work of a
+profiled window (``profiler_probe``), the reason every profiled window
+here starts ``PROFILER_SETTLE_S`` late.
 """
 from __future__ import annotations
 
@@ -159,6 +181,14 @@ def device_us(event) -> float:
 
 
 PROFILER_MISSES: list = []   # device_ms calls the profiler traced nothing of
+# The profiler has been seen to drop the device work of the first
+# milliseconds after it starts, for the CUDA kernels and plain PyTorch
+# calls alike (``python3 chip_smoke.py --profiler-probe`` on an H100: some
+# windows of 20 calls traced nothing, some of 200 calls lost their first
+# 40-60 calls; no window that began 50 ms after the profiler did lost
+# anything), so every profiled window waits this long before its first
+# call.
+PROFILER_SETTLE_S = 0.05
 
 
 def device_ms(fn, iters: int, match: str | None = None) -> tuple[float, str]:
@@ -166,8 +196,9 @@ def device_ms(fn, iters: int, match: str | None = None) -> tuple[float, str]:
     summed duration of the device work (kernels and copies) it issued, or
     of the kernels whose name holds ``match``, over ``iters`` calls after a
     warm-up.  Unlike ``cuda_ms`` it leaves out the time the card waits for
-    the host between calls.  The profiler has been seen to trace none of
-    that work in a run where every launch succeeded; after two such
+    the host between calls.  Each window waits ``PROFILER_SETTLE_S``
+    first.  Should the profiler still trace none of the work (it did, in
+    runs where every launch succeeded, before the wait), after two such
     profiled runs the time is taken between CUDA events around the same
     calls instead (``cuda_ms``, host gaps included), and the miss is
     recorded in ``PROFILER_MISSES``.  The second value names the clock:
@@ -181,6 +212,7 @@ def device_ms(fn, iters: int, match: str | None = None) -> tuple[float, str]:
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_SETTLE_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -629,7 +661,8 @@ def phase_small_slice():
 def profile_job(run, match: str | None = None) -> dict:
     """One more run of a job under the CUDA profiler and the port's span
     tracer: host wall, device-busy time (the sum of the device-side events:
-    kernels and copies; the port uses one stream, so they do not overlap),
+    kernels and copies; they do not overlap on one stream, and where a mesh
+    runs them on several streams the sum can exceed their union),
     the busiest of them, the device time and launches of the kernels whose
     name holds ``match``, and host time per traced span (the per-split and
     whole-job slices left out: they overlap the others).  Walls here include
@@ -643,6 +676,7 @@ def profile_job(run, match: str | None = None) -> dict:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_SETTLE_S)
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -754,6 +788,17 @@ def phase_two_kernel_read(store, query) -> dict:
     return launches
 
 
+SERVER_PROJ = ("visitDate", "sourceIP")
+
+
+def server_queries() -> list:
+    """Phase 5b's traffic: 8 narrow visitDate ranges of 4 tenants."""
+    from repro_torch.core import query as q
+    los = [7000, 7400, 8000, 9000, 10000, 10500, 11000, 11900]
+    return [q.HailQuery(filter=("visitDate", lo, lo + 155 + 10 * i),
+                        projection=SERVER_PROJ) for i, lo in enumerate(los)]
+
+
 def phase_hail_server(store, query_rows) -> dict:
     """HAIL serving on the eager store: eight tenants' queries through
     ``HailServer`` flushes over both cache tiers, corruption found on the
@@ -776,10 +821,8 @@ def phase_hail_server(store, query_rows) -> dict:
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    proj = ("visitDate", "sourceIP")
-    los = [7000, 7400, 8000, 9000, 10000, 10500, 11000, 11900]
-    queries = [q.HailQuery(filter=("visitDate", lo, lo + 155 + 10 * i),
-                           projection=proj) for i, lo in enumerate(los)]
+    proj = SERVER_PROJ
+    queries = server_queries()
     want = [query_rows(qq) for qq in queries]
     launches: dict[str, int] = {}
     walls: dict[str, float] = {}
@@ -1001,6 +1044,248 @@ def phase_hail_server(store, query_rows) -> dict:
          peak_mem_bytes=torch.cuda.max_memory_allocated(),
          profile=profile, seconds=time.perf_counter() - t_phase)
     return launches
+
+
+def phase_wave(store, raw, query, eager_ids) -> dict:
+    """The multi-device wave dispatch on the eager store, with meshes of
+    slots on the one card: a (1,) mesh takes the per-split path (rows,
+    bytes, counters and launches equal); a (4,) mesh of four streams on
+    cuda:0 reads the 40 splits in 10 waves, one launch a split, with the
+    per-split row ids, fractions and bytes and the scan-mode counters of
+    the per-split job (three runs, to catch a stream race), also under a
+    node failure; two adaptive jobs on a lazy store; a HailServer cold
+    flush of phase 5b's queries; ``spmd_aggregate`` of adRevenue by
+    countryCode.  Returns the kernel launches of the compared runs."""
+    from repro_torch.core import mapreduce as mr
+    from repro_torch.core import query as q
+    from repro_torch.core import schema as sc
+    from repro_torch.core import upload as up
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.jobserver import HailServer, ServerConfig
+
+    t_phase = time.perf_counter()
+    # the scrubber phase 5b attached ticks at every job boundary, and its
+    # cursor moves: its verification counts would differ job to job
+    store.scrubber = None
+    launches: dict[str, int] = {}
+    mesh1 = make_mesh((1,), ("data",), devices=["cuda:0"])
+    mesh4 = make_mesh((4,), ("data",), devices=["cuda:0"] * 4)
+
+    def job(st, mesh=None, **kw):
+        """-> (JobStats, per split (sorted row ids, fractions, bytes),
+        reader counters, kernel launches), from cold caches."""
+        st.block_cache = st.result_cache = None
+        splits = []
+
+        def on_split(_k, res, _wall):
+            splits.append((np.sort(q.collect(res)[sc.ROWID]),
+                           res.rows_read_frac.cpu().numpy(),
+                           float(res.bytes_read)))
+
+        ops.KERNEL_LAUNCHES.clear()
+        with ops.stats_scope() as s:
+            stats = mr.run_job(st, query, reader="kernels", mesh=mesh,
+                               on_split_complete=on_split, **kw)
+        torch.cuda.synchronize()
+        got = dict(ops.KERNEL_LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return stats, splits, dict(s.dispatches), got
+
+    def rowids(run):
+        return np.sort(np.concatenate([r for r, _, _ in run[1]]))
+
+    def same_splits(name, a, b):
+        check(len(a[1]) == len(b[1]) and all(
+            np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+            and x[2] == y[2] for x, y in zip(a[1], b[1])),
+              f"{name}: per-split row ids, fractions and bytes == the "
+              f"per-split job's")
+        check(a[0].bytes_read == b[0].bytes_read
+              and a[0].n_tasks == b[0].n_tasks
+              and a[0].full_scan_blocks == b[0].full_scan_blocks
+              and a[0].blocks_indexed == b[0].blocks_indexed,
+              f"{name}: bytes, tasks, full-scan and indexed blocks")
+
+    def sharded_counts(counts, n_splits):
+        want = {k: v for k, v in counts.items()
+                if k not in ("hail_read", "hail_read_batch")}
+        want["hail_read_sharded_waves"] = -(-n_splits // 4)
+        want["hail_read_sharded_splits"] = n_splits
+        return want
+
+    # --- 1. a (1,) mesh: the per-split path --------------------------------
+    base = job(store)
+    one = job(store, mesh1)
+    same_splits("(1,) mesh", one, base)
+    check(one[2] == base[2] and one[3] == base[3]
+          and base[3].get("hail_read", 0) == base[0].n_tasks == 40,
+          f"(1,) mesh: counters and launches == the per-split job's: "
+          f"{one[3]} vs {base[3]}")
+    # --- 2. a (4,) mesh: four streams on the card, three runs -------------
+    runs = [job(store, mesh4) for _ in range(3)]
+    for k, run in enumerate(runs):
+        same_splits(f"(4,) mesh, run {k}", run, base)
+        check(np.array_equal(rowids(run), eager_ids),
+              f"(4,) mesh, run {k}: rowid set == the eager job's")
+        check(run[2] == sharded_counts(base[2], 40)
+              and run[2]["hail_read_sharded_waves"] == 10,
+              f"(4,) mesh, run {k}: 10 waves, 40 splits, the per-split "
+              f"job's scan-mode counters: {run[2]}")
+        check(run[3].get("hail_read", 0) == 40,
+              f"(4,) mesh, run {k}: one reader launch a split: {run[3]}")
+    fail_base = job(store, fail_node_at=0.5)
+    fail4 = job(store, mesh4, fail_node_at=0.5)
+    same_splits("(4,) mesh, node failure", fail4, fail_base)
+    check(np.array_equal(rowids(fail4), eager_ids)
+          and fail4[0].rescheduled_tasks == fail_base[0].rescheduled_tasks
+          > 0
+          and fail4[2] == sharded_counts(fail_base[2], fail_base[0].n_tasks),
+          f"(4,) mesh, node failure: rows, retries and counters: "
+          f"{fail4[2]}")
+    # --- 3. adaptive: two jobs on a lazy store each way -------------------
+    cfg = mr.AdaptiveConfig(offer_rate=0.25)
+    lazy_runs = {}
+    for name, mesh in (("per_split", None), ("mesh4", mesh4)):
+        lazy, _ = up.hail_lazy_upload(sc.USERVISITS, raw,
+                                      partition_size=PARTITION,
+                                      n_nodes=N_NODES)
+        lazy_runs[name] = [job(lazy, mesh, adaptive=cfg) for _ in range(2)]
+        del lazy
+    for a, b in zip(lazy_runs["mesh4"], lazy_runs["per_split"]):
+        same_splits("adaptive (4,) mesh", a, b)
+        check(np.array_equal(rowids(a), eager_ids),
+              "adaptive (4,) mesh: rowid set == the eager job's")
+    adaptive_curve = [r[0].full_scan_blocks for r in lazy_runs["mesh4"]]
+    check(adaptive_curve == [64, 48]
+          and all(r[3].get("bitonic_sort", 0) > 0
+                  for r in lazy_runs["mesh4"]),
+          f"adaptive (4,) mesh: full scans (64, 48), builds sort with the "
+          f"kernel: {adaptive_curve}")
+    torch.cuda.empty_cache()
+    # --- 4. HailServer: a cold flush of phase 5b's queries ----------------
+    answers = {}
+    for name, mesh in (("per_split", None), ("mesh4", mesh4)):
+        store.block_cache = store.result_cache = None
+        srv = HailServer(store, ServerConfig(max_batch=8, mesh=mesh,
+                                             result_cache=False))
+        tickets = [srv.submit(qq, tenant=f"tenant{i % 4}")
+                   for i, qq in enumerate(server_queries())]
+        ops.KERNEL_LAUNCHES.clear()
+        stats = srv.flush()
+        torch.cuda.synchronize()
+        got = dict(ops.KERNEL_LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        check(all(t.status == "done" for t in tickets)
+              and got.get("hail_read", 0) == stats.n_splits,
+              f"{name} flush: answered, one launch a split: {got}")
+        answers[name] = (stats, [t.result.rows for t in tickets])
+    (s0, rows0), (s4, rows4) = answers["per_split"], answers["mesh4"]
+    check(all(set(a) == set(b) and all(np.array_equal(a[c], b[c])
+                                       for c in a)
+              for a, b in zip(rows0, rows4)),
+          "(4,) mesh flush: every ticket's answer == the per-split flush's")
+    check(s0.batch_of_split == s4.batch_of_split
+          and s0.queries_of_split == s4.queries_of_split
+          and s0.split_scan_modes == s4.split_scan_modes,
+          "(4,) mesh flush: the same splits, members and scan modes")
+    store.block_cache = store.result_cache = None
+    # --- 5. spmd_aggregate: adRevenue by countryCode over replica 0 -------
+    rep = store.replicas[0]
+    good = ~q._bad_mask(store, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums, cnts = mr.spmd_aggregate(mesh4, rep.cols["countryCode"],
+                                   rep.cols["adRevenue"], good, 256)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    keys = rep.cols["countryCode"].cpu().numpy().reshape(-1)
+    vals = rep.cols["adRevenue"].cpu().numpy().reshape(-1)
+    m = good.cpu().numpy().reshape(-1)
+    want_sums = np.bincount(keys[m] % 256, weights=vals[m].astype(np.float64),
+                            minlength=256)
+    want_cnts = np.bincount(keys[m] % 256, minlength=256)
+    rel = float(np.max(np.abs(sums.cpu().numpy() - want_sums)
+                       / np.maximum(np.abs(want_sums), 1.0)))
+    check(np.array_equal(cnts.cpu().numpy(), want_cnts),
+          "spmd_aggregate: counts exact")
+    check(rel <= 1e-5, f"spmd_aggregate: sums within 1e-5 relative of "
+                       f"float64 numpy: {rel}")
+    # --- 6. walls and idle shares, one sample each ------------------------
+    walls, profiles = {}, {}
+    for name, mesh in (("per_split", None), ("mesh4", mesh4)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mr.run_job(store, query, reader="kernels", mesh=mesh)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        profiles[name] = profile_job(lambda: mr.run_job(
+            store, query, reader="kernels", mesh=mesh), match="reader_kernel")
+    emit("wave", mesh=str(mesh4), splits=base[0].n_tasks,
+         waves=runs[0][2]["hail_read_sharded_waves"],
+         rows=base[0].results["n_rows"],
+         failover_tasks=fail4[0].n_tasks, adaptive_curve=adaptive_curve,
+         flush_splits=s4.n_splits, flush_s={"per_split": s0.wall_s,
+                                            "mesh4": s4.wall_s},
+         aggregate_s=agg_s, aggregate_max_rel_err=rel,
+         job_wall_s=walls, profile=profiles, launches=launches,
+         nvidia_smi=nvidia_smi(), seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_data_pipeline() -> dict:
+    """The LM data pipeline at the served model's widths: a tokenized
+    corpus of 2^15 documents, 513 tokens each (512-token batches plus the
+    shifted label) from llama3.2-1b's vocabulary of 128,256, uploaded in
+    blocks of 4,096 rows indexed on domain, quality and timestamp; training
+    data selected by the indexed query domain = 3."""
+    from repro_torch.core import query as q
+    from repro_torch.core import schema as sc
+    from repro_torch.data import pipeline as pl
+
+    t_phase = time.perf_counter()
+    cfg = pl.CorpusConfig(n_docs=1 << 15, seq_width=513, rows_per_block=4096,
+                          vocab=128_256, partition_size=256)
+    select = ("domain", 3, 3)
+    mem0 = torch.cuda.memory_allocated()
+    store, upload = pl.build_corpus(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    store_bytes = torch.cuda.memory_allocated() - mem0
+    t0 = time.perf_counter()
+    src = pl.HailDataSource(store, cfg, select=select, batch_size=4)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    check(src.used_index, "the selection is an index scan")
+    cols = sc.gen_tokens_corpus(cfg.n_docs, cfg.seq_width, cfg.vocab,
+                                cfg.n_domains, SEED)
+    res = q.read_hail(store, q.HailQuery(filter=select,
+                                         projection=("doc_id",)),
+                      q.plan(store, q.HailQuery(filter=select,
+                                                projection=("doc_id",))))
+    doc_ids = q.collect(res)["doc_id"]
+    check(np.array_equal(np.sort(doc_ids), np.nonzero(cols["domain"] == 3)[0]),
+          "selected doc ids == the generated columns' domain = 3")
+    tokens = np.stack([cols[f"tok{i}"] for i in range(cfg.seq_width)], axis=1)
+    check(src.tokens.dtype == torch.int32
+          and torch.equal(src.tokens.cpu(), torch.from_numpy(tokens[doc_ids])),
+          "each selected row's tokens == its document's generated tokens")
+    batch = next(iter(src))
+    draw = np.random.default_rng(0).integers(0, src.n_selected, 4)
+    check(batch["tokens"].shape == (4, 512) and batch["tokens"].is_cuda
+          and batch["tokens"].dtype == batch["labels"].dtype == torch.int32
+          and torch.equal(batch["tokens"][:, 1:], batch["labels"][:, :-1])
+          and torch.equal(batch["tokens"].cpu(),
+                          torch.from_numpy(tokens[doc_ids[draw], :-1])),
+          "first batch: (4, 512) int32 on the card, the drawn rows, labels "
+          "shifted by one")
+    emit("data_pipeline", docs=cfg.n_docs, seq_width=cfg.seq_width,
+         vocab=cfg.vocab, blocks=store.n_blocks, selected=src.n_selected,
+         used_index=src.used_index, upload_s=upload.wall_s,
+         select_s=select_s, store_device_bytes=store_bytes,
+         reduced=["n_docs 2^15 (depth only)"],
+         seconds=time.perf_counter() - t_phase)
 
 
 def share(got, want) -> dict:
@@ -1290,6 +1575,8 @@ def main() -> int:
 
     # --- 5b. server: flushes over both cache tiers, faults, replication ---
     server_launches = phase_hail_server(hail, query_rows)
+    # --- 5c. wave: the multi-device wave dispatch on slots of the card ----
+    wave_launches = phase_wave(hail, raw, query, eager_ids)
     del hail, hdfs, batch, single
     torch.cuda.empty_cache()
 
@@ -1339,6 +1626,10 @@ def main() -> int:
          peak_mem_bytes=torch.cuda.max_memory_allocated())
     emit("profile", jobs={**eager_profiles, **profiles})
     del fresh, raw
+    torch.cuda.empty_cache()
+
+    # --- 6b. the LM data pipeline: HAIL-selected training batches ---------
+    phase_data_pipeline()
     torch.cuda.empty_cache()
 
     # --- 7. serve: llama3.2-1b and falcon-mamba-7b at full width ----------
@@ -1470,6 +1761,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/hail_reader.py:48",
          "launches": eager_launches.get("hail_read", 0)
          + server_launches.get("hail_read", 0)
+         + wave_launches.get("hail_read", 0)
          + adaptive_launches.get("hail_read", 0),
          "max_abs_err": errs["hail_read"], "ms": reader["ms"],
          "plain_ms": reader["plain_ms"], "bound_ms": reader["bound_ms"],
@@ -1480,6 +1772,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/block_sort.cu",
          "replaces": "src/repro/kernels/block_sort.py:51",
          "launches": server_launches.get("bitonic_sort", 0)
+         + wave_launches.get("bitonic_sort", 0)
          + adaptive_launches.get("bitonic_sort", 0),
          "max_abs_err": errs["bitonic_sort"], "ms": sort["ms"],
          "plain_ms": sort["plain_ms"], "bound_ms": sort["bound_ms"],
@@ -1530,5 +1823,86 @@ def main() -> int:
     return 0
 
 
+def profiler_window(fn, iters: int, match: str,
+                    settle: bool) -> tuple[int, int]:
+    """One profiled window of ``iters`` calls -> (device events traced,
+    calls traced of the kernels whose name holds ``match``); ``settle``
+    waits ``PROFILER_SETTLE_S`` after the profiler starts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if settle:
+            time.sleep(PROFILER_SETTLE_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return len(device), sum(e.count for e in device if match in e.key)
+
+
+def profiler_probe(rounds: int) -> int:
+    """``python3 chip_smoke.py --profiler-probe [ROUNDS]``: how often the
+    profiler loses device work.  Opens ``rounds`` windows of each case
+    (``index_search`` and ``pax_scan`` at phase 8's inputs, and the plain
+    ``pax_scan``) in three modes — 20 calls, 200 calls, and 20 calls that
+    start ``PROFILER_SETTLE_S`` after the profiler does — and prints one
+    JSON line: per case and mode, the windows that traced no device event
+    and how many of the kernel's calls each window traced; then the
+    card's name and power limit.  Needs one CUDA card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import collections
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, index_search, pax_scan
+
+    _build.library()
+    rng = np.random.default_rng(SEED)
+    mins = search_inputs(rng, BLOCKS, 512)
+    keys, proj = scan_block_inputs(rng, ROWS, 2, torch.int32)
+    lohi = [torch.tensor(x, dtype=torch.int32, device="cuda")
+            for x in (2000, 4999)]
+    # (call, name of the kernel whose traced calls are counted)
+    cases = {
+        "index_search": (lambda: index_search.index_search(mins, *lohi),
+                         "search_kernel"),
+        "pax_scan": (lambda: pax_scan.pax_scan(keys, proj, *lohi),
+                     "scan_kernel"),
+        "pax_scan_plain": (lambda: pax_scan.pax_scan_plain(keys, proj,
+                                                           *lohi),
+                           "reduce_kernel"),
+    }
+    modes = {"20": (20, False), "200": (200, False), "20_settled": (20, True)}
+    for fn, _ in cases.values():
+        fn()
+    torch.cuda.synchronize()
+    empty = {f"{c}/{m}": [] for c in cases for m in modes}
+    calls = {f"{c}/{m}": collections.Counter() for c in cases for m in modes}
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        for c, (fn, match) in cases.items():
+            for m, (iters, settle) in modes.items():
+                n_events, n_calls = profiler_window(fn, iters, match, settle)
+                if n_events == 0:
+                    empty[f"{c}/{m}"].append(r)
+                calls[f"{c}/{m}"][n_calls] += 1
+    print(json.dumps({"rounds": rounds, "windows": rounds * len(empty),
+                      "empty": {k: len(v) for k, v in empty.items()},
+                      "empty_rounds": {k: v for k, v in empty.items() if v},
+                      # traced calls of the kernel a window -> windows
+                      "calls": {k: dict(v) for k, v in calls.items()},
+                      "seconds": time.perf_counter() - t0,
+                      "torch": torch.__version__,
+                      "cuda": torch.version.cuda}), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--profiler-probe"]:
+        sys.exit(profiler_probe(int(sys.argv[2]) if len(sys.argv) > 2
+                                else 60))
     sys.exit(main())

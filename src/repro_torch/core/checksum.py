@@ -53,6 +53,15 @@ def block_checksums(cols: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: chunk_checksums(v) for k, v in sorted(cols.items())}
 
 
+def verify_block(cols: dict[str, torch.Tensor],
+                 sums: dict[str, torch.Tensor]) -> torch.Tensor:
+    """-> 0-d bool tensor: every chunk of every column matches its sum."""
+    ok = torch.tensor(True)
+    for k in sorted(cols):
+        ok = ok & verify(cols[k], sums[k]).all()
+    return ok
+
+
 def verify_blocks(data: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
     """Batched read-path verify: data (C, B, rows), sums (C, B, chunks)
     -> bool (C, B), True where EVERY chunk of (col, block) matches."""

@@ -9,11 +9,20 @@ post-filters.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 PARTITION = 1024  # rows per leaf partition (paper's default)
 INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusteredIndex:
+    """Root directory for one block: mins (n_parts,), key column name."""
+    key: str
+    partition_size: int
 
 
 def sort_permutation(key_col: torch.Tensor,

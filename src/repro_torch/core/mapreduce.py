@@ -23,6 +23,11 @@ all-full-scan to all-index-scan with no eager upload cost.  With an
 index governor attached (``governor.govern``), adaptive jobs also DEMOTE
 replicas to make room, and at the job boundary the store's scrubber and
 replication controller tick.
+
+``run_job(..., mesh=...)`` reads the splits in WAVES of up to n_dev splits,
+one launch a split on its own slot of a ``launch.mesh.DeviceMesh`` (a
+device and a stream).  ``spmd_aggregate`` is a GROUP-BY sum over a mesh
+axis: combine per slot, shuffle bucket chunks, reduce.
 """
 from __future__ import annotations
 
@@ -266,14 +271,39 @@ def job_tasks(stats: JobStats) -> list:
                                                         demote))]
 
 
-def _completion_event(device: torch.device):
-    """A CUDA event recorded after everything enqueued so far (None on the
-    CPU, where every operation has finished when it returns)."""
+def _completion_event(device: torch.device, stream=None):
+    """A CUDA event recorded after everything enqueued so far on ``stream``
+    (default: the device's current stream) — None on the CPU, where every
+    operation has finished when it returns."""
     if device.type != "cuda":
         return None
     ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(device))
+    ev.record(torch.cuda.current_stream(device) if stream is None
+              else stream)
     return ev
+
+
+def read_wave(store: BlockStore, queries, gathered: list, mesh,
+              axes: tuple) -> list[tuple]:
+    """Read one wave of gathered splits, one launch a split on its own
+    slot (``query.read_hail_batch_sharded``) -> per split (results per
+    query, shared bytes, completion event), the event recorded on the
+    stream of the slot that ran the split."""
+    out = q.read_hail_batch_sharded(store, queries, gathered, mesh, axes)
+    return [(res, shared, _completion_event(slot.device, slot.stream))
+            for slot, (res, shared) in zip(mesh.slots(axes), out)]
+
+
+def scan_mesh(mesh, store: BlockStore, query) -> tuple[tuple, int]:
+    """(scan axes, n_dev) when a job or batch over ``store`` shards its
+    scan over ``mesh``: a PAX store, a range filter, and a scan axis of
+    more than one slot; else ((), 1), the per-split path."""
+    if mesh is None or store.layout != "pax" or query.filter is None:
+        return (), 1
+    from repro_torch.dist import sharding as shd
+    axes = shd.scan_mesh_axes(mesh)
+    n_dev = shd.scan_device_count(mesh, axes)
+    return (axes, n_dev) if n_dev > 1 else ((), 1)
 
 
 def run_job(store: BlockStore, query: q.HailQuery, *,
@@ -281,6 +311,7 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
             reduce_fn: Optional[Callable] = None,
             fail_node_at: Optional[float] = None,
             reader: str = "jnp",
+            mesh=None,
             adaptive: Optional[AdaptiveConfig] = None,
             recovery: RecoveryConfig = RecoveryConfig(),
             on_split_complete: Optional[Callable] = None) -> JobStats:
@@ -290,6 +321,17 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
     reader: 'jnp' (the batched plain-tensor record reader; the name is the
     JAX package's) or 'kernels' (the fused split reader — one kernel launch
     per split).
+
+    mesh: a ``launch.mesh.DeviceMesh`` to SHARD the scan over — splits are
+    gathered as usual (cache, verification and attribution per split,
+    keeping the serial semantics of piggyback commits and failover) but
+    read in WAVES of up to n_dev splits, each split one fused reader
+    launch on its own slot (``query.read_hail_batch_sharded``: waves =
+    ceil(splits / n_dev)).  The scan axes come from
+    ``dist.sharding.scan_mesh_axes`` (size-1 axes dropped); a mesh with no
+    scan axis of more than one slot, a non-PAX store or an unfiltered
+    query takes the per-split path.  Row-sets are identical to the per-split
+    path's.
 
     adaptive: when set (and the job filters a PAX store), full-scan splits
     piggyback clustered-index builds for an offered fraction of their
@@ -357,6 +399,10 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
                                        list(sp.block_ids))
         return q.read_hail(store, query, qplan, list(sp.block_ids))
 
+    # --- sharded scan: waves of up to n_dev splits, one launch a split ----
+    scan_axes, n_dev = scan_mesh(mesh, store, query)
+    use_sharded = n_dev > 1
+
     # --- dispatch phase: enqueue every split's read without waiting --------
     dispatched: list[tuple] = []   # (ReadResult, completion event, stamp)
     build_s: list[float] = []      # per split, aligned with dispatched
@@ -377,6 +423,18 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
                     f"block {b}: re-plan retry budget "
                     f"({recovery.max_retries}) exhausted")
 
+    wave: list = []                # gathered inputs of the buffered splits
+
+    def flush_wave():
+        """Read the buffered wave, one launch a split on its own slot; the
+        gathered inputs are snapshots, so commits, demotions and failover
+        that landed since gathering cannot change these splits' row-sets."""
+        if not wave:
+            return
+        for res, _, ev in read_wave(store, [query], wave, mesh, scan_axes):
+            dispatched.append((res[0], ev, time.perf_counter()))
+        wave.clear()
+
     t_start = time.perf_counter()
     with obs_trace.span("job_dispatch", track="job"):
         i = 0
@@ -385,6 +443,8 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
             if (fail_after is not None and i == fail_after
                     and failed_node is None):
                 # kill the node that would serve the next split and re-plan
+                # (splits already in the wave buffer gathered their inputs:
+                # like completed map tasks, their results stand)
                 pending, qplan, failed_node, rescheduled = failover_replan(
                     store, query, pending, i)
                 if rescheduled:
@@ -395,7 +455,11 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
             sp = pending[i]
             i += 1
             try:
-                res = read_split(sp)
+                if use_sharded:
+                    gathered = q.gather_shared_scan_inputs(
+                        store, [query], qplan, list(sp.block_ids))
+                else:
+                    res = read_split(sp)
             except CorruptBlockError as e:
                 # detection -> recovery: quarantine the corrupt copy,
                 # re-plan against the now-smaller replica set, and re-queue
@@ -413,8 +477,11 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
                           index_scan=bool(qplan.index_scan[b]))
                     for b in sp.block_ids)
                 continue
-            dispatched.append((res, _completion_event(store.device),
-                               time.perf_counter()))
+            if use_sharded:
+                wave.append(gathered)
+            else:
+                dispatched.append((res, _completion_event(store.device),
+                                   time.perf_counter()))
             if not sp.index_scan:
                 full_scan_blocks += len(sp.block_ids)
             # --- adaptive piggyback: this full-scan split already read these
@@ -431,6 +498,9 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
                 d_wall += dd_wall
             build_s.append(b_wall)
             demote_s.append(d_wall)
+            if len(wave) == n_dev:
+                flush_wave()
+        flush_wave()               # the ragged final wave
 
     # --- completion phase: one pass of barriers over the queued results ---
     with obs_trace.span("job_complete", track="job"):
@@ -505,3 +575,65 @@ def run_job(store: BlockStore, query: q.HailQuery, *,
                                   "rescheduled": rescheduled})
     obs_metrics.observe_job(stats)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# SPMD aggregation: map + combine per slot -> shuffle -> reduce
+# ---------------------------------------------------------------------------
+
+
+def spmd_aggregate(mesh, key_col: torch.Tensor, val_col: torch.Tensor,
+                   mask: torch.Tensor, n_buckets: int, axis: str = "data"):
+    """GROUP-BY-sum: (blocks, rows) keys / values / mask, blocks split over
+    the slots of ``axis`` in equal tiles -> (n_buckets,) float32 sums and
+    counts, on ``key_col``'s device.  n_buckets must divide by the axis'
+    size.
+
+    A loop over the axis' slots, one process: each slot's combiner sums its
+    blocks' masked values and counts per bucket (``key % n_buckets``) in
+    float32 with ``index_add_``, block by block, then over its blocks; the
+    shuffle sends bucket chunk j of every slot's partials to slot j's
+    device; slot j's reduce sums the chunks it received.  Unlike the JAX
+    package's one segment sum per device, the combiner keeps one partial
+    per block before summing them, so the float32 error stays that of a
+    block's rows (the two agree exactly where every partial sum is an
+    integer below 2^24)."""
+    slots = mesh.slots((axis,))
+    n_dev = len(slots)
+    if n_dev <= 0 or n_buckets % n_dev != 0:
+        raise ValueError(
+            f"spmd_aggregate: n_buckets={n_buckets} must be a positive "
+            f"multiple of mesh axis {axis!r} size {n_dev} (each slot "
+            f"reduces n_buckets/n_dev buckets after the shuffle)")
+    if key_col.shape[0] % n_dev != 0:
+        raise ValueError(f"spmd_aggregate: {key_col.shape[0]} blocks do not "
+                         f"split into {n_dev} equal tiles")
+    per_dev = n_buckets // n_dev
+    tile = key_col.shape[0] // n_dev
+    partials = []                            # per slot: (sums, counts)
+    for i, slot in enumerate(slots):
+        part = [t[i * tile:(i + 1) * tile] for t in (key_col, val_col, mask)]
+        with slot.run(part):
+            keys, vals, msk = (t.to(slot.device) for t in part)
+            nb, rows = keys.shape
+            # one bucket row per block: (block, bucket) flattened
+            k = ((keys.long() % n_buckets)
+                 + n_buckets * torch.arange(nb, device=slot.device)[:, None])
+            v = torch.where(msk, vals.to(torch.float32), 0.0)
+            c = msk.to(torch.float32)
+            out = []
+            for x in (v, c):
+                acc = torch.zeros(nb * n_buckets, dtype=torch.float32,
+                                  device=slot.device)
+                acc.index_add_(0, k.reshape(-1), x.reshape(-1))
+                out.append(acc.view(nb, n_buckets).sum(dim=0))
+        slot.join(out)
+        partials.append(out)
+    sums, cnts = [], []
+    for j, slot in enumerate(slots):
+        chunk = slice(j * per_dev, (j + 1) * per_dev)
+        sums.append(sum(p[0][chunk].to(slot.device) for p in partials)
+                    .to(key_col.device))
+        cnts.append(sum(p[1][chunk].to(slot.device) for p in partials)
+                    .to(key_col.device))
+    return torch.cat(sums), torch.cat(cnts)

@@ -61,3 +61,12 @@ def parse_block(schema: Schema, raw: torch.Tensor
     # zero out bad rows (they live in the block's bad-record section)
     cols = {k: torch.where(bad, 0, v) for k, v in cols.items()}
     return cols, bad
+
+
+def block_binary_bytes(schema: Schema, n_rows: int) -> int:
+    """Size of the binary PAX representation (int32 per column)."""
+    return 4 * len(schema.columns) * n_rows
+
+
+def block_ascii_bytes(schema: Schema, n_rows: int) -> int:
+    return schema.row_ascii_width * n_rows

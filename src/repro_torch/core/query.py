@@ -466,15 +466,100 @@ def read_hail_batch(store: BlockStore, queries: Sequence[HailQuery],
     mask, out, frac = ops.hail_read_batch(mins, keys, proj_arr, bad, uidx,
                                           lohi,
                                           partition_size=store.partition_size)
+    return _batch_results(mask, out, frac, proj_cols, col_bytes)
+
+
+def _batch_results(mask, out, frac, proj_cols: tuple, col_bytes: int
+                   ) -> tuple[list[ReadResult], torch.Tensor]:
+    """One split's shared-scan reader outputs -> (one ReadResult per query,
+    shared physical bytes): the filter column plus the projection (without
+    the row id) read over each query's, or the widest, partition range."""
+    # 1 + len(projection) columns read: the filter column and the
+    # projection (proj_cols ends in the row id, which is not read)
+    n_read = len(proj_cols)
     cols = {c: out[..., j] for j, c in enumerate(proj_cols)}
     results = [
         ReadResult(cols=cols, mask=mask[..., qi],
                    rows_read_frac=frac[:, qi],
-                   bytes_read=frac[:, qi].sum() * col_bytes
-                   * (1 + len(proj)))
-        for qi in range(len(queries))]
-    shared_bytes = frac.max(dim=1).values.sum() * col_bytes * (1 + len(proj))
+                   bytes_read=frac[:, qi].sum() * col_bytes * n_read)
+        for qi in range(frac.shape[1])]
+    shared_bytes = frac.max(dim=1).values.sum() * col_bytes * n_read
     return results, shared_bytes
+
+
+def gather_shared_scan_inputs(store: BlockStore,
+                              queries: Sequence[HailQuery],
+                              qplan: QueryPlan,
+                              block_ids: Sequence[int]):
+    """Gathered fused-reader inputs for ONE split of a (possibly sharded)
+    shared scan: (mins, keys, proj, bad, use_index).
+
+    This is the host-side half of the fused read — BlockCache traffic,
+    read-path checksum verification (raising ``CorruptBlockError`` exactly
+    like the unsharded readers, so executors keep their quarantine/re-plan
+    handling per split) and governor attribution all happen HERE; the wave
+    executor then hands many splits' inputs to one sharded read.  Each
+    tensor is a fresh gather (or a read-only block-cache value), so a
+    commit, demotion or repair that lands before the wave launches cannot
+    change it."""
+    ids = np.asarray(block_ids)
+    col = queries[0].filter_col
+    assert col is not None and store.layout == "pax"
+    proj_cols = tuple(queries[0].projection) + (ROWID,)
+    return _gather_split_inputs(store, qplan, ids, col, proj_cols,
+                                n_queries=len(queries))
+
+
+def read_hail_batch_sharded(store: BlockStore,
+                            queries: Sequence[HailQuery],
+                            gathered: Sequence[tuple], mesh, axes
+                            ) -> list[tuple[list[ReadResult],
+                                            "int | torch.Tensor"]]:
+    """SHARDED shared-scan reader: a WAVE of up to n_dev splits, each split
+    one fused reader launch on its own slot of ``mesh`` along ``axes``
+    (``ops.hail_read_batch_sharded``), all against the batch's (Q, 2)
+    ranges.
+
+    ``gathered`` holds per-split inputs from ``gather_shared_scan_inputs``
+    (1 <= len <= n_dev).  Nothing is padded (the JAX package pads ragged
+    splits and the wave only to run one SPMD program): each split's
+    row-sets, fractions and bytes are those of ``read_hail_batch`` on the
+    same blocks.  Returns one (results per query, shared bytes) pair per
+    split, shaped exactly like ``read_hail_batch``'s return value; split
+    k's tensors live on slot k's device and were made on its stream, where
+    the caller records the split's completion event
+    (``mesh.slots(axes)[k]``)."""
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.kernels import ops
+
+    assert store.layout == "pax" and len(queries) >= 1
+    col = queries[0].filter_col
+    assert col is not None, "shared-scan batches need a range filter"
+    proj_cols = tuple(queries[0].projection) + (ROWID,)
+    n_dev = dsh.scan_device_count(mesh, axes)
+    assert 1 <= len(gathered) <= n_dev, (len(gathered), n_dev)
+    n_q = len(queries)
+    lohi = np.asarray([[qq.filter[1], qq.filter[2]] for qq in queries],
+                      np.int32)
+    # scan-mode counters here, as the JAX package keeps them: each query is
+    # charged the blocks it scanned (the ops wrapper counts waves)
+    for g in gathered:
+        u = np.asarray(g[4])
+        n_idx = int(u.astype(bool).sum())
+        ops.DISPATCH_COUNTS["index_scan_blocks"] += n_q * n_idx
+        ops.DISPATCH_COUNTS["full_scan_blocks"] += n_q * (u.shape[0] - n_idx)
+    outs = ops.hail_read_batch_sharded(
+        gathered, lohi, partition_size=store.partition_size, mesh=mesh,
+        axes=axes)
+    col_bytes = 4 * store.rows_per_block
+    split_results = []
+    for (mask, out, frac), slot in zip(outs, mesh.slots(axes)):
+        with slot.run():      # the sums read frac after the slot's launch
+            results, shared = _batch_results(mask, out, frac, proj_cols,
+                                             col_bytes)
+        slot.hand_back([r.bytes_read for r in results] + [shared])
+        split_results.append((results, shared))
+    return split_results
 
 
 def read_hadoop(store: BlockStore, query: HailQuery,

@@ -71,6 +71,19 @@ SYNTHETIC = Schema("Synthetic",
 SCHEMAS = {s.name: s for s in (USERVISITS, SYNTHETIC)}
 
 
+def tokens_schema(seq_width: int = 0) -> Schema:
+    """LM-training corpus blocks: selection attributes + token payload ids.
+
+    Token payloads are stored as ``seq_width`` extra columns (tok0..tokN) so
+    the whole row stays PAX-decomposable; ``data.pipeline.HailDataSource``
+    reassembles (rows, seq_width) token matrices from qualifying rows.
+    """
+    cols = [Column("doc_id"), Column("domain"), Column("quality", scale=1000.0),
+            Column("timestamp"), Column("length")]
+    cols += [Column(f"tok{i}", ascii_width=6) for i in range(seq_width)]
+    return Schema("TokensCorpus", tuple(cols))
+
+
 # ---------------------------------------------------------------------------
 # Synthetic data generation (host side, numpy)
 # ---------------------------------------------------------------------------
@@ -95,3 +108,18 @@ def gen_synthetic(n_rows: int, seed: int = 0) -> dict[str, np.ndarray]:
     r = np.random.default_rng(seed)
     return {f"attr{i}": r.integers(0, 2**20, n_rows, dtype=np.int32)
             for i in range(19)}
+
+
+def gen_tokens_corpus(n_rows: int, seq_width: int, vocab: int = 50000,
+                      n_domains: int = 16, seed: int = 0) -> dict[str, np.ndarray]:
+    r = np.random.default_rng(seed)
+    d = {
+        "doc_id": np.arange(n_rows, dtype=np.int32),
+        "domain": r.integers(0, n_domains, n_rows, dtype=np.int32),
+        "quality": r.integers(0, 1000, n_rows, dtype=np.int32),
+        "timestamp": r.integers(0, 1 << 20, n_rows, dtype=np.int32),
+        "length": r.integers(seq_width // 2, seq_width, n_rows, dtype=np.int32),
+    }
+    for i in range(seq_width):
+        d[f"tok{i}"] = r.integers(0, vocab, n_rows, dtype=np.int32)
+    return d

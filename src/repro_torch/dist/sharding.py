@@ -1,18 +1,20 @@
-"""Tensor specs and their single-device uses: accounting and initialization.
+"""Tensor specs and their single-device uses (accounting and
+initialization), and the scan axes of a mesh.
 
-The single-device part of the JAX package's ``dist/sharding.py``.  Every
-parameter and cache tensor is declared once as a ``TensorSpec`` with
+Every parameter and cache tensor is declared once as a ``TensorSpec`` with
 logical axis names; the specs drive parameter accounting and
-``init_params``.  The logical axes are kept for the multi-GPU layout, which
-is later work: meshes, the axis-rule resolver, ``constrain`` and
-``sharding_ctx`` have no counterpart here yet, and the port's models make no
+``init_params``.  Of the JAX package's logical-axis resolver the port has
+what the wave dispatch reads: the "batch" rule and ``scan_mesh_axes`` /
+``scan_device_count``, over a ``launch.mesh.DeviceMesh`` or any object with
+``axis_names`` and ``devices.shape``.  ``resolve_pspec``, ``constrain`` and
+``sharding_ctx`` have no counterpart yet, and the port's models make no
 ``constrain`` calls.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -123,3 +125,42 @@ def init_params(tree, generator: torch.Generator, device, dtype=None):
                 for k in sorted(node)}
 
     return walk(tree)
+
+
+# ---------------------------------------------------------------------------
+# Scan axes of a mesh
+# ---------------------------------------------------------------------------
+
+# logical axis -> candidate mesh axes, best first; a tuple is compound
+# (shard over several mesh axes).  The JAX package's rule for "batch", the
+# one logical axis the wave dispatch resolves.
+DEFAULT_RULES: dict[str, tuple] = {
+    "batch": (("pod", "data"), "data"),
+}
+
+
+def _mesh_sizes(mesh) -> dict[str, int]:
+    # a DeviceMesh and the duck-typed fake meshes in tests alike (only
+    # axis_names + devices.shape are read)
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def scan_mesh_axes(mesh) -> tuple[str, ...]:
+    """Mesh axes the fused reader's split dimension shards over: the first
+    "batch" candidate with an axis of size > 1 in ``mesh``, its size-1 and
+    missing axes dropped, so a (1, 1) host mesh yields ``()`` and callers
+    take the single-device path.  No divisibility test: a wave holds up to
+    n_dev splits."""
+    sizes = _mesh_sizes(mesh)
+    for cand in DEFAULT_RULES["batch"]:
+        cand_axes = (cand,) if isinstance(cand, str) else tuple(cand)
+        cand_axes = tuple(a for a in cand_axes if sizes.get(a, 1) > 1)
+        if cand_axes:
+            return cand_axes
+    return ()
+
+
+def scan_device_count(mesh, axes: Sequence[str]) -> int:
+    """Number of slots the scan grid spans on ``axes`` of ``mesh``."""
+    sizes = _mesh_sizes(mesh)
+    return int(math.prod(sizes[a] for a in axes)) if axes else 1

@@ -11,7 +11,8 @@ versions on any device.
 Counters (the contract of the JAX package's ``kernels/ops.py``):
 
 * ``DISPATCH_COUNTS`` — one per wrapper call, whichever route it takes
-  (``hail_read`` once per split, plus scan-mode and verification counts;
+  (``hail_read`` once per split, or ``hail_read_sharded_waves`` once per
+  wave of splits, plus scan-mode and verification counts;
   ``attention`` and ``selective_scan`` once per layer and prefill;
   ``index_search`` and ``pax_scan`` once per call);
 * ``TRACE_COUNTS`` — kernel variants built or selected for the first time
@@ -189,6 +190,54 @@ def hail_read_batch(mins, keys, proj, bad, use_index, lohi, *,
                              "full_blocks": int(u.shape[0]) - n_idx})
     return _read("hail_read_batch", mins, keys, proj, bad, u, lohi,
                  partition_size)
+
+
+def hail_read_batch_sharded(splits, lohi, *, partition_size: int, mesh,
+                            axes):
+    """Sharded fused reader: a WAVE of up to n_dev splits, each split ONE
+    reader launch on its own slot of ``mesh`` along ``axes`` (split k on
+    slot k), all against the same (Q, 2) ranges.
+
+    ``splits`` holds per-split inputs (mins, keys, proj, bad, use_index) as
+    ``query.gather_shared_scan_inputs`` gives them.  A CUDA slot launches on
+    its own stream, after the stream has waited for the work that made the
+    inputs; a CPU slot takes the plain version.  Inputs move to the slot's
+    device where they lie elsewhere (a slot on their own device does not
+    copy).  Returns per split (mask, masked proj, frac) on its slot's
+    device, made on its slot's stream: the caller records the split's
+    completion event there.
+
+    Where the JAX package pads ragged splits with dead blocks and the wave
+    with dummy splits (so that one SPMD program runs on every device),
+    separate launches need neither: nothing is padded, and each split's
+    outputs are those of its own ``hail_read_batch``.  The counters are the
+    JAX package's sharded accounting: one ``hail_read_sharded_waves`` a
+    wave, one ``hail_read_sharded_splits`` per split it carries, and no
+    ``hail_read`` / ``hail_read_batch``; the scan-mode counters are the
+    caller's (``query.read_hail_batch_sharded``)."""
+    axes = tuple(axes)
+    slots = mesh.slots(axes)
+    if not 1 <= len(splits) <= len(slots):
+        raise ValueError(f"hail_read_batch_sharded: {len(splits)} splits "
+                         f"for a wave of {len(slots)} slots")
+    DISPATCH_COUNTS["hail_read_sharded_waves"] += 1
+    DISPATCH_COUNTS["hail_read_sharded_splits"] += len(splits)
+    _obs_trace.instant("hail_read_sharded", track="kernels", cat="dispatch",
+                       args={"splits": len(splits),
+                             "blocks": sum(int(g[0].shape[0])
+                                           for g in splits),
+                             "axes": ",".join(axes)})
+    lohi = np.asarray(lohi, np.int32).reshape(-1, 2)
+    outs = []
+    for (mins, keys, proj, bad, use_index), slot in zip(splits, slots):
+        u = _host_flags(use_index)
+        dev = slot.device
+        with slot.run((mins, keys, proj, bad)):
+            out = _read("hail_read_sharded", mins.to(dev), keys.to(dev),
+                        proj.to(dev), bad.to(dev), u, lohi, partition_size)
+        slot.hand_back(out)
+        outs.append(out)
+    return outs
 
 
 def index_search(mins, lo, hi):

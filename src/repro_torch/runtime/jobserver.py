@@ -72,9 +72,11 @@ Completion waits on one CUDA event per dispatched split
 (``mapreduce._completion_event``), and each live member's matching rows
 are selected on the device, so only they cross to the host (the JAX
 package copies every split's full masks and columns and selects there;
-the answers are the same rows in the same order).  The JAX package's
-``mesh`` option (waves of splits sharded over several devices) is not
-ported: every split runs on the store's one device.
+the answers are the same rows in the same order).  With
+``ServerConfig.mesh`` a batch's splits are read in WAVES of up to n_dev
+splits, one launch a split on its own slot (device and stream) of the
+mesh, as ``mapreduce.run_job(..., mesh=...)`` reads them; each split's
+completion event is recorded on its slot's stream.
 """
 from __future__ import annotations
 
@@ -121,11 +123,17 @@ class ServerConfig:
     ``result_cache_bytes``: the materialized-answer tier, same knob shape
     (measurements of the scan path itself disable it).  ``adaptive``:
     when set, flushes draw ONE shared build quantum (see module docstring).
+    ``mesh``: a ``launch.mesh.DeviceMesh`` to SHARD each batch's fused scan
+    over — splits gather as usual but are read in WAVES of up to n_dev
+    splits, one launch a split on its own slot (see ``mapreduce.run_job``);
+    a mesh without a scan axis of more than one slot takes the per-split
+    path.
     """
     max_batch: int = 8
     max_pending_per_tenant: int = 8
     max_pending_total: int = 64
     reader: str = "kernels"
+    mesh: Optional[object] = None
     cache: bool = True
     cache_bytes: Optional[int] = None
     result_cache: bool = True
@@ -600,6 +608,24 @@ class HailServer:
         # (results, shared bytes, dispatch stamp, live qis, completion event)
         dispatched = []
 
+        # sharded scan: buffer up to n_dev gathered splits a wave and read
+        # the wave one launch a split on its own slot (the gathered inputs
+        # are snapshots, so buffering cannot change any split's row-set)
+        mesh = self.config.mesh
+        scan_axes, n_dev = mr.scan_mesh(mesh, store, query0)
+        use_sharded = n_dev > 1
+        wave: list[tuple] = []        # (live qis, gathered inputs)
+
+        def flush_wave():
+            if not wave:
+                return
+            out = mr.read_wave(store, queries, [g for _, g in wave], mesh,
+                               scan_axes)
+            for (live_qis, _), (res, shared, ev) in zip(wave, out):
+                dispatched.append((res, shared, time.perf_counter(),
+                                   live_qis, ev))
+            wave.clear()
+
         pending = list(splits)
         i = 0
         try:
@@ -623,8 +649,12 @@ class HailServer:
                     # rides it — skip the dispatch entirely
                     continue
                 try:
-                    res, shared = self._read_batch(queries, qplan,
-                                                   list(sp.block_ids))
+                    if use_sharded:
+                        gathered = q.gather_shared_scan_inputs(
+                            store, queries, qplan, list(sp.block_ids))
+                    else:
+                        res, shared = self._read_batch(queries, qplan,
+                                                       list(sp.block_ids))
                 except CorruptBlockError as e:
                     # quarantine at the namenode, re-plan against the
                     # smaller replica set, re-queue this split's blocks as
@@ -639,9 +669,12 @@ class HailServer:
                               index_scan=bool(qplan.index_scan[b]))
                         for b in sp.block_ids)
                     continue
-                dispatched.append((res, shared, time.perf_counter(),
-                                   tuple(live),
-                                   mr._completion_event(store.device)))
+                if use_sharded:
+                    wave.append((tuple(live), gathered))
+                else:
+                    dispatched.append((res, shared, time.perf_counter(),
+                                       tuple(live),
+                                       mr._completion_event(store.device)))
                 d_wall, demote_pending = demote_pending, 0.0
                 b_wall = 0.0
                 if adapt_rid is not None and budget["left"] > 0:
@@ -659,6 +692,9 @@ class HailServer:
                 n_idx = sum(bool(qplan.index_scan[b]) for b in sp.block_ids)
                 stats.split_scan_modes.append(
                     (n_idx, len(sp.block_ids) - n_idx))
+                if len(wave) == n_dev:
+                    flush_wave()
+            flush_wave()          # the ragged final wave
         finally:
             if demote_pending > 0.0:
                 # no split carried the demotion wall the claim paid (every
