@@ -1,5 +1,5 @@
-"""HAIL's main path and LM serving on one NVIDIA H100, through the
-PyTorch port.
+"""HAIL's main path, LM serving and LM training on one NVIDIA H100,
+through the PyTorch port.
 
     python3 chip_smoke.py
 
@@ -12,6 +12,9 @@ sourceIP / adRevenue, 10 nodes with 4 map slots — cut to 64 blocks (33.5 M
 rows, 3.05 GB of ASCII).  Serving runs llama3.2-1b and falcon-mamba-7b at
 full width and depth in bfloat16, with random weights from a seeded
 generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
+Training runs llama3.2-1b at full width and depth and falcon-mamba-7b at
+full width on 8 of its 64 layers, with float32 parameters and AdamW state,
+on batches of 4 x 512 tokens.
 
 1. device   the card, its count, its power limit and the float32 matmul
             settings (TF32 off for matmuls and cuDNN);
@@ -23,8 +26,12 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             cases; the reader also at Q = 3, at Q = 1,500, at C = 1, at
             R = 1,000, over an out-of-order root directory and over inputs
             that are views off 16-byte boundaries; flash in bf16 at every
-            head dim, ragged, non-causal and windowed), and the HAIL slice
-            at the test shape on the card against the CPU;
+            head dim, ragged, non-causal and windowed; the backward kernels
+            too: flash attention's with its forward's log-sum-exp at the
+            llama train shape in bf16 and float32 and at the same edges,
+            the scan's at the falcon-mamba train shape, small, ragged and
+            N = 1), and the HAIL slice at the test shape on the card
+            against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
             the same query over a plain HDFS upload; then the same query
             read by the two standalone primitives (``ops.index_search`` on
@@ -60,7 +67,7 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             documents of 513 tokens (vocabulary 128,256) uploaded in
             blocks of 4,096 rows, selected by the indexed query domain = 3
             (doc ids and tokens bit-equal to the generated corpus), and
-            the first (4, 512) batch;
+            the first (4, 512) batch, which phase 9 trains on;
 7. serve    each model: prefill + decode through the serve steps, with
             one flash-attention (llama, 16) or scan (falcon-mamba, 64)
             launch per layer in prefill and none in decode; every layer's
@@ -75,7 +82,25 @@ generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
             server's 2 blocks at Q = 8, C = 3, the eager job's 2 indexed
             blocks and the adaptive jobs' one lazy block at Q = 1, each
             with its launches on its path; the sort at one block, at 16
-            and at 64).
+            and at 64; the two backward kernels at the train shapes, flash
+            beside SDPA's backward);
+9. train    gradients through the kernels: one llama attention layer and
+            one falcon-mamba Mamba1 layer at full width, dx and every
+            parameter gradient on the kernel route against the plain
+            route (one forward and one backward launch each); a whole
+            llama step at full width on 2 groups in float32 compute on
+            both routes; llama3.2-1b trained at full width and depth in
+            bf16 compute on phase 6b's HAIL-selected batch (a warm-up
+            and 5 counted steps, 16 flash forward and 16 backward launches
+            a step, the loss falling on the repeated batch, one profiled
+            step, one step each under remat="full" and "dots" with 32
+            forward launches and the loss of a remat="none" step from the
+            same state),
+            falcon-mamba-7b the same on 8 layers (8 + 8 scan launches a
+            step); and a checkpoint round trip of a full-width two-group
+            llama train state (bit for bit onto the card, the same loss
+            from the restored state, a corrupted leaf falling back to the
+            step before).
 
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
@@ -89,8 +114,11 @@ here starts ``PROFILER_SETTLE_S`` late.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -141,6 +169,32 @@ SCAN_RTOL = 1e-4
 # whole prefill and first decode step are compared too, in bf16 and in
 # float32, and reported with the free-running divergence per layer.
 SERVE_LAYER_TOL = 1e-4
+# The backward kernels against their plain versions (ref.attention_bwd,
+# ref.selective_scan_bwd) on the same inputs, as a share of each
+# gradient's largest magnitude: float32 sums in another order (~1e-6
+# measured) within 1e-5; bf16 gradients are rounded once to bf16 at the
+# store (2^-9 of each value), within 2^-8.  The scan's gradients sum over
+# up to 512 steps and 8,192 channels in float32: 1e-4, as the forward.
+# The forward's lse (natural log, float32): 1e-5 of its magnitude.
+FLASH_BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
+SCAN_BWD_RTOL = 1e-4
+LSE_TOL = 1e-5
+# Training (phase 9): batch 4 x 512 tokens; llama3.2-1b at full width and
+# depth, falcon-mamba-7b at full width on 8 of its 64 layers (float32
+# AdamW state for all 7.01 B parameters would be 112 GB).  The whole-step
+# check runs llama at full width on 2 groups in float32 compute on both
+# routes: each route's gradients are the same float32 arithmetic but for
+# the summation order inside attention (~1e-6 of a gradient's scale,
+# phase 3), which the random-weight model carries through two layers and
+# the 128,256-way softmax.  Its weights are the first two layers of the
+# full model's (scores of order 1e2, where one float32 ulp of a score is
+# ~1e-5 of a softmax weight); 1e-3 of each leaf's scale leaves room for
+# that and is far below the order-1 error of a missing or wrong gradient.
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS = 6                 # one of them the warm-up
+FALCON_TRAIN_GROUPS, FALCON_TRAIN_STEPS = 8, 3
+TRAIN_LR = 1e-3
+TRAIN_STEP_TOL = 1e-3
 
 
 def emit(phase: str, **fields):
@@ -360,11 +414,8 @@ def attn_inputs(b, t, s, h, kv, d, dtype):
             for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d))]
 
 
-def attn_bound(q, k, v, causal, window):
-    """Each input read once and the output written once, against 4 flops
-    (QK^T and PV, a multiply and an add each) per head dim and per
-    unmasked (query, key) pair, at the tensor-core rate for bf16 inputs
-    and the CUDA-core rate for float32."""
+def attn_bound_terms(q, k, v, causal, window) -> tuple[int, int]:
+    """(bytes, flops) of ``attn_bound``."""
     b, t, h, d = q.shape
     s = k.shape[1]
     qp = torch.arange(t)[:, None]
@@ -375,9 +426,24 @@ def attn_bound(q, k, v, causal, window):
     if window is not None:
         m &= kp > qp - window
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    n_ops = 4 * b * h * d * int(m.sum())
+    return n_bytes, 4 * b * h * d * int(m.sum())
+
+
+def attn_bound(q, k, v, causal, window):
+    """Each input read once and the output written once, against 4 flops
+    (QK^T and PV, a multiply and an add each) per head dim and per
+    unmasked (query, key) pair, at the tensor-core rate for bf16 inputs
+    and the CUDA-core rate for float32."""
+    n_bytes, n_ops = attn_bound_terms(q, k, v, causal, window)
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
     return bound_ms(n_bytes, n_ops, rate)
+
+
+def upstream_grad(like, seed: int = SEED + 3):
+    """A random upstream gradient of ``like``'s shape, dtype and device."""
+    g = torch.Generator(device=like.device).manual_seed(seed)
+    return torch.randn(like.shape, generator=g, device=like.device).to(
+        like.dtype)
 
 
 def scan_inputs(b, t, d, n):
@@ -399,6 +465,33 @@ def scan_bound(delta, b):
     n = b.shape[-1]
     n_bytes = 4 * (3 * bs * t * d + 2 * bs * t * n + d * n + bs * d * n)
     return bound_ms(n_bytes, 7 * bs * t * d * n, F32_OPS_PER_S)
+
+
+def flash_bwd_bound(q, k, v, causal, window):
+    """q, k, v, o and dO read once, lse and D (float32 a row and head) read
+    once, dq, dk and dv written once, against 10 flops (QK^T, dO V^T,
+    P^T dO, dS^T Q, dS K: a multiply and an add each) per head dim and per
+    unmasked (query, key) pair, at the tensor-core rate for bf16 inputs
+    and the CUDA-core rate for float32."""
+    b, t, h, d = q.shape
+    _, fwd_ops = attn_bound_terms(q, k, v, causal, window)
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 2 * 4 * b * h * t
+    n_ops = fwd_ops // 4 * 10
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound_ms(n_bytes, n_ops, rate)
+
+
+def scan_bwd_bound(delta, b, with_dh):
+    """delta, x, dy read and ddelta, dx written (4 B each per (b, t, d)),
+    b, c read and db, dc written, a read and da written, dh_final read if
+    given; about 12 float32 operations per (b, t, d, n) (the two recurrences
+    and the five gradient terms)."""
+    bs, t, d = delta.shape
+    n = b.shape[-1]
+    n_bytes = 4 * (5 * bs * t * d + 4 * bs * t * n + 2 * d * n
+                   + (bs * d * n if with_dh else 0))
+    return bound_ms(n_bytes, 12 * bs * t * d * n, F32_OPS_PER_S)
 
 
 def search_inputs(rng, b, parts):
@@ -600,16 +693,86 @@ def phase_kernels(rng):
         scan_cases.append({"shape": [b, t, d, n], "max_abs_err": err,
                            "tol": tol})
         del inputs, got, want
+    # the backward kernels, each held to its plain version on the same
+    # inputs (the forward's own output and lse for flash): at the llama
+    # train shape in bf16 and f32, every head dim, ragged T and S,
+    # non-causal, windowed and rows with no key in their band
+    flash_bwd_cases = []
+    for b, t, s, h, kv, d, causal, window, dtype in [
+            (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
+            (4, 512, 512, 32, 8, 64, True, None, torch.float32),
+            (2, 128, 128, 4, 4, 32, False, None, torch.float32),
+            (1, 256, 256, 2, 2, 32, True, 32, torch.float32),
+            (2, 100, 100, 4, 2, 16, True, None, torch.float32),
+            (2, 100, 77, 4, 2, 64, False, 24, torch.float32),
+            (1, 200, 50, 2, 1, 64, True, 16, torch.float32),
+            (1, 200, 50, 2, 1, 64, True, 16, torch.bfloat16),
+            (2, 100, 77, 4, 2, 16, False, 24, torch.bfloat16),
+            (1, 70, 130, 4, 1, 32, False, None, torch.bfloat16),
+            (1, 300, 300, 4, 1, 64, True, 128, torch.bfloat16)]:
+        q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
+        do = upstream_grad(q)
+        o, lse = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
+                                                     window=window)
+        _, lse_plain = ref.attention_lse(q, k, v, causal=causal,
+                                         window=window)
+        got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=causal,
+                                                  window=window)
+        want = ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+        torch.cuda.synchronize()
+        case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
+               f"causal={causal} window={window}"
+        lse_err = float(((lse - lse_plain).abs()
+                         / lse_plain.abs().clamp(min=1.0)).max())
+        check(lse_err <= LSE_TOL, f"flash lse kernel == plain at {case}: "
+              f"{lse_err} > {LSE_TOL} of its magnitude")
+        rel = [max_abs_err([g], [w]) / max(float(w.float().abs().max()),
+                                           1e-30)
+               for g, w in zip(got, want)]
+        check(max(rel) <= FLASH_BWD_RTOL[dtype], f"flash_attention_bwd "
+              f"kernel == plain at {case}: dq, dk, dv {rel} of their scale "
+              f"> {FLASH_BWD_RTOL[dtype]}")
+        flash_bwd_cases.append({"case": case, "lse_share": lse_err,
+                                "max_abs_err": max_abs_err(got, want),
+                                "share_of_scale": rel,
+                                "tol_share": FLASH_BWD_RTOL[dtype]})
+        del q, k, v, do, o, got, want
+    scan_bwd_cases = []
+    for b, t, d, n, with_dh in [(SERVE_BATCH, SERVE_PROMPT, 8192, 16, False),
+                                (SERVE_BATCH, SERVE_PROMPT, 8192, 16, True),
+                                (2, 100, 300, 8, True), (1, 70, 130, 5, True),
+                                (2, 37, 64, 1, True), (1, 33, 40, 3, False)]:
+        inputs = scan_inputs(b, t, d, n)
+        dy = upstream_grad(inputs[0])
+        dh = upstream_grad(inputs[0].new_empty((b, d, n))) if with_dh \
+            else None
+        got = selective_scan.selective_scan_bwd(*inputs, dy, dh)
+        want = ref.selective_scan_bwd(*inputs, dy, dh)
+        torch.cuda.synchronize()
+        rel = [max_abs_err([g], [w]) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want)]
+        check(max(rel) <= SCAN_BWD_RTOL, f"selective_scan_bwd kernel == "
+              f"plain at {(b, t, d, n)} dh_final={with_dh}: ddelta, dx, "
+              f"db, dc, da {rel} of their scale > {SCAN_BWD_RTOL}")
+        scan_bwd_cases.append({"shape": [b, t, d, n], "dh_final": with_dh,
+                               "max_abs_err": max_abs_err(got, want),
+                               "share_of_scale": rel,
+                               "tol_share": SCAN_BWD_RTOL})
+        del inputs, got, want
     emit("kernels", reader=reader_cases, sort=sort_cases,
          index_search=search_cases, pax_scan=pax_cases, flash=flash_cases,
-         scan=scan_cases)
+         scan=scan_cases, flash_bwd=flash_bwd_cases, scan_bwd=scan_bwd_cases)
     return {name: max(c["max_abs_err"] for c in cases)
             for name, cases in (("hail_read", reader_cases),
                                 ("bitonic_sort", sort_cases),
                                 ("index_search", search_cases),
                                 ("pax_scan", pax_cases),
                                 ("flash_attention", flash_cases),
-                                ("selective_scan", scan_cases))}
+                                ("selective_scan", scan_cases),
+                                ("flash_attention_bwd", flash_bwd_cases),
+                                ("selective_scan_bwd", scan_bwd_cases))}
 
 
 def phase_small_slice():
@@ -1240,7 +1403,8 @@ def phase_data_pipeline() -> dict:
     corpus of 2^15 documents, 513 tokens each (512-token batches plus the
     shifted label) from llama3.2-1b's vocabulary of 128,256, uploaded in
     blocks of 4,096 rows indexed on domain, quality and timestamp; training
-    data selected by the indexed query domain = 3."""
+    data selected by the indexed query domain = 3.  Returns the first
+    (4, 512) batch, which phase 9 trains on."""
     from repro_torch.core import query as q
     from repro_torch.core import schema as sc
     from repro_torch.data import pipeline as pl
@@ -1286,6 +1450,7 @@ def phase_data_pipeline() -> dict:
          select_s=select_s, store_device_bytes=store_bytes,
          reduced=["n_docs 2^15 (depth only)"],
          seconds=time.perf_counter() - t_phase)
+    return {k: v.contiguous() for k, v in batch.items()}
 
 
 def share(got, want) -> dict:
@@ -1469,6 +1634,300 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
     return record
 
 
+def tree_leaves(tree, prefix: str = "") -> dict:
+    """{"a/b": leaf} of a tree of dicts, keys sorted."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(tree_leaves(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_grad_check(arch: str, kernel: str) -> dict:
+    """One layer of ``arch`` at full width, float32 compute with bf16
+    weights (bf16 values held as float32 leaves, so the gradients are
+    float32), from one input and one upstream gradient: dx and every
+    parameter gradient on the kernel route against the plain route
+    (``use_kernels(False)``, PyTorch's autograd through the plain
+    versions), as a share of each gradient's largest magnitude.  The
+    kernel route must launch the forward and the backward kernel once."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import init_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import default_positions
+    from repro_torch.models.stack import apply_layer, layer_specs
+
+    cfg = get_config(arch)
+    (lc,) = cfg.stack.pattern
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params = tree_map(lambda t: t.float(), init_params(
+        layer_specs(lc, cfg.d_model), gen, "cuda", dtype=torch.bfloat16))
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    dout = upstream_grad(x)
+    aux = {"positions": default_positions(TRAIN_BATCH, TRAIN_SEQ, "cuda")}
+    names = ["x"] + list(tree_leaves(params))
+
+    def grads(kernels):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        xg = x.detach().requires_grad_(True)
+        ops.use_kernels(kernels)
+        try:
+            out = apply_layer(lc, live, xg, mode="train", cache=None,
+                              aux=aux, eps=cfg.norm_eps)[0]
+            got = torch.autograd.grad(
+                out, [xg] + list(tree_leaves(live).values()), dout)
+        finally:
+            ops.use_kernels(True)
+        return dict(zip(names, got))
+
+    ops.KERNEL_LAUNCHES.clear()
+    on_kernels = grads(True)
+    torch.cuda.synchronize()
+    launches = dict(ops.KERNEL_LAUNCHES)
+    plain = grads(False)
+    shares = {n: share(on_kernels[n], plain[n])["share"] for n in names}
+    worst = max(shares, key=shares.get)
+    check(launches == {kernel: 1, f"{kernel}_bwd": 1},
+          f"{arch} layer: launches {launches}, want one {kernel} and one "
+          f"{kernel}_bwd")
+    check(shares[worst] <= SERVE_LAYER_TOL,
+          f"{arch} layer: gradient {worst}, kernel route vs plain route, "
+          f"differs by {shares[worst]} of its scale > {SERVE_LAYER_TOL}")
+    return {"arch": arch, "shape": [TRAIN_BATCH, TRAIN_SEQ, cfg.d_model],
+            "launches": launches, "grad_share": shares, "worst": worst,
+            "tol": SERVE_LAYER_TOL}
+
+
+def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
+    """``steps`` train steps of ``cfg`` (float32 params and AdamW state)
+    on one repeated batch, after a warm-up step: walls, tokens/s, losses,
+    launches, peak memory, one profiled step, and one step each under
+    remat="full" and "dots" with the loss of a remat="none" step from the
+    same state.  The main path's counts are those of the timed steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import (StepCfg, init_train_state,
+                                        make_train_step)
+
+    gc.collect()                # see the remat step below
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(state["params"]).values()
+    n_params = sum(v.numel() for v in leaves)
+    state_bytes = sum(v.numel() * v.element_size()
+                      for part in ("params", "m", "v")
+                      for v in tree_leaves(state[part]).values())
+    step = make_train_step(cfg, opt, StepCfg(remat="none"))
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)                    # warm-up
+    losses = [float(metrics["loss"])]
+    warm_s = time.perf_counter() - t0
+
+    ops.KERNEL_LAUNCHES.clear()
+    walls, norms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(metrics["grad_norm"]))
+    launches = dict(ops.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in launches.items()}
+    n_layers = cfg.n_layers
+    check(per_step == {kernel: n_layers, f"{kernel}_bwd": n_layers},
+          f"{cfg.name}: launches a step {per_step}, want {n_layers} "
+          f"{kernel} and {n_layers} {kernel}_bwd")
+    check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses} finite")
+    check(losses[-1] < losses[0], f"{cfg.name}: the loss on a repeated "
+          f"batch falls: {losses}")
+
+    match = "flash_bwd" if kernel == "flash_attention" else "scan_bwd"
+    prof = profile_job(lambda: step(state, batch), match)
+    prof.pop("host_span_ms")
+    none_loss = float(step(state, batch)[1]["loss"])
+    remat = {}
+    for name in ("full", "dots"):
+        ops.KERNEL_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss = float(make_train_step(cfg, opt, StepCfg(remat=name))(
+            state, batch)[1]["loss"])
+        wall = time.perf_counter() - t0
+        got = dict(ops.KERNEL_LAUNCHES)
+        # the first checkpoint call of a process imports torch._dynamo, and
+        # that import keeps the calling frames (with this step's old and
+        # new state) alive until a collection: collect, or they hold ~20 GB
+        gc.collect()
+        check(got == {kernel: 2 * n_layers, f"{kernel}_bwd": n_layers},
+              f"{cfg.name}: remat={name!r} launches {got}, want "
+              f"{2 * n_layers} {kernel} and {n_layers} {kernel}_bwd")
+        check(loss == none_loss, f"{cfg.name}: remat={name!r} loss {loss} "
+              f"!= remat='none' loss {none_loss} from the same state")
+        remat[name] = {"step_s": wall, "loss": loss, "launches": got}
+    tokens = batch["tokens"].numel()
+    del state, metrics
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": n_layers, "params": n_params,
+            "state_bytes": state_bytes, "batch": list(batch["tokens"].shape),
+            "compute_dtype": str(cfg.compute_dtype), "lr": opt.lr,
+            "init_s": init_s, "warmup_step_s": warm_s, "step_s": walls,
+            "tokens_per_s": tokens * steps / sum(walls), "losses": losses,
+            "grad_norms": norms, "launches": launches,
+            "launches_per_step": per_step, "peak_mem_bytes": peak,
+            "profile": prof, "remat_none_loss": none_loss,
+            "remat": remat}
+
+
+def phase_train(batch: dict) -> dict:
+    """9. train: the per-layer gradient check (the kernel route against
+    the plain route, one llama attention layer and one falcon-mamba Mamba1
+    layer at full width); a whole llama3.2-1b step at full width and two
+    groups in float32 compute on both routes; llama3.2-1b trained at full
+    width and depth on HAIL-selected data (phase 6b's batch), and
+    falcon-mamba-7b at full width cut to 8 of its 64 layers; and a
+    checkpoint round trip of a full-width two-group llama train state."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import init_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import model_specs
+    from repro_torch.train.optimizer import OptCfg
+    from repro_torch.train.step import (StepCfg, init_train_state,
+                                        loss_and_grads, make_train_step)
+
+    t_phase = time.perf_counter()
+    record: dict = {"layers": [layer_grad_check(arch, kernel)
+                               for arch, kernel in SERVE]}
+    torch.cuda.empty_cache()
+
+    # --- a whole step in float32 compute, kernel route vs plain route ----
+    llama = get_config("llama3.2-1b")
+    two = dataclasses.replace(llama, compute_dtype=torch.float32,
+                              stack=dataclasses.replace(llama.stack,
+                                                        n_groups=2))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    # the first two layers of the full-depth model's random weights: the
+    # init draws a stacked leaf at (groups)^-1/2, so a 2-group draw would
+    # give weights at 0.71 and scores of order 1e3, where the float32
+    # scores themselves differ by ~1e-4 relative between any two routes
+    params = init_params(model_specs(llama), gen, "cuda")
+    params["stack"]["groups"] = tree_map(lambda t: t[:2].clone(),
+                                         params["stack"]["groups"])
+    routes = []
+    for kernels in (True, False):
+        ops.use_kernels(kernels)
+        try:
+            routes.append(loss_and_grads(two, StepCfg(remat="none"), params,
+                                         batch))
+        finally:
+            ops.use_kernels(True)
+    (loss_k, g_k), (loss_p, g_p) = routes
+    g_k, g_p = tree_leaves(g_k), tree_leaves(g_p)
+    shares = {n: share(g_k[n], g_p[n])["share"] for n in g_p}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(shares, key=shares.get)
+    check(loss_rel <= TRAIN_STEP_TOL and shares[worst] <= TRAIN_STEP_TOL,
+          f"llama 2-group float32 step, kernel route vs plain route: loss "
+          f"{loss_rel}, gradient {worst} {shares[worst]} of its scale > "
+          f"{TRAIN_STEP_TOL}")
+    record["step_f32_2_groups"] = {"loss": float(loss_k),
+                                   "loss_rel_err": loss_rel,
+                                   "grad_share": shares, "worst": worst,
+                                   "tol": TRAIN_STEP_TOL}
+    del params, routes, g_k, g_p
+    torch.cuda.empty_cache()
+
+    # --- llama3.2-1b-train and falcon-mamba-7b-train-8L --------------------
+    opt = OptCfg(lr=TRAIN_LR, warmup_steps=1, total_steps=100)
+    record["llama3.2-1b-train"] = train_run(
+        llama, batch, TRAIN_STEPS - 1, "flash_attention", opt)
+    falcon = get_config("falcon-mamba-7b")
+    falcon8 = dataclasses.replace(falcon, stack=dataclasses.replace(
+        falcon.stack, n_groups=FALCON_TRAIN_GROUPS))
+    rng = np.random.default_rng(SEED + 6)
+    tok = torch.from_numpy(rng.integers(0, falcon.vocab, (
+        TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)).cuda()
+    record["falcon-mamba-7b-train-8L"] = {
+        **train_run(falcon8, {"tokens": tok[:, :-1].contiguous(),
+                              "labels": tok[:, 1:].contiguous()},
+                    FALCON_TRAIN_STEPS, "selective_scan", opt),
+        "reduced": [f"n_groups 64 -> {FALCON_TRAIN_GROUPS}: AdamW in "
+                    f"float32 for all 7.01 B parameters is 112 GB of "
+                    f"params, grads and moments, past the card's 80 GB"],
+        "data": "numpy tokens below falcon-mamba's vocabulary of 65,024 "
+                "(the HAIL corpus draws from llama's 128,256)"}
+
+    # --- checkpoint round trip -------------------------------------------
+    two_bf16 = dataclasses.replace(two, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    step = make_train_step(two_bf16, opt, StepCfg(remat="none"))
+    state, _ = step(init_train_state(two_bf16, opt, gen, "cuda"), batch)
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in tree_leaves(state).values())
+
+    def bits_equal(a, b):
+        return all(x.dtype == y.dtype and torch.equal(
+            x.view(torch.int32) if x.element_size() == 4 else x,
+            y.view(torch.int32) if y.element_size() == 4 else y)
+            for x, y in zip(tree_leaves(a).values(), tree_leaves(b).values()))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        saver = ck.AsyncSaver()
+        t0 = time.perf_counter()
+        saver.save(state, d, 1)
+        handoff_s = time.perf_counter() - t0
+        saver.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, at = ck.restore_latest(d, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(at == 1 and bits_equal(restored, state),
+              "checkpoint: restore gives the saved state bit for bit")
+        check(all(v.is_cuda for v in tree_leaves(restored).values()),
+              "checkpoint: restored onto the card")
+        after, m_orig = step(state, batch)
+        _, m_rest = step(restored, batch)
+        check(float(m_orig["loss"]) == float(m_rest["loss"]),
+              f"checkpoint: a step from the restored state gives the same "
+              f"loss ({float(m_rest['loss'])} vs {float(m_orig['loss'])})")
+        del restored
+        ck.save(after, d, 2)
+        victim = sorted(f for f in os.listdir(os.path.join(
+            d, "step_00000002")) if f.endswith(".npy"))[0]
+        with open(os.path.join(d, "step_00000002", victim), "r+b") as f:
+            f.seek(200)
+            f.write(b"\xff\xff\xff\xff")
+        fallback, at = ck.restore_latest(d, state)
+        check(at == 1 and bits_equal(fallback, state),
+              f"checkpoint: a corrupted leaf ({victim}) of step 2 falls "
+              f"back to step 1 bit for bit")
+        del fallback, after
+    record["checkpoint"] = {"state_bytes": nbytes, "handoff_s": handoff_s,
+                            "save_s": save_s, "restore_s": restore_s,
+                            "loss": float(m_orig["loss"]),
+                            "corrupted_leaf": victim}
+    del state
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    emit("train", **record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1629,7 +2088,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 6b. the LM data pipeline: HAIL-selected training batches ---------
-    phase_data_pipeline()
+    train_batch = phase_data_pipeline()
     torch.cuda.empty_cache()
 
     # --- 7. serve: llama3.2-1b and falcon-mamba-7b at full width ----------
@@ -1715,6 +2174,36 @@ def main() -> int:
         lambda: ref.selective_scan(*inputs),
         scan_bound(inputs[0], inputs[2]), KERNEL_NAMES["selective_scan"])
     del inputs
+    # the backward kernels at the train shapes; the library call for flash
+    # is PyTorch's SDPA backward (its graph kept, so only the backward runs)
+    q, k, v = attn_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
+                          torch.bfloat16)
+    do = upstream_grad(q)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    timed["flash_bwd_llama_train"] = case(
+        "q/o/dO (4,512,32,64) k/v (4,512,8,64) bf16 causal",
+        lambda: flash_attention.flash_attention_bwd(q, k, v, o, lse, do),
+        lambda: ref.attention_bwd(q, k, v, o, lse, do),
+        flash_bwd_bound(q, k, v, True, None), "flash_bwd",
+        library=lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                            retain_graph=True))
+    del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, do_t
+    inputs = scan_inputs(TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
+    dy = upstream_grad(inputs[0])
+    timed["scan_bwd_falcon_train"] = case(
+        "delta/x/dy (4,512,8192) b/c (4,512,16) a (8192,16) f32, "
+        "no dh_final",
+        lambda: selective_scan.selective_scan_bwd(*inputs, dy),
+        lambda: ref.selective_scan_bwd(*inputs, dy),
+        scan_bwd_bound(inputs[0], inputs[2], False), "scan_bwd",
+        plain_iters=1)
+    del inputs, dy
+    torch.cuda.empty_cache()
 
     # the two primitives with their bounds on the card, as a caller that
     # keeps them there passes them: each call also stacks the pair (one
@@ -1741,6 +2230,12 @@ def main() -> int:
     del keys, proj, mask
     emit("times", cases=timed, profiler_misses=PROFILER_MISSES)
 
+    # --- 9. train: gradients through the kernels, two models trained -------
+    trained = phase_train(train_batch)
+    train_launches = collections.Counter()
+    for name in ("llama3.2-1b-train", "falcon-mamba-7b-train-8L"):
+        train_launches.update(trained[name]["launches"])
+
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
     reader_shapes = {k: {f: timed[k].get(f) for f in (
         "shape", "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1754,6 +2249,8 @@ def main() -> int:
                    for k in ("sort_1x2^19", "sort_16x2^19",
                              f"sort_{BLOCKS}x2^19")}
     flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
+    flash_bwd = timed["flash_bwd_llama_train"]
+    scan_bwd = timed["scan_bwd_falcon_train"]
     search, pax = timed["index_search_64x512"], timed["pax_scan_2^19x2"]
     kernels = [
         {"name": "hail_read", "route": "cuda",
@@ -1799,7 +2296,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": served["flash_attention"]["launches"].get(
-             "flash_attention", 0),
+             "flash_attention", 0) + train_launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
@@ -1808,11 +2305,33 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",
          "launches": served["selective_scan"]["launches"].get(
-             "selective_scan", 0),
+             "selective_scan", 0) + train_launches["selective_scan"],
          "max_abs_err": errs["selective_scan"], "ms": scan["ms"],
          "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
          "bound_by": scan["bound_by"], "library_ms": None,
          "shape": scan["shape"], "ms_by": scan["ms_by"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:25",
+         "backward_of": "flash_attention (the JAX package differentiates "
+                        "plain jnp; no Pallas backward)",
+         "launches": train_launches["flash_attention_bwd"],
+         "max_abs_err": errs["flash_attention_bwd"], "ms": flash_bwd["ms"],
+         "plain_ms": flash_bwd["plain_ms"],
+         "bound_ms": flash_bwd["bound_ms"],
+         "bound_by": flash_bwd["bound_by"],
+         "library_ms": flash_bwd["library_ms"],
+         "shape": flash_bwd["shape"], "ms_by": flash_bwd["ms_by"]},
+        {"name": "selective_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:28",
+         "backward_of": "selective_scan (the JAX package differentiates "
+                        "plain jnp; no Pallas backward)",
+         "launches": train_launches["selective_scan_bwd"],
+         "max_abs_err": errs["selective_scan_bwd"], "ms": scan_bwd["ms"],
+         "plain_ms": scan_bwd["plain_ms"], "bound_ms": scan_bwd["bound_ms"],
+         "bound_by": scan_bwd["bound_by"], "library_ms": None,
+         "shape": scan_bwd["shape"], "ms_by": scan_bwd["ms_by"]},
     ]
     emit("done", seconds=time.perf_counter() - t_run)
     print(smi, flush=True)

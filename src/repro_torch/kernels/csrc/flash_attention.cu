@@ -56,6 +56,13 @@
 //   16 bytes a lane.
 // `wgmma`, TMA and warp specialisation are later steps.
 //
+// Training (`flash_attention_lse_launch`): the same kernels also write each
+// row's log-sum-exp of the masked scaled scores, lse (B,H,T) float32, which
+// the backward kernels (flash_attention_bwd.cu) read to recompute P.  A row
+// with no key in its band gets lse = -1e30 (the mask value) exactly, the
+// backward's sign for "every key weighs 1/S".  `flash_attention_launch`
+// passes no lse pointer, and the serving path is unchanged.
+//
 // float32 (`flash_f32_kernel`), what the per-layer route checks compute:
 // one CTA owns one (batch x head, 64-row q tile), one thread per query row,
 // and loops over 32-key tiles loaded coalesced into shared memory, read by
@@ -107,7 +114,7 @@ template <int D>
 __global__ void __launch_bounds__(kBQ)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int t_len, int s_len, int n_heads, int n_kv, int causal,
+                 float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
                  int window, float scale) {
   __shared__ __align__(16) float s_k[kBK][D];
   __shared__ __align__(16) float s_v[kBK][D];
@@ -198,6 +205,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const float den = fmaxf(l, 1e-30f);
+  if (lse != nullptr && tid < rows)  // (B,H,T); m is -1e30 iff no key kept
+    lse[((int64_t)b * n_heads + h) * t_len + q0 + tid] =
+        m <= kNegInf ? kNegInf : m + logf(l);
   __syncthreads();
 #pragma unroll
   for (int d = 0; d < D; ++d) s_q[tid][d] = acc[d] / den;
@@ -220,6 +230,7 @@ constexpr int kWarps = 4;   // 16 query rows a warp
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;     // bf16 elements of padding a shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -300,7 +311,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 4)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                  int t_len, int s_len, int n_heads, int n_kv, int causal,
+                  float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
                   int window, float scale) {
   __shared__ __align__(128) bf16 s_q[kTQ][D + kPad];  // q in, o out
   __shared__ __align__(128) bf16 s_k[2][kTK][D + kPad];
@@ -458,6 +469,15 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     den[r] = fmaxf(l_run[r], 1e-30f);
   }
+  if (lse != nullptr && tc == 0) {  // natural log: (m2 + log2 l) ln 2
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qp[r] < t_len)
+        lse[((int64_t)b * n_heads + h) * t_len + qp[r]] =
+            m_run[r] <= kNegInf ? kNegInf
+                                : (m_run[r] + log2f(l_run[r])) * kLn2;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + tc * 2;
@@ -483,18 +503,19 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int t_len, int s_len, int n_heads, int n_kv, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int t_len, int s_len, int n_heads, int n_kv, int causal,
            int window, int is_bf16, float scale, cudaStream_t stream) {
   if (is_bf16) {
     const dim3 grid(batch * n_heads, (t_len + kTQ - 1) / kTQ);
     flash_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, t_len,
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, t_len,
         s_len, n_heads, n_kv, causal, window, scale);
   } else {
     const dim3 grid(batch * n_heads, (t_len + kBQ - 1) / kBQ);
     flash_f32_kernel<D><<<grid, kBQ, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, t_len,
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+        t_len,
         s_len, n_heads, n_kv, causal, window, scale);
   }
   return (int)cudaGetLastError();
@@ -514,13 +535,38 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
+      return launch<16>(q, k, v, o, nullptr, batch, t_len, s_len, n_heads, n_kv,
                         causal, window, is_bf16, scale, st);
     case 32:
-      return launch<32>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
+      return launch<32>(q, k, v, o, nullptr, batch, t_len, s_len, n_heads, n_kv,
                         causal, window, is_bf16, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, batch, t_len, s_len, n_heads, n_kv,
+      return launch<64>(q, k, v, o, nullptr, batch, t_len, s_len, n_heads, n_kv,
+                        causal, window, is_bf16, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same launch, also writing lse (B,H,T) float32 (contiguous): the
+// training forward, whose backward is flash_attention_bwd_launch.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* o, void* lse,
+                                          int batch, int t_len, int s_len,
+                                          int n_heads, int n_kv, int head_dim,
+                                          int causal, int window, int is_bf16,
+                                          float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
+  switch (head_dim) {
+    case 16:
+      return launch<16>(q, k, v, o, l, batch, t_len, s_len, n_heads, n_kv,
+                        causal, window, is_bf16, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, l, batch, t_len, s_len, n_heads, n_kv,
+                        causal, window, is_bf16, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, l, batch, t_len, s_len, n_heads, n_kv,
                         causal, window, is_bf16, scale, st);
     default:
       return (int)cudaErrorInvalidValue;

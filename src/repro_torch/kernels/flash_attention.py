@@ -14,6 +14,15 @@ float32 runs on the CUDA cores in full float32.
 ``flash_attention`` routes by device: a CPU tensor takes the plain version
 (``flash_attention_plain``, the ``ref.py`` counterpart), a CUDA tensor
 launches the kernel or raises.
+
+The training path (``ops.attention`` with grad) uses the two entries
+beside it, routed the same way: ``flash_attention_fwd`` is the same kernel
+also writing each row's log-sum-exp (``flash_attention_lse_launch``; plain
+version ``ref.attention_lse``), and ``flash_attention_bwd`` is the backward
+(``csrc/flash_attention_bwd.cu``: a dot kernel for D = rowsum(dO * O), a
+dK/dV kernel and a dQ kernel, deterministic; plain version
+``ref.attention_bwd``).  The forward counts as a ``flash_attention`` launch,
+the backward as one ``flash_attention_bwd`` launch.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ flash_attention_plain = ref.attention
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
+_LSE_ARGTYPES = [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
 
 
 def _check(q, k, v, window):
@@ -68,22 +79,67 @@ def _check(q, k, v, window):
                          "chunks)")
 
 
-def _launch(q, k, v, causal: bool, window):
+def _launch(q, k, v, causal: bool, window, with_lse: bool = False):
     _check(q, k, v, window)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if b == 0 or t == 0:
-        return out
-    fn = _build.entry("flash_attention_launch", _ARGTYPES)
+        return (out, lse) if with_lse else out
+    tail = (b, t, s, h, kvh, d, int(causal),
+            -1 if window is None else int(window),
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        if with_lse:
+            fn = _build.entry("flash_attention_lse_launch", _LSE_ARGTYPES)
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), lse.data_ptr(), *tail, stream)
+        else:
+            fn = _build.entry("flash_attention_launch", _ARGTYPES)
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), *tail, stream)
+    _build.check("flash_attention", code)
+    return (out, lse) if with_lse else out
+
+
+def _check_bwd(q, k, v, o, lse, do, window):
+    _check(q, k, v, window)
+    b, t, h, _ = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
+                or not x.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous, of q's shape, dtype and device")
+        if q.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must start on a "
+                             f"16-byte boundary")
+    if (lse.shape != (b, h, t) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(b, h, t)} on q's device")
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, window):
+    _check_bwd(q, k, v, o, lse, do, window)
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if b == 0 or t == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    fn = _build.entry("flash_attention_bwd_launch", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(*(x.data_ptr() for x in (q, k, v, o, lse, do, dq, dk, dv,
+                                            dsum)),
                   b, t, s, h, kvh, d, int(causal),
                   -1 if window is None else int(window),
                   int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
-    _build.check("flash_attention", code)
-    return out
+    _build.check("flash_attention_bwd", code)
+    return dq, dk, dv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
@@ -94,3 +150,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return _launch(q, k, v, causal, window)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
+    """The training forward: ``flash_attention`` and each row's log-sum-exp
+    of the masked scaled scores -> (out (B,T,H,D) in q's dtype, lse (B,H,T)
+    float32; -1e30 for a row with no key in its band)."""
+    if q.device.type == "cpu":
+        return ref.attention_lse(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _launch(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window=None):
+    """The backward from ``flash_attention_fwd``'s output and lse and the
+    upstream gradient ``do`` (contiguous, q's shape and dtype) -> (dq, dk,
+    dv) in the inputs' dtype."""
+    if q.device.type == "cpu":
+        return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _launch_bwd(q, k, v, o, lse, do, causal, window)

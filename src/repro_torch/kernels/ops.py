@@ -25,6 +25,17 @@ Counters (the contract of the JAX package's ``kernels/ops.py``):
 
 ``reader_stats()`` / ``reset_stats()`` expose the first two;
 ``stats_scope()`` isolates them for one block of code.
+
+Gradients.  With grad enabled and an input that requires grad,
+``attention`` and ``selective_scan`` go through a ``torch.autograd.Function``
+whose forward launches the forward kernel (attention's also writes the
+rows' log-sum-exp) and saves what the backward needs, and whose backward
+launches the hand-written backward kernel — on a CPU tensor the plain
+forward and the explicit plain backward (``ref.attention_bwd``,
+``ref.selective_scan_bwd``), the same formula.  Under ``torch.no_grad()``
+(serving) the path is the plain forward launch, unchanged.
+``use_kernels(False)`` stays the plain route, with PyTorch's own autograd
+through ``ref.attention`` and ``ref.selective_scan``.
 """
 from __future__ import annotations
 
@@ -264,16 +275,64 @@ def pax_scan(key_col, proj, lo, hi):
     return _pax.pax_scan(key_col, proj, lo, hi)
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class AttentionFn(torch.autograd.Function):
+    """Flash attention with its backward: forward kernel with log-sum-exp,
+    backward kernel (plain versions of both on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
+                                                       window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention.flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The Mamba1 scan with its backward kernel (plain versions of both on
+    a CPU tensor); a gradient for ``h_final`` too, None read as zeros."""
+
+    @staticmethod
+    def forward(ctx, delta, x, b, c, a):
+        y, h_final = _scan.selective_scan(delta, x, b, c, a)
+        ctx.save_for_backward(delta, x, b, c, a)
+        ctx.set_materialize_grads(False)   # an unused output's grad: None
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        delta, x, b, c, a = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(delta)
+        return _scan.selective_scan_bwd(
+            delta, x, b, c, a, dy.contiguous(),
+            None if dh_final is None else dh_final.contiguous())
+
+
 def attention(q, k, v, *, causal=True, window=None):
-    """Forward attention, q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D): the
-    flash kernel on a CUDA tensor, the plain version on a CPU tensor or
-    under ``use_kernels(False)``."""
+    """Attention, q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D): the flash
+    kernel on a CUDA tensor, the plain version on a CPU tensor or under
+    ``use_kernels(False)``; with grad, through ``AttentionFn``."""
     DISPATCH_COUNTS["attention"] += 1
     if not _USE_KERNELS:
         return ref.attention(q, k, v, causal=causal, window=window)
     if q.is_cuda:
         TRACE_COUNTS["attention"] += _build.note_variant(
             "flash_attention", (q.dtype, q.shape[-1], causal, window))
+    if _wants_grad(q, k, v):
+        return AttentionFn.apply(q, k, v, causal, window)
     return flash_attention.flash_attention(q, k, v, causal=causal,
                                            window=window)
 
@@ -281,11 +340,13 @@ def attention(q, k, v, *, causal=True, window=None):
 def selective_scan(delta, x, b, c, a):
     """Mamba1 recurrence from a zero state -> (y (B,T,D), h_final (B,D,N)):
     the fused kernel on a CUDA tensor, the plain version on a CPU tensor or
-    under ``use_kernels(False)``."""
+    under ``use_kernels(False)``; with grad, through ``SelectiveScanFn``."""
     DISPATCH_COUNTS["selective_scan"] += 1
     if not _USE_KERNELS:
         return ref.selective_scan(delta, x, b, c, a)
     if delta.is_cuda:
         TRACE_COUNTS["selective_scan"] += _build.note_variant(
             "selective_scan", a.shape[-1])
+    if _wants_grad(delta, x, b, c, a):
+        return SelectiveScanFn.apply(delta, x, b, c, a)
     return _scan.selective_scan(delta, x, b, c, a)

@@ -9,6 +9,14 @@ The float ones (``attention``, ``selective_scan``) repeat the JAX oracles'
 arithmetic in float32, summing in another order.  The parity tests hold
 them against the JAX package, and the CUDA kernels are held against them.
 CPU tensors always take these versions.
+
+``attention_lse``, ``attention_bwd`` and ``selective_scan_bwd`` are the
+plain versions of the training path's kernels: the forward that also gives
+the log-sum-exp, and the two backward kernels.  The JAX package has no
+counterpart (it differentiates plain jnp); the parity tests hold them to
+``jax.vjp`` of the oracles above and to ``torch.autograd`` through them.
+They compute in float32, and in float64 for float64 inputs (for
+``gradcheck``); ``attention`` computes in float32 whatever its inputs.
 """
 from __future__ import annotations
 
@@ -104,20 +112,129 @@ def selective_scan(delta, x, b, c, a):
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D), float32 softmax; query and
-    key positions are their indices; q head h reads kv head h // (H/KV)."""
-    b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
-    rep = h // kvh
-    qg = q.reshape(b, t, kvh, rep, d).float()
-    sc = torch.einsum("btgrk,bsgk->bgrts", qg, k.float()) / math.sqrt(d)
-    qp = torch.arange(t, device=q.device)[:, None]
-    kp = torch.arange(s, device=q.device)[None, :]
-    m = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    key positions are their indices; q head h reads kv head h // (H/KV).
+    Computes in float32 whatever the inputs' dtype."""
+    return _attend(q, v, _scores(q, k, causal, window, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The training path: forward with log-sum-exp, and the two backwards
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30     # the mask value of ``attention`` and the flash kernels
+
+
+def _work_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _band(t: int, s: int, causal: bool, window, device) -> torch.Tensor:
+    """(T, S) validity of (query, key) by index."""
+    qp = torch.arange(t, device=device)[:, None]
+    kp = torch.arange(s, device=device)[None, :]
+    m = torch.ones((t, s), dtype=torch.bool, device=device)
     if causal:
         m = m & (kp <= qp)
     if window is not None:
         m = m & (kp > qp - window)
-    sc = torch.where(m, sc, -1e30)
+    return m
+
+
+def _scores(q, k, causal, window, wd):
+    """Masked scaled scores (B, KV, rep, T, S) in dtype ``wd``."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, kvh, h // kvh, d).to(wd)
+    sc = torch.einsum("btgrk,bsgk->bgrts", qg, k.to(wd)) / math.sqrt(d)
+    return torch.where(_band(t, s, causal, window, q.device), sc, NEG_INF)
+
+
+def _attend(q, v, sc):
+    """softmax(scores) V -> (B,T,H,D) in q's dtype."""
+    b, t, h, d = q.shape
     w = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bgrts,bsgk->btgrk", w, v.float())
+    out = torch.einsum("bgrts,bsgk->btgrk", w, v.to(sc.dtype))
     return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def attention_lse(q, k, v, *, causal: bool = True, window=None):
+    """``attention`` and its rows' log-sum-exp of the masked scaled scores:
+    -> (out (B,T,H,D) in q's dtype, lse (B,H,T) float32).  A row with no
+    key in its band has lse = -1e30 (every score is the mask value): its
+    output is the uniform average of v, as in ``attention``."""
+    b, t, h, _ = q.shape
+    sc = _scores(q, k, causal, window, _work_dtype(q))
+    return _attend(q, v, sc), torch.logsumexp(sc, dim=-1).reshape(b, h, t)
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None):
+    """The backward of ``attention`` from its output and log-sum-exp, the
+    formula the flash backward kernels compute:
+
+        P  = exp(S - lse)              (S the masked scaled scores)
+        D  = rowsum(dO * O)
+        dV = P^T dO                    (summed over the group's q heads)
+        dS = P * (dO V^T - D)          (0 where the mask holds)
+        dQ = dS K / sqrt(d),   dK = dS^T Q / sqrt(d)
+
+    A row with no key in its band (lse <= -1e30 / 2) weighs every key
+    1/S and passes no gradient to its scores, as softmax over equal masked
+    scores does.  -> (dq, dk, dv) in the inputs' dtypes."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    wd = _work_dtype(q)
+    sc = _scores(q, k, causal, window, wd)                   # (B,G,R,T,S)
+    band = _band(t, s, causal, window, q.device)
+    lse_g = lse.to(wd).reshape(b, kvh, rep, t)[..., None]
+    empty = lse_g <= NEG_INF / 2
+    p = torch.where(empty, torch.full_like(sc, 1.0 / s), torch.exp(sc - lse_g))
+    dog = do.reshape(b, t, kvh, rep, d).to(wd)
+    og = o.reshape(b, t, kvh, rep, d).to(wd)
+    dsum = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B,G,R,T,1)
+    dv = torch.einsum("bgrts,btgrk->bsgk", p, dog)
+    dp = torch.einsum("btgrk,bsgk->bgrts", dog, v.to(wd))
+    ds = torch.where(band & ~empty, p * (dp - dsum), 0.0) / math.sqrt(d)
+    dq = torch.einsum("bgrts,bsgk->btgrk", ds, k.to(wd)).reshape(b, t, h, d)
+    dk = torch.einsum("bgrts,btgrk->bsgk", ds,
+                      q.reshape(b, t, kvh, rep, d).to(wd))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def selective_scan_bwd(delta, x, b, c, a, dy, dh_final=None):
+    """The backward of ``selective_scan``, one time step at a time: the
+    states h_t by a forward sweep, then the reverse sweep
+
+        g_t = dy_t C_t + exp(delta_{t+1} A) g_{t+1},  from g = dh_final,
+
+    and per step dC_t = sum_D dy_t h_t, dB_t = sum_D g_t delta_t x_t,
+    dx_t = delta_t sum_N g_t B_t, ddelta_t = sum_N g_t (A e^{delta_t A}
+    h_{t-1} + x_t B_t), dA = sum_{B,T} g_t delta_t e^{delta_t A} h_{t-1}.
+    ``dh_final`` None reads as zeros.  -> (ddelta, dx, db, dc, da) in the
+    inputs' dtypes."""
+    wd = _work_dtype(delta)
+    dl, xx, bb, cc, aa, gy = (v.to(wd) for v in (delta, x, b, c, a, dy))
+    bs, t, d = dl.shape
+    n = aa.shape[-1]
+    hs = [torch.zeros((bs, d, n), dtype=wd, device=dl.device)]
+    for i in range(t):
+        at = torch.exp(dl[:, i, :, None] * aa)
+        hs.append(at * hs[-1] + (dl[:, i] * xx[:, i])[..., None]
+                  * bb[:, i, None, :])
+    carry = (torch.zeros_like(hs[0]) if dh_final is None
+             else dh_final.to(wd).clone())
+    dd, dx, db, dc = (torch.empty_like(v) for v in (dl, xx, bb, cc))
+    da = torch.zeros_like(aa)
+    for i in reversed(range(t)):
+        at = torch.exp(dl[:, i, :, None] * aa)               # (B,D,N)
+        h_prev, h_t = hs[i], hs[i + 1]
+        g = gy[:, i, :, None] * cc[:, i, None, :] + carry
+        dc[:, i] = (gy[:, i, :, None] * h_t).sum(1)
+        db[:, i] = (g * (dl[:, i] * xx[:, i])[..., None]).sum(1)
+        dx[:, i] = dl[:, i] * (g * bb[:, i, None, :]).sum(-1)
+        dd[:, i] = (g * (aa * at * h_prev
+                         + xx[:, i, :, None] * bb[:, i, None, :])).sum(-1)
+        da += (g * dl[:, i, :, None] * at * h_prev).sum(0)
+        carry = at * g
+    return (dd.to(delta.dtype), dx.to(x.dtype), db.to(b.dtype),
+            dc.to(c.dtype), da.to(a.dtype))

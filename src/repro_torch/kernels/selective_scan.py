@@ -13,6 +13,13 @@ over the lanes by a shuffle butterfly and stored as coalesced rows.
 ``selective_scan`` routes by device: a CPU tensor takes the plain version
 (``selective_scan_plain``, the ``ref.py`` counterpart), a CUDA tensor
 launches the kernel or raises.
+
+``selective_scan_bwd`` is the training path's backward, routed the same
+way: ``csrc/selective_scan_bwd.cu`` (a forward sweep that checkpoints h
+every 16 steps, a reverse sweep that recomputes each chunk's states, and a
+second kernel that sums the per-CTA partials of dB, dC and dA in a fixed
+order: deterministic) on a CUDA tensor, ``ref.selective_scan_bwd`` on a
+CPU tensor.  It counts as one ``selective_scan_bwd`` launch.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ selective_scan_plain = ref.selective_scan
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
+_BWD_ARGTYPES = [_P] * 16 + [_I] * 4 + [_P]
+_BWD_STEPS = 16                   # the checkpoint interval of the backward
+_BWD_CHANNELS = 32                # channels a backward CTA owns
 
 
 def _check(delta, x, b, c, a):
@@ -86,3 +96,59 @@ def selective_scan(delta, x, b, c, a):
         raise ValueError(f"selective_scan: no kernel for device "
                          f"{delta.device}")
     return _launch(delta, x, b, c, a)
+
+
+def _check_bwd(delta, x, b, c, a, dy, dh_final):
+    _check(delta, x, b, c, a)
+    bs, _, d = delta.shape
+    n = a.shape[1]
+    for name, g, shape in (("dy", dy, delta.shape),
+                           ("dh_final", dh_final, (bs, d, n))):
+        if g is None and name == "dh_final":
+            continue
+        if (g.shape != shape or g.dtype != torch.float32
+                or g.device != delta.device or not g.is_contiguous()):
+            raise ValueError(f"selective_scan_bwd: {name} must be contiguous "
+                             f"float32 {tuple(shape)} on delta's device")
+
+
+def _launch_bwd(delta, x, b, c, a, dy, dh_final):
+    _check_bwd(delta, x, b, c, a, dy, dh_final)
+    bs, t_len, d = delta.shape
+    n = a.shape[1]
+    ddelta, dx, db, dc = (torch.empty_like(v) for v in (delta, x, b, c))
+    da = torch.empty_like(a)
+    if bs == 0 or t_len == 0 or d == 0:
+        for g in (ddelta, dx, db, dc, da):
+            g.zero_()
+        return ddelta, dx, db, dc, da
+    chunks = -(-t_len // _BWD_STEPS)
+    n_cb = -(-d // _BWD_CHANNELS)
+    f32 = dict(dtype=torch.float32, device=delta.device)
+    ckpt = torch.empty((bs, chunks, d, n), **f32)
+    part_b = torch.empty((bs, n_cb, t_len, n), **f32)
+    part_c = torch.empty_like(part_b)
+    part_a = torch.empty((bs, d, n), **f32)
+    fn = _build.entry("selective_scan_bwd_launch", _BWD_ARGTYPES)
+    with torch.cuda.device(delta.device):
+        stream = torch.cuda.current_stream(delta.device).cuda_stream
+        code = fn(delta.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
+                  a.data_ptr(), dy.data_ptr(),
+                  None if dh_final is None else dh_final.data_ptr(),
+                  *(g.data_ptr() for g in (ddelta, dx, db, dc, da, ckpt,
+                                           part_b, part_c, part_a)),
+                  bs, t_len, d, n, stream)
+    _build.check("selective_scan_bwd", code)
+    return ddelta, dx, db, dc, da
+
+
+def selective_scan_bwd(delta, x, b, c, a, dy, dh_final=None):
+    """The backward of ``selective_scan`` from its inputs and the upstream
+    gradients of y (B,T,D) and h_final (B,D,N; None reads as zeros) ->
+    (ddelta, dx, db, dc, da), float32."""
+    if delta.device.type == "cpu":
+        return ref.selective_scan_bwd(delta, x, b, c, a, dy, dh_final)
+    if delta.device.type != "cuda":
+        raise ValueError(f"selective_scan: no kernel for device "
+                         f"{delta.device}")
+    return _launch_bwd(delta, x, b, c, a, dy, dh_final)

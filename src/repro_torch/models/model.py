@@ -11,7 +11,8 @@ package's paths and layouts):
 ``LM`` is the same model as an ``nn.Module`` that owns the tree as
 parameters under the tree's paths.  ``params_from_numpy`` carries a JAX
 parameter tree across (a copy, no transposes); ``cache_from_numpy`` and
-``cache_to_numpy`` do the same for caches.
+``cache_to_numpy`` do the same for caches, ``train_state_from_numpy`` and
+``train_state_to_numpy`` for train states ``{params, m, v, step}``.
 """
 from __future__ import annotations
 
@@ -52,11 +53,15 @@ def lm_head(params, cfg: ModelCfg):
 
 
 def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
-            cache=None, positions=None, cache_len: Optional[int] = None):
+            cache=None, positions=None, cache_len: Optional[int] = None,
+            remat: str = "none", return_hidden: bool = False):
     """inputs: tokens (B,T) int.  Returns float32 logits (B,T,V) for train;
-    (logits, cache) for prefill/decode.  (The JAX package's
-    ``return_hidden`` and ``logits_f32`` serve its chunked training loss and
-    come with the training slice.)
+    (logits, cache) for prefill/decode.  ``return_hidden`` returns the
+    final-normed hidden states (B,T,D) in the compute dtype instead of the
+    logits (the chunked training loss applies the head itself); ``remat``
+    ("none" | "full" | "dots") checkpoints each group in train mode
+    (``stack.apply_stack``).  (The JAX package's ``logits_f32`` has no
+    counterpart: logits are always float32.)
 
     Train and prefill run at ``default_positions`` (the attention kernel
     masks by index), so they take no ``positions``; decode takes (B,1)
@@ -82,8 +87,11 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
 
     aux = {"positions": positions, "cache_len": cache_len}
     x, new_cache = apply_stack(params["stack"], x, cfg.stack, mode=mode,
-                               cache=cache, aux=aux, eps=cfg.norm_eps)
+                               cache=cache, aux=aux, eps=cfg.norm_eps,
+                               remat=remat)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x if mode == "train" else (x, new_cache)
     logits = (x @ lm_head(params, cfg).to(dt)).float()
     if mode == "train":
         return logits
@@ -123,8 +131,10 @@ class _Node(nn.Module):
 class LM(_Node):
     """The decoder-only LM: owns ``params`` (a tree from ``init_params`` or
     ``params_from_numpy``) as parameters under the tree's paths, e.g.
-    ``stack.groups.p0.attn.wq``.  Parameters take no gradients: the port
-    serves, it does not train yet."""
+    ``stack.groups.p0.attn.wq``.  Parameters take no gradients by default:
+    serving needs none, and training differentiates the parameter tree
+    itself, as the JAX package does (``train.step.make_train_step`` works
+    on ``{params, m, v, step}``, not on a module)."""
 
     def __init__(self, cfg: ModelCfg, params: dict):
         super().__init__(params)
@@ -167,6 +177,26 @@ def params_from_numpy(tree, device, dtype=None) -> dict:
 def cache_from_numpy(tree, device) -> dict:
     """A cache tree of numpy arrays -> tensors on ``device``."""
     return _tree_map(lambda a: _from_numpy(a, device), tree)
+
+
+def train_state_from_numpy(state, device) -> dict:
+    """A JAX train state ``{params, m, v, step}`` of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, init_train_state(...))``) -> the port's on
+    ``device``: every leaf copied with its dtype (bfloat16 moments stay
+    bfloat16), ``step`` a 0-d int32 tensor."""
+    return _tree_map(lambda a: _from_numpy(a, device), state)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's train state -> numpy arrays the JAX package takes:
+    bfloat16 leaves as ml_dtypes bfloat16 (the same bits)."""
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return _tree_map(one, state)
 
 
 def cache_to_numpy(tree) -> dict:

@@ -4,16 +4,28 @@ The port of the JAX package's ``models/stack.py``.  A model stack is a
 repeated *pattern* of layer configs, with group-stacked parameters and
 caches: every leaf has a leading ``n_groups`` axis, as in the JAX package.
 Where the JAX package runs ``lax.scan`` over the groups, the port runs a
-Python loop, and each layer takes the view ``[g]`` of every leaf.  Decode
+Python loop: each layer takes its group's view of every parameter (one
+``unbind`` a leaf) and the view ``[g]`` of every cache leaf.  Decode
 caches are written through those views, in place; prefill stacks the
 layers' new caches once at the end.  A partial ``tail`` runs after the
-groups.  Shared layers, MoE and remat wait for the families that need them.
+groups.  Shared layers and MoE wait for the families that need them.
+
+Remat in train mode, as the JAX package's ``jax.checkpoint`` around each
+group: ``"full"`` wraps each group in ``torch.utils.checkpoint.checkpoint``
+(non-reentrant), so only the group's input is kept and the group is run
+again in the backward; ``"dots"`` is a selective checkpoint that keeps the
+outputs of the products without batch dimensions (``aten.mm``, what a
+weight product ``x @ w`` lowers to) and recomputes everything else, the
+counterpart of ``dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerCfg, StackCfg
 from repro_torch.dist.sharding import TensorSpec, map_specs
@@ -127,6 +139,17 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def _unbind(tree, n: int) -> list:
+    """The n per-group trees of views of a group-stacked tree, one
+    ``unbind`` a leaf: its backward stacks the groups' gradients once,
+    where n views ``[g]`` would each scatter theirs into a zero tensor of
+    the whole leaf and add the n of them up."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(trees: list):
     """Per-group trees -> one tree with a leading group axis."""
     first = trees[0]
@@ -135,26 +158,57 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+# the products that "dots" keeps: weight products (B*T, D) @ (D, F)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT = ("none", "full", "dots")
+
+
 def apply_stack(params, x, sc: StackCfg, *, mode: str, cache, aux: dict,
-                eps: float):
+                eps: float, remat: str = "none"):
     """Returns (x, new_cache_or_None).  Decode updates ``cache`` in place
-    and returns it."""
+    and returns it.  ``remat`` ("none" | "full" | "dots") applies in train
+    mode only."""
+    if remat not in REMAT:
+        raise ValueError(f"apply_stack: remat {remat!r} not in {REMAT}")
+
+    def group_body(x, gp, gc):
+        new_c: dict[str, Any] = {}
+        for i, lc in enumerate(sc.pattern):
+            key = f"p{i}"
+            x, nc = apply_layer(lc, gp[key], x, mode=mode,
+                                cache=gc.get(key) if gc else None,
+                                aux=aux, eps=eps)
+            if nc is not None:
+                new_c[key] = nc
+        return x, new_c
+
+    if mode == "train" and remat != "none":
+        kw = {} if remat == "full" else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+
+        def run_group(x, gp, gc):
+            out = checkpoint(lambda y: group_body(y, gp, None)[0], x,
+                             use_reentrant=False, **kw)
+            return out, {}
+    else:
+        run_group = group_body
+
     new_cache: dict[str, Any] = {}
     if sc.n_groups > 0:
-        gp_all = params["groups"]
+        gp_all = _unbind(params["groups"], sc.n_groups)
         gc_all = cache.get("groups") if cache is not None else None
         built = []
         for g in range(sc.n_groups):
-            gp = _index(gp_all, g)
+            gp = gp_all[g]
             gc = _index(gc_all, g) if gc_all is not None else None
-            new_c: dict[str, Any] = {}
-            for i, lc in enumerate(sc.pattern):
-                key = f"p{i}"
-                x, nc = apply_layer(lc, gp[key], x, mode=mode,
-                                    cache=gc.get(key) if gc else None,
-                                    aux=aux, eps=eps)
-                if nc is not None:
-                    new_c[key] = nc
+            x, new_c = run_group(x, gp, gc)
             built.append(new_c)
         if mode == "decode":
             new_cache["groups"] = gc_all

@@ -1,1 +1,1 @@
-"""Step builders (serving steps so far)."""
+"""Step builders (train, prefill, decode) and the optimizer."""
