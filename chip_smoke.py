@@ -696,7 +696,10 @@ def phase_kernels(rng):
     # the backward kernels, each held to its plain version on the same
     # inputs (the forward's own output and lse for flash): at the llama
     # train shape in bf16 and f32, every head dim, ragged T and S,
-    # non-causal, windowed and rows with no key in their band
+    # non-causal, windowed and rows with no key in their band; then the
+    # edges of the bf16 tensor-core kernels' 64-key and 64-row tiles: GQA
+    # 4:1 at T = 100, T = 65 against S = 200, windows with empty rows at
+    # D = 16 (causal and not), T and S off the tiles, T < S causal
     flash_bwd_cases = []
     for b, t, s, h, kv, d, causal, window, dtype in [
             (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
@@ -709,7 +712,13 @@ def phase_kernels(rng):
             (1, 200, 50, 2, 1, 64, True, 16, torch.bfloat16),
             (2, 100, 77, 4, 2, 16, False, 24, torch.bfloat16),
             (1, 70, 130, 4, 1, 32, False, None, torch.bfloat16),
-            (1, 300, 300, 4, 1, 64, True, 128, torch.bfloat16)]:
+            (1, 300, 300, 4, 1, 64, True, 128, torch.bfloat16),
+            (2, 100, 100, 8, 2, 32, True, None, torch.bfloat16),
+            (2, 65, 200, 4, 2, 64, False, None, torch.bfloat16),
+            (1, 200, 50, 4, 2, 16, True, 16, torch.bfloat16),
+            (1, 150, 40, 2, 1, 16, False, 8, torch.bfloat16),
+            (1, 130, 190, 4, 4, 64, False, 100, torch.bfloat16),
+            (2, 97, 161, 4, 1, 32, True, None, torch.bfloat16)]:
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         do = upstream_grad(q)
         o, lse = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
@@ -739,11 +748,15 @@ def phase_kernels(rng):
                                 "share_of_scale": rel,
                                 "tol_share": FLASH_BWD_RTOL[dtype]})
         del q, k, v, do, o, got, want
+    # the scan's: every lane split (N = 1, 3, 5, 8, 16), D off the 128
+    # channels a CTA (8192 + 32, 40) and T off the 16-step interval
     scan_bwd_cases = []
     for b, t, d, n, with_dh in [(SERVE_BATCH, SERVE_PROMPT, 8192, 16, False),
                                 (SERVE_BATCH, SERVE_PROMPT, 8192, 16, True),
                                 (2, 100, 300, 8, True), (1, 70, 130, 5, True),
-                                (2, 37, 64, 1, True), (1, 33, 40, 3, False)]:
+                                (2, 37, 64, 1, True), (1, 33, 40, 3, False),
+                                (2, 64, 8192 + 32, 16, True),
+                                (2, 45, 40, 16, False)]:
         inputs = scan_inputs(b, t, d, n)
         dy = upstream_grad(inputs[0])
         dh = upstream_grad(inputs[0].new_empty((b, d, n))) if with_dh \

@@ -70,7 +70,7 @@ def build(sources: dict[str, str]) -> dict[str, ctypes._CFuncPtr]:
         cu = OUT / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(CSRC),
              "-o", str(OUT / f"lib{name}.so"), str(cu),
              str(CSRC / "errors.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

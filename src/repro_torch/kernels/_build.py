@@ -4,8 +4,9 @@ At first use every source is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a`` with a plain C interface (no PyTorch
 headers), and the objects are linked into one shared library that
 ``ctypes`` loads.  The library lands in ``build/repro_torch/<hash>/`` at the
-root of the checkout, keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads at once.
+root of the checkout, keyed by a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads at once.
 
 ``KERNEL_LAUNCHES`` counts, per kernel, the wrapper calls that launched
 CUDA work — and nothing else: the plain versions never touch it.
@@ -89,7 +90,9 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             t0 = time.perf_counter()
             sources = sorted(CSRC.glob("*.cu"))
-            target = BUILD_ROOT / _digest(sources) / "libreprokernels.so"
+            headers = sorted(CSRC.glob("*.cuh"))
+            target = (BUILD_ROOT / _digest(sources + headers)
+                      / "libreprokernels.so")
             if not target.is_file():
                 _compile(sources, target)
             lib = ctypes.CDLL(str(target))

@@ -16,20 +16,66 @@
 //
 // A row with no key in its band (lse == -1e30) weighs every key 1/S in dV
 // and passes no gradient to its scores, as the forward's uniform average.
+// Keys past S and rows past T weigh 0.
 //
 // What bounds it on the H100: at the llama3.2-1b train shape (q
 // (4,512,32,64), k/v (4,512,8,64), bf16, causal) it must read q, k, v, o,
 // dO (21 MB with lse and D) and write dq, dk, dv (12.6 MB): 10 us at
 // 3.35 TB/s; it does 10 flops a head dim per unmasked pair (QK^T, dO V^T,
 // P^T dO, dS^T Q, dS K), 10.8 GFLOP, 11 us on the bf16 tensor cores or
-// 161 us in float32 on the CUDA cores.
+// 161 us in float32 on the CUDA cores.  The separate dQ kernel recomputes
+// S and dP (14 flops a head dim and pair in all, ~15 us on the tensor
+// cores): the price of writing every output once, with no atomics, so the
+// backward is deterministic and a resumed run repeats its loss bit for bit.
+// The bf16 kernels issue 20 (P and dS as two bf16 terms, below).
 //
-// What the design does, in this first version: it is deterministic (no
-// atomics; every output element is written once by one CTA) and simple,
-// on the CUDA cores in float32 for both input types (bf16 inputs are
-// widened as they are loaded, gradients rounded once at the store), so it
-// is bound by the CUDA cores' float32 rate and by shared-memory reads,
-// not by the tensor cores.
+// bf16, the training path (`flash_bwd_dkdv_bf16_kernel`,
+// `flash_bwd_dq_bf16_kernel`): every product on the tensor cores,
+// `mma.sync.m16n8k16` bf16 -> float32, with the forward's conventions
+// (device_helpers.cuh): tiles of bf16 rows padded by 16 bytes in shared
+// memory, `cp.async` double buffering, `ldmatrix` (and `ldmatrix.trans`
+// where the product needs the tile's columns as its k), and an accumulator
+// of two n8 tiles reused as the A fragment of one k16 step.  Every product
+// keeps the natural layouts, q/dO (B,T,H,D) and k/v (B,S,KV,D): no
+// transpose in memory.
+// - dK/dV: one CTA a (b, kv head, 64-key tile), 4 warps of 16 keys, keys as
+//   the A rows.  K and V stay in registers as A fragments; the CTA walks
+//   the group's H/KV query heads (GQA summed inside the CTA) and the
+//   64-row q tiles of the band, each tile's Q, dO, lse and D staged with
+//   `cp.async` while the previous one computes:
+//     S^T = K Q^T (Q's B fragments by `ldmatrix`), P^T = 2^(S^T scale
+//     log2(e) - lse log2(e)), dV += P^T dO (P^T as bf16 A fragments; dO
+//     by `ldmatrix.trans`), dP^T = V dO^T, dS^T = P^T (dP^T - D),
+//     dK += dS^T Q (dS^T as bf16 A fragments; Q by `ldmatrix.trans`).
+//   dK is multiplied by `scale` in float32 at the store (Q is not
+//   pre-scaled in bf16, which would add a rounding the reference lacks).
+// - dQ: one CTA a (b, head, 64-row q tile), 4 warps of 16 rows; Q and dO
+//   stay in registers as A fragments, each row's lse and D in registers;
+//   the CTA walks the band's 64-key K/V tiles: S = Q K^T, dP = dO V^T,
+//   dS, dQ += dS K (K by `ldmatrix.trans`), scaled at the store.
+// P and dS enter their products as TWO bf16 terms each, hi = bf16(x) and
+// lo = bf16(x - hi), so two `mma`s a product: one bf16 rounding of P puts
+// dV at up to 0.0065 of its scale from the float32 reference, and one of
+// dS puts dQ at up to 0.007 (dS sums to ~0 over a row's keys, so dQ
+// cancels), both past the 2^-8 the gradients are held to; hi + lo keeps
+// ~16 bits, and every gradient stays within 0.0025 (a CPU model of this
+// arithmetic, tests/test_torch_bwd_redesign.py).  With the rounding of the
+// gradients at the store, these are the only changes to the reference's
+// float32 arithmetic.  Only the tiles the band's edge (or T,
+// or S in the dQ kernel) crosses are masked element by element.  The
+// tiles walked hold every weighted pair; the heaviest CTAs of a causal
+// band (the first key tiles, the last q tiles) run first.
+// Tile sizes come from the registers: a dK/dV warp holds 16 keys x D of dK
+// and dV accumulators (2 x D/2 floats), K and V fragments (2 x D/4
+// registers) and S^T, dP^T for a 64-row q step (2 x 32 floats): ~160 live
+// values at D = 64, under the 255 a thread may have, with room for
+// addresses; 2 CTAs (8 warps) share an SM.  A dQ warp holds a third less.
+// Shared memory: two 64-row tiles of two operands, 37 KB (dK/dV, with lse
+// and D) and 36 KB (dQ), under the 48 KB of static shared memory.
+//
+// float32 (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`), what the
+// per-layer and whole-step route checks compute: on the CUDA cores, the
+// products in full float32.
 // - dK/dV: one CTA per (batch, kv head, 64-key tile).  Each key is owned by
 //   D/16 neighbouring threads, 16 head dims each, holding its k and v
 //   slices and its dK and dV accumulators in registers; the two dot
@@ -41,13 +87,15 @@
 //   every thread as broadcasts.
 // - dQ: one CTA per (batch, head, 64-row q tile), the same layout with rows
 //   in place of keys, looping over the 32-key tiles of the band.
-// - D = rowsum(dO * O): one warp a row.
-// Tensor cores (`mma.sync` as in the forward, then `wgmma`) are a later
-// step, taken only behind a measurement.
+// - D = rowsum(dO * O): one warp a row (both types).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "device_helpers.cuh"
 
 namespace {
 
@@ -64,10 +112,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool keep(int qp, int kp, int causal, int window) {
   return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
@@ -310,6 +354,420 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, bf16 -> float32)
+// ---------------------------------------------------------------------------
+
+constexpr int kTB = 64;      // keys (dK/dV) or rows (dQ) a CTA owns
+constexpr int kStepB = 64;   // rows (dK/dV) or keys (dQ) a stage holds
+constexpr int kThreadsB = 128;  // 4 warps, 16 keys or rows each
+constexpr int kPad = 8;      // bf16 elements of padding a shared-memory row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows [row0, row0 + kStepB) of a (rows, D) slab with `stride` elements
+// between rows -> shared memory; rows >= n_rows are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16 (*dst)[D + kPad],
+                                           const bf16* __restrict__ src,
+                                           int row0, int n_rows,
+                                           int64_t stride) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = threadIdx.x; i < kStepB * kChunks; i += kThreadsB) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = row0 + r < n_rows;
+    cp_async16(&dst[r][c], src + (in ? row0 + r : 0) * stride + c, in);
+  }
+}
+
+// kStepB floats of a (B,H,T) row from `row0`; zero past T
+__device__ __forceinline__ void stage_floats(float* dst,
+                                             const float* __restrict__ src,
+                                             int row0, int n_rows) {
+  for (int i = threadIdx.x; i < kStepB; i += kThreadsB) {
+    const bool in = row0 + i < n_rows;
+    cp_async4(dst + i, src + (in ? row0 + i : 0), in);
+  }
+}
+
+// A fragments of the warp's 16 rows of a staged tile, D/16 k-steps
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
+                                       const bf16 (*t)[D + kPad], int warp,
+                                       int lane) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldsm_x4(f[kc], &t[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
+}
+
+// acc (16 x kStepB) += A (16 x D, fragments) * t^T, t a staged (kStepB, D)
+// tile: the B fragments of rows as columns, by `ldmatrix`
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[kStepB / 8][4],
+                                         const uint32_t (&a)[D / 16][4],
+                                         const bf16 (*t)[D + kPad],
+                                         int lane) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+    for (int jp = 0; jp < kStepB / 16; ++jp) {
+      uint32_t b[4];  // n tiles 2jp and 2jp + 1
+      ldsm_x4(b, &t[jp * 16 + (lane & 7) + ((lane >> 4) << 3)]
+                   [kc * 16 + ((lane >> 3) & 1) * 8]);
+      mma_bf16(acc[2 * jp], a[kc], b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a[kc], b[2], b[3]);
+    }
+  }
+}
+
+// Two floats as two bf16 terms each, hi = bf16(x) and lo = bf16(x - hi):
+// hi + lo keeps ~16 bits of x, where hi alone keeps 8.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// acc (16 x D) += X (16 x kStepB, float32 accumulators split into two bf16
+// terms as A fragments) * t, t a staged (kStepB, D) tile read by
+// `ldmatrix.trans`: two products, hi then lo
+template <int D>
+__device__ __forceinline__ void mma_cols(float (&acc)[D / 8][4],
+                                         const float (&x)[kStepB / 8][4],
+                                         const bf16 (*t)[D + kPad],
+                                         int lane) {
+#pragma unroll
+  for (int kc = 0; kc < kStepB / 16; ++kc) {
+    uint32_t hi[4], lo[4];
+    split_bf16(x[2 * kc][0], x[2 * kc][1], hi[0], lo[0]);
+    split_bf16(x[2 * kc][2], x[2 * kc][3], hi[1], lo[1]);
+    split_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1], hi[2], lo[2]);
+    split_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];  // d tiles 2np and 2np + 1
+      ldsm_x4_trans(b, &t[kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                         [np * 16 + (lane >> 4) * 8]);
+      mma_bf16(acc[2 * np], hi, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
+      mma_bf16(acc[2 * np], lo, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of a (16 x D) accumulator times `mul`, rounded to
+// bf16, through the warp's own rows of `t` (no other warp reads them) to
+// rows [row0 + warp*16, +16) of `dst`, 16 bytes a lane; rows >= n_rows are
+// not written.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           const float (&acc)[D / 8][4],
+                                           float mul, bf16 (*t)[D + kPad],
+                                           int row0, int n_rows,
+                                           int64_t stride, int warp,
+                                           int lane) {
+  const int gr = lane >> 2, tc = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + tc * 2;
+    *reinterpret_cast<uint32_t*>(&t[warp * 16 + gr][c]) =
+        pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+    *reinterpret_cast<uint32_t*>(&t[warp * 16 + gr + 8][c]) =
+        pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = warp * 16 + i / kChunks, c = (i % kChunks) * 8;
+    if (row0 + r < n_rows)
+      *reinterpret_cast<uint4*>(dst + (int64_t)(row0 + r) * stride + c) =
+          *reinterpret_cast<const uint4*>(&t[r][c]);
+  }
+}
+
+template <int D>
+struct DkdvStage {
+  bf16 q[2][kStepB][D + kPad];
+  bf16 dout[2][kStepB][D + kPad];
+  float lse[2][kStepB];
+  float dsum[2][kStepB];
+};
+
+// dK, dV: one CTA per (b, kv head, 64-key tile), the first key tiles (the
+// heaviest under a causal band) first
+template <int D>
+__global__ void __launch_bounds__(kThreadsB, 2)
+flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dsum,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int t_len, int s_len, int n_heads, int n_kv,
+                           int causal, int window, float scale) {
+  __shared__ __align__(128) DkdvStage<D> s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
+  const int b = blockIdx.x / n_kv, g = blockIdx.x % n_kv;
+  const int rep = n_heads / n_kv;
+  const int k0 = blockIdx.y * kTB;
+  const int k_hi = min(k0 + kTB, s_len) - 1;
+  const int64_t q_row = (int64_t)n_heads * D, kv_row = (int64_t)n_kv * D;
+  const int64_t kv_off = (int64_t)b * s_len * kv_row + (int64_t)g * D;
+  const int n_qt = (t_len + kStepB - 1) / kStepB;
+
+  // a q tile is visited if some (row, key) pair of it is kept, or if a row
+  // keeps no key (the last row decides: emptiness only grows with the row)
+  auto visit = [&](int qt) {
+    const int q0 = qt * kStepB, q_hi = min(q0 + kStepB, t_len) - 1;
+    const bool pairs = (!causal || k0 <= q_hi) &&
+                       (window <= 0 || k_hi > q0 - window);
+    return pairs || row_empty(q_hi, s_len, causal, window);
+  };
+  auto next_tile = [&](int qt) {
+    while (qt < n_qt && !visit(qt)) ++qt;
+    return qt;
+  };
+  // the (head, q tile) walk: r over the group's heads, qt over the band
+  const int qt_first = next_tile(0);
+  auto stage = [&](int buf, int r, int qt) {
+    const int h = g * rep + r, q0 = qt * kStepB;
+    const int64_t lrow = ((int64_t)b * n_heads + h) * t_len;
+    const int64_t q_off = (int64_t)b * t_len * q_row + (int64_t)h * D;
+    stage_rows<D>(s.q[buf], q + q_off, q0, t_len, q_row);
+    stage_rows<D>(s.dout[buf], dout + q_off, q0, t_len, q_row);
+    stage_floats(s.lse[buf], lse + lrow, q0, t_len);
+    stage_floats(s.dsum[buf], dsum + lrow, q0, t_len);
+  };
+
+  // K and V through buffer 1 into A fragments; the first q tile to buffer 0
+  stage_rows<D>(s.q[1], k + kv_off, k0, s_len, kv_row);
+  stage_rows<D>(s.dout[1], v + kv_off, k0, s_len, kv_row);
+  if (qt_first < n_qt) stage(0, 0, qt_first);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, s.q[1], warp, lane);
+  load_a<D>(vf, s.dout[1], warp, lane);
+  __syncthreads();
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float inv_s = 1.f / (float)s_len;
+  const float sl2 = scale * kLog2e;
+  const int kp[2] = {k0 + warp * 16 + gr, k0 + warp * 16 + gr + 8};
+
+  int r = 0, qt = qt_first, buf = 0;
+  while (qt < n_qt) {
+    // the next (head, tile) loads while this one computes
+    int r_next = r, qt_next = next_tile(qt + 1);
+    if (qt_next >= n_qt) qt_next = ++r_next < rep ? qt_first : n_qt;
+    if (qt_next < n_qt) {
+      stage(buf ^ 1, r_next, qt_next);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qt * kStepB, q_hi = min(q0 + kStepB, t_len) - 1;
+    const bf16(*tq)[D + kPad] = s.q[buf];
+    const bf16(*tdo)[D + kPad] = s.dout[buf];
+    const float* sl = s.lse[buf];
+    const float* sd = s.dsum[buf];
+    // every (row, key) pair of the tile kept: no mask (rows past T carry
+    // zero Q, dO, lse and D and add exactly 0; keys past S are not stored)
+    const bool inside = (!causal || k0 + kTB - 1 <= q0) &&
+                        (window <= 0 || k0 > q_hi - window);
+
+    // S^T = K Q^T (16 keys x 64 rows), then P^T in place
+    float st[kStepB / 8][4];
+#pragma unroll
+    for (int j = 0; j < kStepB / 8; ++j)
+      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+    mma_rows<D>(st, kf, tq, lane);
+#pragma unroll
+    for (int j = 0; j < kStepB / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(&sl[j * 8 + tc * 2]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lv = (e & 1) ? l.y : l.x;
+        const float x = fast_exp2(fmaf(st[j][e], sl2, -lv * kLog2e));
+        if (inside) {
+          st[j][e] = x;
+        } else {
+          const int qp = q0 + j * 8 + tc * 2 + (e & 1);
+          const bool kept =
+              qp < t_len && keep(qp, kp[e >> 1], causal, window);
+          st[j][e] = kept ? x : (lv <= 0.5f * kNegInf ? inv_s : 0.f);
+        }
+      }
+    }
+    // dV += P^T dO
+    mma_cols<D>(dva, st, tdo, lane);
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in place (0 for a row
+    // with no key in its band)
+    float dpt[kStepB / 8][4];
+#pragma unroll
+    for (int j = 0; j < kStepB / 8; ++j)
+      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+    mma_rows<D>(dpt, vf, tdo, lane);
+#pragma unroll
+    for (int j = 0; j < kStepB / 8; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(&sd[j * 8 + tc * 2]);
+      const float2 l = *reinterpret_cast<const float2*>(&sl[j * 8 + tc * 2]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ds = st[j][e] * (dpt[j][e] - ((e & 1) ? dd.y : dd.x));
+        dpt[j][e] = (inside || ((e & 1) ? l.y : l.x) > 0.5f * kNegInf)
+                        ? ds : 0.f;
+      }
+    }
+    // dK += dS^T Q
+    mma_cols<D>(dka, dpt, tq, lane);
+    __syncthreads();  // this buffer is consumed before it is loaded again
+    r = r_next, qt = qt_next, buf ^= 1;
+  }
+
+  // dK * scale and dV through buffer 0 (consumed) to global
+  store_rows<D>(dk + kv_off, dka, scale, s.q[0], k0, s_len, kv_row, warp,
+                lane);
+  store_rows<D>(dv + kv_off, dva, 1.f, s.dout[0], k0, s_len, kv_row, warp,
+                lane);
+}
+
+template <int D>
+struct DqStage {
+  bf16 k[2][kStepB][D + kPad];
+  bf16 v[2][kStepB][D + kPad];
+};
+
+// dQ: one CTA per (b, head, 64-row q tile), the last tiles (the heaviest
+// under a causal band) first
+template <int D>
+__global__ void __launch_bounds__(kThreadsB, 2)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dsum,
+                         bf16* __restrict__ dq, int t_len, int s_len,
+                         int n_heads, int n_kv, int causal, int window,
+                         float scale) {
+  __shared__ __align__(128) DqStage<D> s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
+  const int g = h / (n_heads / n_kv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTB;
+  const int q_hi = min(q0 + kTB, t_len) - 1;
+  const int64_t q_row = (int64_t)n_heads * D, kv_row = (int64_t)n_kv * D;
+  const int64_t q_off = (int64_t)b * t_len * q_row + (int64_t)h * D;
+  const int64_t kv_off = (int64_t)b * s_len * kv_row + (int64_t)g * D;
+  const int64_t lrow = ((int64_t)b * n_heads + h) * t_len;
+
+  // keys [k_begin, k_end) that some row of the tile keeps (a row with no
+  // key in its band gets dQ = 0)
+  int k_begin = 0, k_end = s_len;
+  if (causal) k_end = min(s_len, q_hi + 1);
+  if (window > 0) k_begin = max(q0 - window + 1, 0) / kStepB * kStepB;
+  const int n_tiles = max(k_end - k_begin + kStepB - 1, 0) / kStepB;
+
+  // Q and dO through buffer 1 into A fragments; the first K/V tile to
+  // buffer 0
+  stage_rows<D>(s.k[1], q + q_off, q0, t_len, q_row);
+  stage_rows<D>(s.v[1], dout + q_off, q0, t_len, q_row);
+  if (n_tiles > 0) {
+    stage_rows<D>(s.k[0], k + kv_off, k_begin, s_len, kv_row);
+    stage_rows<D>(s.v[0], v + kv_off, k_begin, s_len, kv_row);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4], dof[D / 16][4];
+  load_a<D>(qf, s.k[1], warp, lane);
+  load_a<D>(dof, s.v[1], warp, lane);
+  __syncthreads();
+
+  // this thread's two rows: lse (base 2), D, and whether a key is kept
+  const int qp[2] = {q0 + warp * 16 + gr, q0 + warp * 16 + gr + 8};
+  float l2[2], dr[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = qp[i] < t_len;
+    const float l = in ? lse[lrow + qp[i]] : 0.f;
+    live[i] = in && l > 0.5f * kNegInf;
+    l2[i] = live[i] ? l * kLog2e : 0.f;
+    dr[i] = in ? dsum[lrow + qp[i]] : 0.f;
+  }
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kb = k_begin + it * kStepB;
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      stage_rows<D>(s.k[buf ^ 1], k + kv_off, kb + kStepB, s_len, kv_row);
+      stage_rows<D>(s.v[buf ^ 1], v + kv_off, kb + kStepB, s_len, kv_row);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // S = Q K^T and dP = dO V^T (16 rows x 64 keys)
+    float sc[kStepB / 8][4], dp[kStepB / 8][4];
+#pragma unroll
+    for (int j = 0; j < kStepB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    mma_rows<D>(sc, qf, s.k[buf], lane);
+    mma_rows<D>(dp, dof, s.v[buf], lane);
+    const bool inside = kb + kStepB <= s_len &&
+                        (!causal || kb + kStepB - 1 <= q0) &&
+                        (window <= 0 || kb > q_hi - window);
+    // dS = P (dP - D) in place of S
+#pragma unroll
+    for (int j = 0; j < kStepB / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float ds =
+            fast_exp2(fmaf(sc[j][e], sl2, -l2[i])) * (dp[j][e] - dr[i]);
+        if (inside) {
+          sc[j][e] = ds;
+        } else {
+          const int kp = kb + j * 8 + tc * 2 + (e & 1);
+          const bool kept = live[i] && kp < s_len &&
+                            keep(qp[i], kp, causal, window);
+          sc[j][e] = kept ? ds : 0.f;
+        }
+      }
+    }
+    // dQ += dS K
+    mma_cols<D>(dqa, sc, s.k[buf], lane);
+    __syncthreads();  // this buffer is consumed before it is loaded again
+  }
+
+  // dQ * scale through buffer 0 (consumed) to global
+  store_rows<D>(dq + q_off, dqa, scale, s.k[0], q0, t_len, q_row, warp,
+                lane);
+}
+
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -321,20 +779,36 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       (const T*)o, (const T*)dout, dsum, n_rows, t_len, n_heads, D);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  constexpr int kThreads = kTile * (D / kSlice);
-  const dim3 g_kv(batch * n_kv, (s_len + kTile - 1) / kTile);
-  flash_bwd_dkdv_kernel<D, T><<<g_kv, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, dsum, (T*)dk, (T*)dv, t_len, s_len, n_heads, n_kv,
-      causal, window, scale);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const dim3 g_q(batch * n_heads, (t_len + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<D, T><<<g_q, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, dsum, (T*)dq, t_len, s_len, n_heads, n_kv, causal,
-      window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    const dim3 g_kv(batch * n_kv, (s_len + kTB - 1) / kTB);
+    flash_bwd_dkdv_bf16_kernel<D><<<g_kv, kThreadsB, 0, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, dsum, (bf16*)dk, (bf16*)dv, t_len, s_len,
+        n_heads, n_kv, causal, window, scale);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    const dim3 g_q(batch * n_heads, (t_len + kTB - 1) / kTB);
+    flash_bwd_dq_bf16_kernel<D><<<g_q, kThreadsB, 0, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, dsum, (bf16*)dq, t_len, s_len, n_heads, n_kv,
+        causal, window, scale);
+    return (int)cudaGetLastError();
+  } else {
+    constexpr int kThreads = kTile * (D / kSlice);
+    const dim3 g_kv(batch * n_kv, (s_len + kTile - 1) / kTile);
+    flash_bwd_dkdv_kernel<D, T><<<g_kv, kThreads, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, dsum, (T*)dk, (T*)dv, t_len, s_len, n_heads,
+        n_kv, causal, window, scale);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    const dim3 g_q(batch * n_heads, (t_len + kTile - 1) / kTile);
+    flash_bwd_dq_kernel<D, T><<<g_q, kThreads, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, dsum, (T*)dq, t_len, s_len, n_heads, n_kv,
+        causal, window, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int D>

@@ -20,9 +20,16 @@ beside it, routed the same way: ``flash_attention_fwd`` is the same kernel
 also writing each row's log-sum-exp (``flash_attention_lse_launch``; plain
 version ``ref.attention_lse``), and ``flash_attention_bwd`` is the backward
 (``csrc/flash_attention_bwd.cu``: a dot kernel for D = rowsum(dO * O), a
-dK/dV kernel and a dQ kernel, deterministic; plain version
-``ref.attention_bwd``).  The forward counts as a ``flash_attention`` launch,
-the backward as one ``flash_attention_bwd`` launch.
+dK/dV kernel and a dQ kernel, deterministic, no atomics; plain version
+``ref.attention_bwd``).  bfloat16 runs on the tensor cores (``mma.sync``):
+the dK/dV kernel holds a 64-key tile's K and V in registers and walks the
+group's q heads and the band's 64-row q tiles (S^T, P^T, dV += P^T dO,
+dP^T, dS^T, dK += dS^T Q), the dQ kernel holds a 64-row tile's Q and dO
+and walks the band's 64-key tiles (S, dP, dS, dQ += dS K); P and dS are
+rounded to bfloat16 before their products, the scale applied in float32
+at the store.  float32 runs on the CUDA cores in full float32.  The
+forward counts as a ``flash_attention`` launch, the backward as one
+``flash_attention_bwd`` launch.
 """
 from __future__ import annotations
 

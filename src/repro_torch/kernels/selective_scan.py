@@ -15,11 +15,15 @@ over the lanes by a shuffle butterfly and stored as coalesced rows.
 launches the kernel or raises.
 
 ``selective_scan_bwd`` is the training path's backward, routed the same
-way: ``csrc/selective_scan_bwd.cu`` (a forward sweep that checkpoints h
-every 16 steps, a reverse sweep that recomputes each chunk's states, and a
-second kernel that sums the per-CTA partials of dB, dC and dA in a fixed
-order: deterministic) on a CUDA tensor, ``ref.selective_scan_bwd`` on a
-CPU tensor.  It counts as one ``selective_scan_bwd`` launch.
+way: ``csrc/selective_scan_bwd.cu`` on a CUDA tensor,
+``ref.selective_scan_bwd`` on a CPU tensor.  The kernel splits states over
+lanes as the forward does (two channels a lane, 128 channels a CTA): a
+forward sweep checkpoints h every 16 steps, a reverse sweep recomputes each
+8-step part's states and factors exp(delta A) into registers and runs it
+backwards, summing over N and over the warp's channels with transposing
+shuffle butterflies; a second kernel sums the per-CTA partials of dB, dC
+and dA in a fixed order (deterministic, no atomics).  It counts as one
+``selective_scan_bwd`` launch.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
 _BWD_ARGTYPES = [_P] * 16 + [_I] * 4 + [_P]
 _BWD_STEPS = 16                   # the checkpoint interval of the backward
-_BWD_CHANNELS = 32                # channels a backward CTA owns
+_BWD_CHANNELS = 128               # channels a backward CTA owns
 
 
 def _check(delta, x, b, c, a):

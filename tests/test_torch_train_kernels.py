@@ -204,10 +204,11 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         selective_scan._check_bwd(*arrays[:5], arrays[5].double(), None)
 
 
-def _tiles_visited(t, s, causal, window, kv_tile=64, q_step=32):
-    """The dK/dV kernel's q-tile walk, as flash_attention_bwd.cu writes it:
-    a (q tile, key tile) pair is visited when some (row, key) in it is kept
-    or its last row keeps no key."""
+def _tiles_visited(t, s, causal, window, kv_tile=64, q_step=64):
+    """The dK/dV kernels' q-tile walk, as flash_attention_bwd.cu writes it
+    (64-row q steps in bf16, 32-row in float32): a (q tile, key tile) pair
+    is visited when some (row, key) in it is kept or its last row keeps no
+    key."""
     def empty(r):
         k_max = min(r, s - 1) if causal else s - 1
         k_min = max(r - window + 1, 0) if window else 0
@@ -232,8 +233,9 @@ def test_dkdv_tile_walk_covers_every_weighted_pair(t, s, causal, window):
     or any key of a row with no key in its band) is visited."""
     band = ref._band(t, s, causal, window, "cpu").numpy()
     weighted = band | ~band.any(1, keepdims=True)
-    need = {(i // 32, j // 64) for i, j in zip(*np.nonzero(weighted))}
-    assert need <= _tiles_visited(t, s, causal, window)
+    for q_step in (64, 32):             # the bf16 and the float32 kernel
+        need = {(i // q_step, j // 64) for i, j in zip(*np.nonzero(weighted))}
+        assert need <= _tiles_visited(t, s, causal, window, q_step=q_step)
 
 
 @pytest.mark.parametrize("module,src,entry,argtypes", [
