@@ -11,10 +11,14 @@ block), 1,024-row index partitions, three replicas indexed on visitDate /
 sourceIP / adRevenue, 10 nodes with 4 map slots — cut to 64 blocks (33.5 M
 rows, 3.05 GB of ASCII).  Serving runs llama3.2-1b and falcon-mamba-7b at
 full width and depth in bfloat16, with random weights from a seeded
-generator: 4 prompts of 512 tokens, then 31 greedy decode steps.
-Training runs llama3.2-1b at full width and depth and falcon-mamba-7b at
-full width on 8 of its 64 layers, with float32 parameters and AdamW state,
-on batches of 4 x 512 tokens.
+generator: 4 prompts of 512 tokens, then 31 greedy decode steps; and
+whisper-medium, the encoder-decoder, at full width and depth: 4 clips of
+1,500 frame embeddings and 4 decoder prompts of 224 tokens, then 31
+greedy decode steps.  Training runs llama3.2-1b at full width and depth
+and falcon-mamba-7b at full width on 8 of its 64 layers, with float32
+parameters and AdamW state, on batches of 4 x 512 tokens, and
+whisper-medium at full width and depth on 4 x 1,500 frames and 4 x 448
+tokens.
 
 1. device   the card, its count, its power limit and the float32 matmul
             settings (TF32 off for matmuls and cuDNN);
@@ -27,11 +31,14 @@ on batches of 4 x 512 tokens.
             R = 1,000, over an out-of-order root directory and over inputs
             that are views off 16-byte boundaries; flash in bf16 at every
             head dim, ragged, non-causal and windowed; the backward kernels
-            too: flash attention's with its forward's log-sum-exp at the
-            llama train shape in bf16 and float32 and at the same edges,
-            the scan's at the falcon-mamba train shape, small, ragged and
-            N = 1), and the HAIL slice at the test shape on the card
-            against the CPU;
+            too: flash attention's with its forward's log-sum-exp and
+            float32 output at the llama train shape in bf16 and float32
+            and at the same edges, and once from the bf16 output; the
+            scan's at the falcon-mamba train shape, small, ragged and
+            N = 1; flash forward and backward at whisper's encoder,
+            decoder-self and cross shapes; the bf16 backward from the bf16
+            and from the float32 output against the exact gradient), and
+            the HAIL slice at the test shape on the card against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
             the same query over a plain HDFS upload; then the same query
             read by the two standalone primitives (``ops.index_search`` on
@@ -70,7 +77,8 @@ on batches of 4 x 512 tokens.
             the first (4, 512) batch, which phase 9 trains on;
 7. serve    each model: prefill + decode through the serve steps, with
             one flash-attention (llama, 16) or scan (falcon-mamba, 64)
-            launch per layer in prefill and none in decode; every layer's
+            launch per layer in prefill (whisper: 72, one a layer of its
+            encoder, two a decoder layer) and none in decode; every layer's
             output on the kernel route against the plain route from the
             same input, and the logits of both routes; walls, tokens/s,
             parameter bytes, peak memory, and one profiled prefill and
@@ -83,11 +91,16 @@ on batches of 4 x 512 tokens.
             blocks and the adaptive jobs' one lazy block at Q = 1, each
             with its launches on its path; the sort at one block, at 16
             and at 64; the two backward kernels at the train shapes, flash
-            beside SDPA's backward);
-9. train    gradients through the kernels: one llama attention layer and
-            one falcon-mamba Mamba1 layer at full width, dx and every
-            parameter gradient on the kernel route against the plain
-            route (one forward and one backward launch each); a whole
+            beside SDPA's backward; flash forward and backward at whisper's
+            encoder and cross shapes, beside SDPA and its backward);
+9. train    gradients through the kernels: one llama attention layer,
+            one falcon-mamba Mamba1 layer and one whisper decoder layer at
+            full width, dx and every parameter gradient on the kernel
+            route against the plain route (one forward and one backward
+            launch a mixer call); the llama and whisper layers again in
+            bf16 compute (each attention call's gradients against the
+            plain attention's, every gradient against float32 compute,
+            see LAYER_BF16_EXCESS); a whole
             llama step at full width on 2 groups in float32 compute on
             both routes; llama3.2-1b trained at full width and depth in
             bf16 compute on phase 6b's HAIL-selected batch (a warm-up
@@ -97,7 +110,10 @@ on batches of 4 x 512 tokens.
             forward launches and the loss of a remat="none" step from the
             same state),
             falcon-mamba-7b the same on 8 layers (8 + 8 scan launches a
-            step); and a checkpoint round trip of a full-width two-group
+            step), whisper-medium the same at full width and depth on a
+            repeated batch of 4 x 1,500 frames and 4 x 448 tokens (a
+            warm-up and 3 counted steps, 72 + 72 flash launches a step);
+            and a checkpoint round trip of a full-width two-group
             llama train state (bit for bit onto the card, the same loss
             from the restored state, a corrupted leaf falling back to the
             step before).
@@ -195,6 +211,53 @@ TRAIN_STEPS = 6                 # one of them the warm-up
 FALCON_TRAIN_GROUPS, FALCON_TRAIN_STEPS = 8, 3
 TRAIN_LR = 1e-3
 TRAIN_STEP_TOL = 1e-3
+# whisper-medium (arXiv:2212.04356, Table 1: 24 + 24 layers, width 1024,
+# 16 heads of 64): 1,500 encoder frames (a 30 s window of 80-channel
+# log-Mel at a 10 ms stride, halved by the stride-2 convolution, whose
+# output the stub frontend's frame embeddings stand for); the released
+# decoder context of 448 tokens, of which a previous-text prompt takes at
+# most half: 224 to prefill, the full 448 to train on.
+WHISPER = "whisper-medium"
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_TRAIN_SEQ = 1500, 224, 448
+WHISPER_TRAIN_STEPS = 4         # one of them the warm-up
+# its three attention shapes in bf16 (phase 3): encoder, decoder self
+# (the prefill's 224 tokens) and cross
+WHISPER_ATTN = [
+    (SERVE_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 16, 16, 64, False, None,
+     torch.bfloat16),
+    (SERVE_BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 16, 16, 64, True, None,
+     torch.bfloat16),
+    (SERVE_BATCH, WHISPER_PROMPT, WHISPER_FRAMES, 16, 16, 64, False, None,
+     torch.bfloat16)]
+# bf16-compute layer gradients (phase 9).  Two checks.  (a) Each attention
+# call of the layer: the kernels' dq, dk, dv against the exact gradient of
+# the same bf16 q, k, v and upstream gradient (autograd through the plain
+# attention on their float32 values, no rounding at the end), within
+# FLASH_BWD_RTOL's 2^-8 of its scale: the one rounding of each gradient to
+# bf16 costs up to 2^-8 of a value just above a power of two.  (Against
+# the plain route's own bf16 gradients two roundings meet, and one value
+# rounded the other way is a whole bf16 step, up to 2^-7 of the scale.)  (b)
+# Every gradient of the layer, against the same layer in float32 compute
+# (the same bf16 weights and inputs): the kernel route's share may exceed
+# the plain route's by at most 2^-8.  bf16 compute alone puts either route
+# at ~0.005-0.010 of a gradient's scale from float32 compute (each of the
+# layer's bf16 roundings flips some values differently once the two
+# routes' attention outputs differ by P's rounding to bf16; measured on
+# the CPU with a model of the kernel's arithmetic), so the two bf16 routes
+# cannot be held to 2^-8 of each other, and (a) is where a fault of the
+# backward kernel shows.  The kernel route's share is also held to
+# LAYER_BF16_CEIL outright: 2^-6, 1.5 times the largest reading before it
+# was set (0.0105, whisper's decoder layer; 0.0095 llama's).
+LAYER_BF16_EXCESS = 2 ** -8
+LAYER_BF16_CEIL = 2 ** -6
+# The repair check (phase 3, ``bf16_grad_repair``) also runs whisper's
+# encoder and cross shapes with q scaled by REPAIR_PEAK: scores with a
+# standard deviation of 6, each row's softmax near one-hot, so O is large
+# and its rounding to bf16 moves D = rowsum(dO * O) most.  There the
+# backward from the bf16 O must fail 2^-8 (the control: the check sees
+# the fault; 0.0042-0.0067 on the CPU at (1,1500,8,64) and
+# (2,224,1500,8,64)) and the backward from the float32 O must pass it.
+REPAIR_PEAK = 6.0
 
 
 def emit(phase: str, **fields):
@@ -204,6 +267,23 @@ def emit(phase: str, **fields):
 def check(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def clear_launches():
+    """Every launch count to 0, by kernel and by launch shape."""
+    from repro_torch.kernels import _build
+
+    _build.KERNEL_LAUNCHES.clear()
+    _build.SHAPE_LAUNCHES.clear()
+
+
+def shape_launches() -> dict:
+    """The launches counted by shape since ``clear_launches``:
+    "kernel: launch key" -> launches."""
+    from repro_torch.kernels import _build
+
+    return {f"{kernel}: {key}": n
+            for (kernel, key), n in sorted(_build.SHAPE_LAUNCHES.items())}
 
 
 def nvidia_smi() -> str:
@@ -439,6 +519,136 @@ def attn_bound(q, k, v, causal, window):
     return bound_ms(n_bytes, n_ops, rate)
 
 
+def attn_lse_bound(q, k, v, causal, window):
+    """``attn_bound`` of the training forward, which also writes each
+    row's lse and, for bf16 inputs, the float32 output (4 bytes each)."""
+    n_bytes, n_ops = attn_bound_terms(q, k, v, causal, window)
+    b, t, h, _ = q.shape
+    n_bytes += 4 * b * h * t
+    if q.dtype == torch.bfloat16:
+        n_bytes += 4 * q.numel()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound_ms(n_bytes, n_ops, rate)
+
+
+def bf16_grad_repair(flash_attention, ref) -> list:
+    """The bf16 backward fed the forward's bf16 output (before the repair)
+    and its float32 output (after), and autograd through the plain
+    attention, each against the exact gradient of the same bf16 inputs
+    (the plain formula in float32 from the float32 output), as a share of
+    each gradient's largest magnitude: at the llama train shape and
+    whisper's encoder and cross shapes, and at the last two again with q
+    scaled by REPAIR_PEAK.  After the repair each must be within 2^-8;
+    before it, the peaked cases must not (the control)."""
+    rows = []
+    for name, (b, t, s, h, kv, d, causal, window, dtype), peak in (
+            ("llama train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
+                             True, None, torch.bfloat16), None),
+            ("whisper encoder", WHISPER_ATTN[0], None),
+            ("whisper cross", WHISPER_ATTN[2], None),
+            ("whisper encoder, peaked", WHISPER_ATTN[0], REPAIR_PEAK),
+            ("whisper cross, peaked", WHISPER_ATTN[2], REPAIR_PEAK)):
+        q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
+        if peak is not None:
+            q = (q.float() * peak).to(dtype)
+        do = upstream_grad(q)
+        o, lse, o32 = flash_attention.flash_attention_fwd(q, k, v,
+                                                          causal=causal)
+        f = [x.float() for x in (q, k, v, do)]
+        _, lse_x, o_x = ref.attention_lse(*f[:3], causal=causal)
+        exact = ref.attention_bwd(*f[:3], o_x, lse_x, f[3], causal=causal)
+
+        def shares(got):
+            return [max_abs_err([g], [e]) / float(e.abs().max())
+                    for g, e in zip(got, exact)]
+
+        before = shares(flash_attention.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal))
+        after = shares(flash_attention.flash_attention_bwd(
+            q, k, v, o32, lse, do, causal=causal))
+        qa, ka, va = (x.detach().requires_grad_(True) for x in (q, k, v))
+        plain = shares(torch.autograd.grad(
+            ref.attention(qa, ka, va, causal=causal), (qa, ka, va), do))
+        torch.cuda.synchronize()
+        tol = FLASH_BWD_RTOL[dtype]
+        check(max(after) <= tol, f"flash_attention_bwd from the float32 O "
+              f"at {name}: dq, dk, dv {after} of the exact gradient's "
+              f"scale > 2^-8")
+        if peak is not None:
+            check(max(before) > tol, f"flash_attention_bwd from the bf16 O "
+                  f"at {name}: dq, dk, dv {before} of the exact gradient's "
+                  f"scale, all within 2^-8: the control shows no fault")
+        rows.append({"shape": name, "q": [b, t, h, d], "kv": [b, s, kv, d],
+                     "causal": causal, "q_scale": peak,
+                     "bf16_o_share": before, "f32_o_share": after,
+                     "plain_autograd_share": plain, "tol_share": tol})
+        del q, k, v, do, o, o32, f, o_x, exact, qa, ka, va
+    return rows
+
+
+def float32_o_cost(flash_attention) -> dict:
+    """What the float32 O costs on the card, at the llama train shape and
+    whisper's encoder shape: the backward from the bf16 O against the
+    float32 O, and the training forward with its float32 O against the
+    same launch given no o32 pointer (it then writes the bf16 output and
+    lse only; called through the C entry point, so not counted as a
+    launch).  Device ms from the profiler, in turns (A B C D D C B A,
+    three rounds): each one's times and median."""
+    import math
+    import statistics
+
+    from repro_torch.kernels import _build
+
+    stream = torch.cuda.current_stream().cuda_stream
+    entry = _build.entry("flash_attention_lse_launch",
+                         flash_attention._LSE_ARGTYPES)
+    out = {}
+    for name, (b, t, s, h, kv, d, causal) in (
+            ("llama train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
+                             True)),
+            ("whisper encoder", (SERVE_BATCH, WHISPER_FRAMES,
+                                 WHISPER_FRAMES, 16, 16, 64, False))):
+        q, k, v = attn_inputs(b, t, s, h, kv, d, torch.bfloat16)
+        do = upstream_grad(q)
+        o, lse, o32 = flash_attention.flash_attention_fwd(q, k, v,
+                                                          causal=causal)
+        bare_o, bare_lse = torch.empty_like(o), torch.empty_like(lse)
+
+        def fwd_without_o32():
+            code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         bare_o.data_ptr(), None, bare_lse.data_ptr(), b, t,
+                         s, h, kv, d, int(causal), -1, 1, 1.0 / math.sqrt(d),
+                         stream)
+            check(code == 0, f"flash_attention_lse_launch without o32: "
+                  f"error {code}")
+
+        fwd_without_o32()
+        torch.cuda.synchronize()
+        check(torch.equal(bare_o, o) and torch.equal(bare_lse, lse),
+              f"{name}: the forward without o32 gives another output or lse")
+        runs = {
+            "fwd_with_f32_o": (lambda: flash_attention.flash_attention_fwd(
+                q, k, v, causal=causal), "flash_bf16_kernel"),
+            "fwd_without_f32_o": (fwd_without_o32, "flash_bf16_kernel"),
+            "bwd_from_f32_o": (lambda: flash_attention.flash_attention_bwd(
+                q, k, v, o32, lse, do, causal=causal), "flash_bwd"),
+            "bwd_from_bf16_o": (lambda: flash_attention.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal), "flash_bwd")}
+        times = {n: [] for n in runs}
+        for _ in range(3):
+            for n in list(runs) + list(runs)[::-1]:
+                times[n].append(device_ms(runs[n][0], 20, runs[n][1])[0])
+        med = {n: statistics.median(x) for n, x in times.items()}
+        out[name] = {"q": [b, t, h, d], "kv": [b, s, kv, d],
+                     "causal": causal, "ms": times, "median_ms": med,
+                     "fwd_f32_o_ms": med["fwd_with_f32_o"]
+                     - med["fwd_without_f32_o"],
+                     "bwd_f32_o_ms": med["bwd_from_f32_o"]
+                     - med["bwd_from_bf16_o"]}
+        del q, k, v, do, o, lse, o32, bare_o, bare_lse
+    return out
+
+
 def upstream_grad(like, seed: int = SEED + 3):
     """A random upstream gradient of ``like``'s shape, dtype and device."""
     g = torch.Generator(device=like.device).manual_seed(seed)
@@ -468,15 +678,16 @@ def scan_bound(delta, b):
 
 
 def flash_bwd_bound(q, k, v, causal, window):
-    """q, k, v, o and dO read once, lse and D (float32 a row and head) read
-    once, dq, dk and dv written once, against 10 flops (QK^T, dO V^T,
-    P^T dO, dS^T Q, dS K: a multiply and an add each) per head dim and per
-    unmasked (query, key) pair, at the tensor-core rate for bf16 inputs
-    and the CUDA-core rate for float32."""
+    """q, k, v and dO read once, o (float32, as the training path hands it
+    over) read once, lse and D (float32 a row and head) read once, dq, dk
+    and dv written once, against 10 flops (QK^T, dO V^T, P^T dO, dS^T Q,
+    dS K: a multiply and an add each) per head dim and per unmasked
+    (query, key) pair, at the tensor-core rate for bf16 inputs and the
+    CUDA-core rate for float32."""
     b, t, h, d = q.shape
     _, fwd_ops = attn_bound_terms(q, k, v, causal, window)
-    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-        + 2 * 4 * b * h * t
+    n_bytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * q.numel() + 2 * 4 * b * h * t
     n_ops = fwd_ops // 4 * 10
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
     return bound_ms(n_bytes, n_ops, rate)
@@ -666,7 +877,8 @@ def phase_kernels(rng):
             (2, 100, 77, 4, 2, 64, False, 24, torch.bfloat16),
             (1, 70, 130, 4, 1, 32, False, None, torch.bfloat16),
             (1, 200, 50, 2, 1, 64, True, 16, torch.bfloat16),
-            (1, 200, 50, 2, 1, 64, True, 16, torch.float32)]:
+            (1, 200, 50, 2, 1, 64, True, 16, torch.float32),
+            *WHISPER_ATTN]:
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         got = flash_attention.flash_attention(q, k, v, causal=causal,
                                               window=window)
@@ -694,12 +906,14 @@ def phase_kernels(rng):
                            "tol": tol})
         del inputs, got, want
     # the backward kernels, each held to its plain version on the same
-    # inputs (the forward's own output and lse for flash): at the llama
-    # train shape in bf16 and f32, every head dim, ragged T and S,
-    # non-causal, windowed and rows with no key in their band; then the
-    # edges of the bf16 tensor-core kernels' 64-key and 64-row tiles: GQA
-    # 4:1 at T = 100, T = 65 against S = 200, windows with empty rows at
-    # D = 16 (causal and not), T and S off the tiles, T < S causal
+    # inputs (the forward's own lse and its float32 output, as the
+    # training path hands them over, for flash): at the llama train shape
+    # in bf16 and f32, every head dim, ragged T and S, non-causal,
+    # windowed and rows with no key in their band; then the edges of the
+    # bf16 tensor-core kernels' 64-key and 64-row tiles: GQA 4:1 at T =
+    # 100, T = 65 against S = 200, windows with empty rows at D = 16
+    # (causal and not), T and S off the tiles, T < S causal; then
+    # whisper's encoder, decoder self and cross shapes
     flash_bwd_cases = []
     for b, t, s, h, kv, d, causal, window, dtype in [
             (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
@@ -718,21 +932,25 @@ def phase_kernels(rng):
             (1, 200, 50, 4, 2, 16, True, 16, torch.bfloat16),
             (1, 150, 40, 2, 1, 16, False, 8, torch.bfloat16),
             (1, 130, 190, 4, 4, 64, False, 100, torch.bfloat16),
-            (2, 97, 161, 4, 1, 32, True, None, torch.bfloat16)]:
+            (2, 97, 161, 4, 1, 32, True, None, torch.bfloat16),
+            *WHISPER_ATTN]:
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         do = upstream_grad(q)
-        o, lse = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
-                                                     window=window)
-        _, lse_plain = ref.attention_lse(q, k, v, causal=causal,
-                                         window=window)
-        got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do,
+        o, lse, o32 = flash_attention.flash_attention_fwd(
+            q, k, v, causal=causal, window=window)
+        _, lse_plain, _ = ref.attention_lse(q, k, v, causal=causal,
+                                            window=window)
+        got = flash_attention.flash_attention_bwd(q, k, v, o32, lse, do,
                                                   causal=causal,
                                                   window=window)
-        want = ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+        want = ref.attention_bwd(q, k, v, o32, lse, do, causal=causal,
                                  window=window)
         torch.cuda.synchronize()
         case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
                f"causal={causal} window={window}"
+        check(o32.dtype == torch.float32 and torch.equal(o32.to(dtype), o),
+              f"flash forward's float32 output rounds to its output at "
+              f"{case}")
         lse_err = float(((lse - lse_plain).abs()
                          / lse_plain.abs().clamp(min=1.0)).max())
         check(lse_err <= LSE_TOL, f"flash lse kernel == plain at {case}: "
@@ -747,7 +965,25 @@ def phase_kernels(rng):
                                 "max_abs_err": max_abs_err(got, want),
                                 "share_of_scale": rel,
                                 "tol_share": FLASH_BWD_RTOL[dtype]})
-        del q, k, v, do, o, got, want
+        del q, k, v, do, o, o32, got, want
+    # the backward also takes O in q's dtype (the D kernel's other path)
+    q, k, v = attn_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
+                          torch.bfloat16)
+    do = upstream_grad(q)
+    o, lse, _ = flash_attention.flash_attention_fwd(q, k, v)
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    rel = [max_abs_err([g], [w]) / float(w.float().abs().max())
+           for g, w in zip(got, want)]
+    check(max(rel) <= FLASH_BWD_RTOL[torch.bfloat16], f"flash_attention_bwd "
+          f"kernel == plain from a bf16 O: {rel} > 2^-8")
+    flash_bwd_cases.append({"case": "llama train shape, O in bf16",
+                            "max_abs_err": max_abs_err(got, want),
+                            "share_of_scale": rel,
+                            "tol_share": FLASH_BWD_RTOL[torch.bfloat16]})
+    del q, k, v, do, o, lse, got, want
+    repair = bf16_grad_repair(flash_attention, ref)
     # the scan's: every lane split (N = 1, 3, 5, 8, 16), D off the 128
     # channels a CTA (8192 + 32, 40) and T off the 16-step interval
     scan_bwd_cases = []
@@ -776,7 +1012,8 @@ def phase_kernels(rng):
         del inputs, got, want
     emit("kernels", reader=reader_cases, sort=sort_cases,
          index_search=search_cases, pax_scan=pax_cases, flash=flash_cases,
-         scan=scan_cases, flash_bwd=flash_bwd_cases, scan_bwd=scan_bwd_cases)
+         scan=scan_cases, flash_bwd=flash_bwd_cases, scan_bwd=scan_bwd_cases,
+         bf16_grad_repair=repair)
     return {name: max(c["max_abs_err"] for c in cases)
             for name, cases in (("hail_read", reader_cases),
                                 ("bitonic_sort", sort_cases),
@@ -925,7 +1162,7 @@ def phase_two_kernel_read(store, query) -> dict:
           f"every block index-scans the {col} replica")
     bad = q._bad_mask(store, rid)
     ps, rows = store.partition_size, store.rows_per_block
-    ops.KERNEL_LAUNCHES.clear()
+    clear_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pr = ops.index_search(rep.mins, lo, hi).cpu()   # one sync, to slice
@@ -1012,7 +1249,7 @@ def phase_hail_server(store, query_rows) -> dict:
         """Run ``fn`` with the launch counts set to 0; its wall (ending in
         a synchronize) lands in ``walls[name]``, its launches are added to
         the phase's and returned."""
-        ops.KERNEL_LAUNCHES.clear()
+        clear_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -1259,7 +1496,7 @@ def phase_wave(store, raw, query, eager_ids) -> dict:
                            res.rows_read_frac.cpu().numpy(),
                            float(res.bytes_read)))
 
-        ops.KERNEL_LAUNCHES.clear()
+        clear_launches()
         with ops.stats_scope() as s:
             stats = mr.run_job(st, query, reader="kernels", mesh=mesh,
                                on_split_complete=on_split, **kw)
@@ -1348,7 +1585,7 @@ def phase_wave(store, raw, query, eager_ids) -> dict:
                                              result_cache=False))
         tickets = [srv.submit(qq, tenant=f"tenant{i % 4}")
                    for i, qq in enumerate(server_queries())]
-        ops.KERNEL_LAUNCHES.clear()
+        clear_launches()
         stats = srv.flush()
         torch.cuda.synchronize()
         got = dict(ops.KERNEL_LAUNCHES)
@@ -1471,54 +1708,100 @@ def share(got, want) -> dict:
     return {"max_abs_err": err, "scale": scale, "share": err / scale}
 
 
-def layer_routes(cfg, params, tokens) -> dict:
-    """Prefill layer by layer in float32 compute.  Per layer: its output on
-    the kernel route and on the plain route from the same (plain-route)
-    input ("teacher_forced", the check), and the kernel route run freely
-    from the embedding against the plain route ("free_running", how far the
-    model carries a difference), each as a share of the plain output's
-    largest magnitude."""
+def kernel_calls(cfg) -> int:
+    """Mixer kernel launches in one forward of ``cfg``: one a layer, two a
+    cross layer (its self- and cross-attention), and one an encoder
+    layer."""
+    n = sum((2 if lc.attn is not None and lc.attn.cross else 1)
+            * cfg.stack.n_groups for lc in cfg.stack.pattern)
+    return n + (cfg.encoder.n_layers if cfg.encoder is not None else 0)
+
+
+def layer_routes(cfg, params, batch) -> dict:
+    """Prefill layer by layer in float32 compute, the encoder's layers
+    (if any) first.  Per layer: its output on the kernel route and on the
+    plain route from the same (plain-route) input ("teacher_forced", the
+    check), and the kernel route run freely from the embedding against the
+    plain route ("free_running", how far the model carries a difference),
+    each as a share of the plain output's largest magnitude.  A decoder
+    layer's cross-attention reads the plain route's encoder output when
+    teacher-forced and the kernel route's when running freely."""
     from repro_torch.kernels import ops
-    from repro_torch.models.common import default_positions, embed_tokens
+    from repro_torch.models.common import (default_positions, embed_tokens,
+                                           rmsnorm)
     from repro_torch.models.stack import apply_layer
-
-    (lc,) = cfg.stack.pattern
-    check(not cfg.stack.tail, "single-pattern stack")
-    aux = {"positions": default_positions(*tokens.shape, tokens.device)}
-
-    def layer(x, g, kernels):
-        lp = view(params["stack"]["groups"]["p0"], g)
-        ops.use_kernels(kernels)
-        try:
-            return apply_layer(lc, lp, x, mode="train", cache=None, aux=aux,
-                               eps=cfg.norm_eps)[0]
-        finally:
-            ops.use_kernels(True)
 
     def view(tree, g):
         return {k: view(v, g) if isinstance(v, dict) else v[g]
                 for k, v in tree.items()}
 
-    x_ref = embed_tokens(params["embed"], tokens, None, torch.float32)
-    x_free = x_ref
-    forced, free = [], []
-    with torch.no_grad():
-        for g in range(cfg.stack.n_groups):
-            out_ref = layer(x_ref, g, False)
-            forced.append(share(layer(x_ref, g, True), out_ref)["share"])
-            x_free = layer(x_free, g, True)
+    def run(sc, stack_params, x_ref, aux_ref, aux_free, forced, free):
+        (lc,) = sc.pattern
+        check(not sc.tail, "single-pattern stack")
+
+        def layer(x, g, kernels, aux):
+            ops.use_kernels(kernels)
+            try:
+                return apply_layer(lc, view(stack_params["groups"]["p0"], g),
+                                   x, mode="train", cache=None, aux=aux,
+                                   eps=cfg.norm_eps)[0]
+            finally:
+                ops.use_kernels(True)
+
+        x_free = x_ref
+        for g in range(sc.n_groups):
+            out_ref = layer(x_ref, g, False, aux_ref)
+            forced.append(share(layer(x_ref, g, True, aux_ref),
+                                out_ref)["share"])
+            x_free = layer(x_free, g, True, aux_free)
             free.append(share(x_free, out_ref)["share"])
             x_ref = out_ref
-    return {"teacher_forced": forced, "free_running": free}
+        return x_ref, x_free
+
+    tokens = batch["tokens"]
+    forced, free = [], []
+    enc_ref = enc_free = None
+    with torch.no_grad():
+        if cfg.encoder is not None:
+            frames = batch["enc_inputs"].float()
+            aux = {"positions": default_positions(*frames.shape[:2],
+                                                  frames.device)}
+            enc_ref, enc_free = (
+                rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+                for x in run(cfg.encoder, params["encoder"], frames, aux,
+                             aux, forced, free))
+        pos = default_positions(*tokens.shape, tokens.device)
+        run(cfg.stack, params["stack"],
+            embed_tokens(params["embed"], tokens, None, torch.float32),
+            {"positions": pos, "enc": enc_ref},
+            {"positions": pos, "enc": enc_free}, forced, free)
+    return {"teacher_forced": forced, "free_running": free,
+            "encoder_layers": 0 if cfg.encoder is None
+            else cfg.encoder.n_layers}
 
 
-def phase_serve(arch: str, kernel: str, rng) -> dict:
+def serve_batch(cfg, rng, prompt: int, frames: int | None) -> dict:
+    """SERVE_BATCH prompts of ``prompt`` numpy tokens and, for an
+    encoder-decoder, ``frames`` frame embeddings each (numpy normal draws,
+    bf16), on the card."""
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt))).cuda()}
+    if cfg.encoder is not None:
+        batch["enc_inputs"] = torch.from_numpy(rng.standard_normal(
+            (SERVE_BATCH, frames, cfg.d_model), dtype=np.float32)).cuda().to(
+                torch.bfloat16)
+    return batch
+
+
+def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
+                frames: int | None = None) -> dict:
     """One model through the port's serve steps at full width and depth in
     bfloat16: warm-up (not counted), then the main path with the launch
-    counts set to 0 — prefill of SERVE_BATCH x SERVE_PROMPT numpy tokens,
-    then SERVE_GEN - 1 greedy decode steps — then the kernel route against
-    the plain route (see SERVE_LAYER_TOL), and one profiled prefill and
-    decode step.  Returns the phase's record."""
+    counts set to 0 — prefill of SERVE_BATCH x ``prompt`` numpy tokens
+    (and, for an encoder-decoder, ``frames`` frame embeddings each), then
+    SERVE_GEN - 1 greedy decode steps — then the kernel route against the
+    plain route (see SERVE_LAYER_TOL), and one profiled prefill and decode
+    step.  Returns the phase's record."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
     from repro_torch.kernels import ops
@@ -1540,40 +1823,41 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
 
     n_params = sum(v.numel() for v in leaves(params))
     n_bytes = sum(v.numel() * v.element_size() for v in leaves(params))
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
-    prefill = make_prefill_step(cfg, max_len=SERVE_PROMPT + SERVE_GEN)
+    batch = serve_batch(cfg, rng, prompt, frames)
+    prefill = make_prefill_step(cfg, max_len=prompt + SERVE_GEN)
     decode = make_decode_step(cfg)
 
-    logits, cache = prefill(params, {"tokens": tokens})           # warm-up
-    decode(params, cache, {"tokens": logits.argmax(-1), "pos": SERVE_PROMPT})
+    logits, cache = prefill(params, batch)                        # warm-up
+    decode(params, cache, {"tokens": logits.argmax(-1), "pos": prompt})
     del logits, cache
     torch.cuda.synchronize()
 
     # --- the main path, counted -------------------------------------------
-    ops.KERNEL_LAUNCHES.clear()
+    clear_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     tok = logits.argmax(-1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = dict(ops.KERNEL_LAUNCHES)
+    prefill_shapes = shape_launches()
     prefill_logits, first_tok = logits, tok
     finite = bool(torch.isfinite(logits).all())
     generated = [tok]
     t0 = time.perf_counter()
     for i in range(SERVE_GEN - 1):
         logits, cache = decode(params, cache,
-                               {"tokens": tok, "pos": SERVE_PROMPT + i})
+                               {"tokens": tok, "pos": prompt + i})
         tok = logits.argmax(-1)
         generated.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = dict(ops.KERNEL_LAUNCHES)
     finite = finite and bool(torch.isfinite(logits).all())
-    check(prefill_launches.get(kernel, 0) == cfg.n_layers,
-          f"{arch}: {kernel} launched {prefill_launches.get(kernel, 0)} "
-          f"times in prefill, want one per layer ({cfg.n_layers})")
+    want_launches = kernel_calls(cfg)
+    check(prefill_launches == {kernel: want_launches},
+          f"{arch}: launched {prefill_launches} in prefill, want "
+          f"{want_launches} {kernel} (one a layer, two a cross layer)")
     check(launches == prefill_launches,
           f"{arch}: decode launched kernels {launches} vs {prefill_launches}")
     check(finite, f"{arch}: logits are finite")
@@ -1582,7 +1866,7 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     # --- the kernel route against the plain route ------------------------
-    routes = {"layers_f32": layer_routes(cfg, params, tokens)}
+    routes = {"layers_f32": layer_routes(cfg, params, batch)}
     worst = max(routes["layers_f32"]["teacher_forced"])
     check(worst <= SERVE_LAYER_TOL,
           f"{arch}: a layer's output, kernel route vs plain route from the "
@@ -1595,9 +1879,8 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
         for kernels in (True, False):
             ops.use_kernels(kernels)
             try:
-                lg, c = pf(params, {"tokens": tokens})
-                dl, _ = dc(params, c, {"tokens": first_tok,
-                                       "pos": SERVE_PROMPT})
+                lg, c = pf(params, batch)
+                dl, _ = dc(params, c, {"tokens": first_tok, "pos": prompt})
             finally:
                 ops.use_kernels(True)
             out.append((lg, dl))
@@ -1606,14 +1889,14 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
 
     ops.use_kernels(False)
     try:
-        plain_bf16, _ = prefill(params, {"tokens": tokens})
+        plain_bf16, _ = prefill(params, batch)
     finally:
         ops.use_kernels(True)
     routes["logits_bf16_prefill"] = share(prefill_logits, plain_bf16)
     del plain_bf16
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     (k_pre, k_dec), (p_pre, p_dec) = both_routes(
-        make_prefill_step(cfg32, max_len=SERVE_PROMPT + SERVE_GEN),
+        make_prefill_step(cfg32, max_len=prompt + SERVE_GEN),
         make_decode_step(cfg32))
     for name, got, want in (("logits_f32_prefill", k_pre, p_pre),
                             ("logits_f32_decode_1", k_dec, p_dec)):
@@ -1622,27 +1905,29 @@ def phase_serve(arch: str, kernel: str, rng) -> dict:
     del k_pre, k_dec, p_pre, p_dec
 
     profiles = {
-        "prefill": profile_job(lambda: prefill(params, {"tokens": tokens}),
+        "prefill": profile_job(lambda: prefill(params, batch),
                                KERNEL_NAMES[kernel]),
         "decode_step": profile_job(lambda: decode(
-            params, cache, {"tokens": tok,
-                            "pos": SERVE_PROMPT + SERVE_GEN - 1}))}
+            params, cache, {"tokens": tok, "pos": prompt + SERVE_GEN - 1}))}
     for prof in profiles.values():
         prof.pop("host_span_ms")
     record = {
         "arch": arch, "kernel": kernel, "layers": cfg.n_layers,
-        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated":
+        "encoder_layers": 0 if cfg.encoder is None
+        else cfg.encoder.n_layers, "frames": frames,
+        "batch": SERVE_BATCH, "prompt": prompt, "generated":
         SERVE_GEN, "params": n_params, "param_bytes": n_bytes,
         "init_s": init_s, "prefill_s": prefill_s,
-        "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+        "prefill_tok_s": SERVE_BATCH * prompt / prefill_s,
         "decode_ms_per_step": decode_s / (SERVE_GEN - 1) * 1e3,
         "decode_tok_s": SERVE_BATCH * (SERVE_GEN - 1) / decode_s,
-        "launches_prefill": prefill_launches, "launches": launches,
+        "launches_prefill": prefill_launches,
+        "launches_prefill_by_shape": prefill_shapes, "launches": launches,
         "plain_route": routes, "peak_mem_bytes": peak,
         "tokens_head": torch.stack(generated, 1)[0, :8].tolist(),
         "profile": profiles}
     emit("serve", **record)
-    del params, cache, logits, prefill_logits
+    del params, cache, logits, prefill_logits, batch
     torch.cuda.empty_cache()
     return record
 
@@ -1663,60 +1948,229 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def layer_grad_check(arch: str, kernel: str) -> dict:
-    """One layer of ``arch`` at full width, float32 compute with bf16
-    weights (bf16 values held as float32 leaves, so the gradients are
-    float32), from one input and one upstream gradient: dx and every
-    parameter gradient on the kernel route against the plain route
-    (``use_kernels(False)``, PyTorch's autograd through the plain
-    versions), as a share of each gradient's largest magnitude.  The
-    kernel route must launch the forward and the backward kernel once."""
+def layer_setup(arch: str, seq: int):
+    """One layer of ``arch`` at full width (its decoder layer, for an
+    encoder-decoder): config, parameters (bf16 values held as float32
+    leaves), input x (TRAIN_BATCH, seq, D), upstream gradient and, for a
+    cross layer, the encoder's states (TRAIN_BATCH, WHISPER_FRAMES, D)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
-    from repro_torch.kernels import ops
-    from repro_torch.models.common import default_positions
-    from repro_torch.models.stack import apply_layer, layer_specs
+    from repro_torch.models.stack import layer_specs
 
     cfg = get_config(arch)
     (lc,) = cfg.stack.pattern
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     params = tree_map(lambda t: t.float(), init_params(
         layer_specs(lc, cfg.d_model), gen, "cuda", dtype=torch.bfloat16))
-    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+    x = torch.randn((TRAIN_BATCH, seq, cfg.d_model), generator=gen,
                     device="cuda")
-    dout = upstream_grad(x)
-    aux = {"positions": default_positions(TRAIN_BATCH, TRAIN_SEQ, "cuda")}
-    names = ["x"] + list(tree_leaves(params))
+    enc = torch.randn((TRAIN_BATCH, WHISPER_FRAMES, cfg.d_model),
+                      generator=gen, device="cuda") if lc.attn is not None \
+        and lc.attn.cross else None
+    return cfg, lc, params, x, upstream_grad(x), enc
 
-    def grads(kernels):
-        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        xg = x.detach().requires_grad_(True)
-        ops.use_kernels(kernels)
-        try:
-            out = apply_layer(lc, live, xg, mode="train", cache=None,
-                              aux=aux, eps=cfg.norm_eps)[0]
-            got = torch.autograd.grad(
-                out, [xg] + list(tree_leaves(live).values()), dout)
-        finally:
-            ops.use_kernels(True)
-        return dict(zip(names, got))
 
-    ops.KERNEL_LAUNCHES.clear()
-    on_kernels = grads(True)
+def layer_grads(cfg, lc, params, x, dout, enc, kernels: bool,
+                dtype=torch.float32) -> dict:
+    """{"x", "enc" (a cross layer), "<param path>": gradient} of one layer
+    in ``dtype`` compute (x, enc and dout cast to it; the float32 leaves
+    are cast to it at use), on the kernel or the plain route."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import default_positions
+    from repro_torch.models.stack import apply_layer
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    ins = {"x": x.to(dtype).detach().requires_grad_(True)}
+    if enc is not None:
+        ins["enc"] = enc.to(dtype).detach().requires_grad_(True)
+    aux = {"positions": default_positions(x.shape[0], x.shape[1], "cuda"),
+           "enc": ins.get("enc")}
+    ops.use_kernels(kernels)
+    try:
+        out = apply_layer(lc, live, ins["x"], mode="train", cache=None,
+                          aux=aux, eps=cfg.norm_eps)[0]
+        leaves = {**ins, **tree_leaves(live)}
+        got = torch.autograd.grad(out, list(leaves.values()),
+                                  dout.to(dtype))
+    finally:
+        ops.use_kernels(True)
+    return dict(zip(leaves, got))
+
+
+def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ) -> dict:
+    """One layer of ``arch`` at full width, float32 compute with bf16
+    weights (bf16 values held as float32 leaves, so the gradients are
+    float32), from one input and one upstream gradient: dx (and, for a
+    cross layer, the encoder states' gradient) and every parameter
+    gradient on the kernel route against the plain route
+    (``use_kernels(False)``, PyTorch's autograd through the plain
+    versions), as a share of each gradient's largest magnitude.  The
+    kernel route must launch the forward and the backward kernel once per
+    mixer call (twice in a cross layer)."""
+    from repro_torch.kernels import ops
+
+    cfg, lc, params, x, dout, enc = layer_setup(arch, seq)
+    clear_launches()
+    on_kernels = layer_grads(cfg, lc, params, x, dout, enc, True)
     torch.cuda.synchronize()
     launches = dict(ops.KERNEL_LAUNCHES)
-    plain = grads(False)
-    shares = {n: share(on_kernels[n], plain[n])["share"] for n in names}
+    plain = layer_grads(cfg, lc, params, x, dout, enc, False)
+    shares = {n: share(on_kernels[n], plain[n])["share"] for n in plain}
     worst = max(shares, key=shares.get)
-    check(launches == {kernel: 1, f"{kernel}_bwd": 1},
-          f"{arch} layer: launches {launches}, want one {kernel} and one "
-          f"{kernel}_bwd")
+    calls = 2 if enc is not None else 1
+    check(launches == {kernel: calls, f"{kernel}_bwd": calls},
+          f"{arch} layer: launches {launches}, want {calls} {kernel} and "
+          f"{calls} {kernel}_bwd")
     check(shares[worst] <= SERVE_LAYER_TOL,
           f"{arch} layer: gradient {worst}, kernel route vs plain route, "
           f"differs by {shares[worst]} of its scale > {SERVE_LAYER_TOL}")
-    return {"arch": arch, "shape": [TRAIN_BATCH, TRAIN_SEQ, cfg.d_model],
+    return {"arch": arch, "shape": list(x.shape),
+            "enc_shape": None if enc is None else list(enc.shape),
             "launches": launches, "grad_share": shares, "worst": worst,
             "tol": SERVE_LAYER_TOL}
+
+
+def layer_grad_check_bf16(arch: str, seq: int) -> dict:
+    """One attention layer of ``arch`` at full width in bf16 compute (see
+    LAYER_BF16_EXCESS): (a) each attention call's dq, dk, dv from the
+    kernels against the exact gradient of the q, k, v and upstream
+    gradient the layer gave that call, within 2^-8 of its scale (the plain
+    route's bf16 gradients reported beside); (b) every gradient of the
+    layer on the kernel and the plain route against the layer in float32
+    compute, the kernel route's share at most LAYER_BF16_CEIL and within
+    LAYER_BF16_EXCESS of the plain route's; and every backward launch fed
+    the forward's float32 O.  A control run hands the backward the bf16 O
+    (the forward before the repair) and reports what (a) and (b) read
+    there, unchecked: the guard against the bf16 O is the O-dtype check
+    here and ``bf16_grad_repair``'s."""
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    cfg, lc, params, x, dout, enc = layer_setup(arch, seq)
+    kernel_attention = ops.attention
+    kernel_fwd, kernel_bwd = (flash_attention.flash_attention_fwd,
+                              flash_attention.flash_attention_bwd)
+
+    def on_kernels(o_dtypes, bf16_o=False):
+        """The layer's gradients on the kernel route and its attention
+        calls (q, k, v and their gradients, the output's upstream
+        gradient); the O dtype of each backward launch into ``o_dtypes``;
+        with ``bf16_o`` the backward reads the bf16 output."""
+        calls = []
+
+        def recorded(q, k, v, *, causal=True, window=None):
+            out = kernel_attention(q, k, v, causal=causal, window=window)
+            call = {"qkv": (q, k, v), "causal": causal, "window": window,
+                    "grads": {}}
+            for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
+                t.register_hook(lambda g, n=name, c=call:
+                                c["grads"].__setitem__(n, g))
+            calls.append(call)
+            return out
+
+        def fwd(q, k, v, **kw):
+            out, lse, o32 = kernel_fwd(q, k, v, **kw)
+            return out, lse, out if bf16_o else o32
+
+        def bwd(q, k, v, o, *rest, **kw):
+            o_dtypes.append(o.dtype)
+            return kernel_bwd(q, k, v, o, *rest, **kw)
+
+        ops.attention = recorded
+        flash_attention.flash_attention_fwd = fwd
+        flash_attention.flash_attention_bwd = bwd
+        try:
+            grads = layer_grads(cfg, lc, params, x, dout, enc, True,
+                                torch.bfloat16)
+        finally:
+            ops.attention = kernel_attention
+            flash_attention.flash_attention_fwd = kernel_fwd
+            flash_attention.flash_attention_bwd = kernel_bwd
+        return grads, calls
+
+    def attention_shares(call):
+        """(the kernels' dq, dk, dv, the plain route's bf16 ones) as
+        shares of the exact gradient's scale."""
+        def plain_grads(dtype):
+            q, k, v = (t.detach().to(dtype).requires_grad_(True)
+                       for t in call["qkv"])
+            return torch.autograd.grad(
+                ref.attention(q, k, v, causal=call["causal"],
+                              window=call["window"]), (q, k, v),
+                call["grads"]["o"].to(dtype))
+
+        exact = plain_grads(torch.float32)
+
+        def shares(got):
+            return [max_abs_err([g], [e]) / float(e.abs().max())
+                    for g, e in zip(got, exact)]
+
+        return (shares([call["grads"][n] for n in ("q", "k", "v")]),
+                shares(plain_grads(torch.bfloat16)))
+
+    o_dtypes = []
+    grads, calls = on_kernels(o_dtypes)
+    n_calls = 2 if enc is not None else 1
+    check(len(calls) == n_calls,
+          f"{arch} bf16 layer: {len(calls)} attention calls")
+    check(o_dtypes == [torch.float32] * n_calls,
+          f"{arch} bf16 layer: the backward launches read O as {o_dtypes}, "
+          f"want the forward's float32 O")
+    attn = []
+    for i, call in enumerate(calls):
+        rel, plain_rel = attention_shares(call)
+        check(max(rel) <= FLASH_BWD_RTOL[torch.bfloat16],
+              f"{arch} bf16 layer, attention call {i}: the kernels' dq, dk, "
+              f"dv {rel} of the exact gradient's scale > 2^-8")
+        q, k = call["qkv"][:2]
+        attn.append({"q": list(q.shape), "kv": list(k.shape),
+                     "causal": call["causal"], "share_of_scale": rel,
+                     "plain_bf16_share": plain_rel})
+    del calls
+    plain = layer_grads(cfg, lc, params, x, dout, enc, False, torch.bfloat16)
+    f32 = layer_grads(cfg, lc, params, x, dout, enc, False)
+    excess = {}
+    for n in f32:
+        k_share = share(grads[n].float(), f32[n])["share"]
+        p_share = share(plain[n].float(), f32[n])["share"]
+        excess[n] = {"kernel": k_share, "plain": p_share,
+                     "excess": k_share - p_share}
+    worst = max(excess, key=lambda n: excess[n]["excess"])
+    check(excess[worst]["excess"] <= LAYER_BF16_EXCESS,
+          f"{arch} bf16 layer: gradient {worst} on the kernel route is "
+          f"{excess[worst]['kernel']} of its scale from float32 compute, "
+          f"the plain route {excess[worst]['plain']}: more than "
+          f"{LAYER_BF16_EXCESS} apart")
+    top = max(excess, key=lambda n: excess[n]["kernel"])
+    check(excess[top]["kernel"] <= LAYER_BF16_CEIL,
+          f"{arch} bf16 layer: gradient {top} on the kernel route is "
+          f"{excess[top]['kernel']} of its scale from float32 compute > "
+          f"{LAYER_BF16_CEIL}")
+    del grads
+
+    # the control: the same layer with the backward fed the bf16 O
+    control_dtypes = []
+    grads, calls = on_kernels(control_dtypes, bf16_o=True)
+    control_attn = [attention_shares(call)[0] for call in calls]
+    control_layer = {n: share(grads[n].float(), f32[n])["share"]
+                     for n in f32}
+    control = {
+        "o_dtypes": [str(d) for d in control_dtypes],
+        "attention_share_of_scale": control_attn,
+        "layer_vs_f32_max": max(control_layer.values()),
+        "layer_excess_max": max(control_layer[n] - excess[n]["plain"]
+                                for n in f32),
+        "fails_a": max(map(max, control_attn))
+        > FLASH_BWD_RTOL[torch.bfloat16],
+        "fails_b": max(control_layer[n] - excess[n]["plain"] for n in f32)
+        > LAYER_BF16_EXCESS or max(control_layer.values()) > LAYER_BF16_CEIL,
+        "fails_o_dtype": control_dtypes != [torch.float32] * n_calls}
+    del grads, calls
+    return {"arch": arch, "shape": list(x.shape),
+            "enc_shape": None if enc is None else list(enc.shape),
+            "attention_calls": attn, "tol_share": 2 ** -8,
+            "layer_vs_f32": excess, "worst": worst,
+            "tol_excess": LAYER_BF16_EXCESS, "ceiling": LAYER_BF16_CEIL,
+            "control_bf16_o": control}
 
 
 def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
@@ -1748,7 +2202,7 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
     losses = [float(metrics["loss"])]
     warm_s = time.perf_counter() - t0
 
-    ops.KERNEL_LAUNCHES.clear()
+    clear_launches()
     walls, norms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1757,12 +2211,13 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
         walls.append(time.perf_counter() - t0)
         norms.append(float(metrics["grad_norm"]))
     launches = dict(ops.KERNEL_LAUNCHES)
+    by_shape = shape_launches()
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / steps for k, v in launches.items()}
-    n_layers = cfg.n_layers
-    check(per_step == {kernel: n_layers, f"{kernel}_bwd": n_layers},
-          f"{cfg.name}: launches a step {per_step}, want {n_layers} "
-          f"{kernel} and {n_layers} {kernel}_bwd")
+    n_calls = kernel_calls(cfg)
+    check(per_step == {kernel: n_calls, f"{kernel}_bwd": n_calls},
+          f"{cfg.name}: launches a step {per_step}, want {n_calls} "
+          f"{kernel} and {n_calls} {kernel}_bwd")
     check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses} finite")
     check(losses[-1] < losses[0], f"{cfg.name}: the loss on a repeated "
           f"batch falls: {losses}")
@@ -1773,7 +2228,7 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
     none_loss = float(step(state, batch)[1]["loss"])
     remat = {}
     for name in ("full", "dots"):
-        ops.KERNEL_LAUNCHES.clear()
+        clear_launches()
         t0 = time.perf_counter()
         loss = float(make_train_step(cfg, opt, StepCfg(remat=name))(
             state, batch)[1]["loss"])
@@ -1783,21 +2238,26 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
         # that import keeps the calling frames (with this step's old and
         # new state) alive until a collection: collect, or they hold ~20 GB
         gc.collect()
-        check(got == {kernel: 2 * n_layers, f"{kernel}_bwd": n_layers},
+        check(got == {kernel: 2 * n_calls, f"{kernel}_bwd": n_calls},
               f"{cfg.name}: remat={name!r} launches {got}, want "
-              f"{2 * n_layers} {kernel} and {n_layers} {kernel}_bwd")
+              f"{2 * n_calls} {kernel} and {n_calls} {kernel}_bwd")
         check(loss == none_loss, f"{cfg.name}: remat={name!r} loss {loss} "
               f"!= remat='none' loss {none_loss} from the same state")
         remat[name] = {"step_s": wall, "loss": loss, "launches": got}
     tokens = batch["tokens"].numel()
     del state, metrics
     torch.cuda.empty_cache()
-    return {"model": cfg.name, "layers": n_layers, "params": n_params,
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "encoder_layers": 0 if cfg.encoder is None
+            else cfg.encoder.n_layers,
+            "enc_inputs": list(batch["enc_inputs"].shape)
+            if "enc_inputs" in batch else None, "params": n_params,
             "state_bytes": state_bytes, "batch": list(batch["tokens"].shape),
             "compute_dtype": str(cfg.compute_dtype), "lr": opt.lr,
             "init_s": init_s, "warmup_step_s": warm_s, "step_s": walls,
             "tokens_per_s": tokens * steps / sum(walls), "losses": losses,
             "grad_norms": norms, "launches": launches,
+            "launches_by_shape": by_shape,
             "launches_per_step": per_step, "peak_mem_bytes": peak,
             "profile": prof, "remat_none_loss": none_loss,
             "remat": remat}
@@ -1805,12 +2265,16 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
 
 def phase_train(batch: dict) -> dict:
     """9. train: the per-layer gradient check (the kernel route against
-    the plain route, one llama attention layer and one falcon-mamba Mamba1
-    layer at full width); a whole llama3.2-1b step at full width and two
+    the plain route, one llama attention layer, one falcon-mamba Mamba1
+    layer and one whisper decoder layer at full width, in float32 compute;
+    the llama and whisper layers again in bf16 compute, see
+    LAYER_BF16_EXCESS); a whole llama3.2-1b step at full width and two
     groups in float32 compute on both routes; llama3.2-1b trained at full
-    width and depth on HAIL-selected data (phase 6b's batch), and
-    falcon-mamba-7b at full width cut to 8 of its 64 layers; and a
-    checkpoint round trip of a full-width two-group llama train state."""
+    width and depth on HAIL-selected data (phase 6b's batch),
+    falcon-mamba-7b at full width cut to 8 of its 64 layers, and
+    whisper-medium at full width and depth on frame embeddings and
+    tokens; and a checkpoint round trip of a full-width two-group llama
+    train state."""
     import tempfile
 
     from repro_torch.ckpt import checkpoint as ck
@@ -1825,6 +2289,12 @@ def phase_train(batch: dict) -> dict:
     t_phase = time.perf_counter()
     record: dict = {"layers": [layer_grad_check(arch, kernel)
                                for arch, kernel in SERVE]}
+    record["layers"].append(layer_grad_check(WHISPER, "flash_attention",
+                                             WHISPER_TRAIN_SEQ))
+    torch.cuda.empty_cache()
+    record["layers_bf16"] = [
+        layer_grad_check_bf16("llama3.2-1b", TRAIN_SEQ),
+        layer_grad_check_bf16(WHISPER, WHISPER_TRAIN_SEQ)]
     torch.cuda.empty_cache()
 
     # --- a whole step in float32 compute, kernel route vs plain route ----
@@ -1883,6 +2353,22 @@ def phase_train(batch: dict) -> dict:
                     f"params, grads and moments, past the card's 80 GB"],
         "data": "numpy tokens below falcon-mamba's vocabulary of 65,024 "
                 "(the HAIL corpus draws from llama's 128,256)"}
+    whisper = get_config(WHISPER)
+    tok = torch.from_numpy(rng.integers(0, whisper.vocab, (
+        TRAIN_BATCH, WHISPER_TRAIN_SEQ + 1)).astype(np.int32)).cuda()
+    frames = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, WHISPER_FRAMES, whisper.d_model),
+        dtype=np.float32)).cuda().to(torch.bfloat16)
+    record["whisper-medium-train"] = {
+        **train_run(whisper, {"tokens": tok[:, :-1].contiguous(),
+                              "labels": tok[:, 1:].contiguous(),
+                              "enc_inputs": frames},
+                    WHISPER_TRAIN_STEPS - 1, "flash_attention", opt),
+        "data": "numpy tokens below whisper's vocabulary of 51,865 and "
+                "numpy normal frame embeddings (the stub frontend's "
+                "output), bf16"}
+    del tok, frames
+    torch.cuda.empty_cache()
 
     # --- checkpoint round trip -------------------------------------------
     two_bf16 = dataclasses.replace(two, compute_dtype=torch.bfloat16)
@@ -1990,7 +2476,7 @@ def main() -> int:
     hdfs, hdfs_up = up.hdfs_upload(sc.USERVISITS, raw, replication=3,
                                    n_nodes=N_NODES)
     hail_rows, on_hail = rowid_collector()
-    ops.KERNEL_LAUNCHES.clear()
+    clear_launches()
     hail_job = mr.run_job(hail, query, reader="kernels", splitting="hail",
                           on_split_complete=on_hail)
     eager_launches = dict(ops.KERNEL_LAUNCHES)
@@ -2059,7 +2545,7 @@ def main() -> int:
                                         n_nodes=N_NODES)
     cfg = mr.AdaptiveConfig(offer_rate=0.25)
     jobs = []
-    ops.KERNEL_LAUNCHES.clear()
+    clear_launches()
     for _ in range(6):
         rows, on_split = rowid_collector()
         job = mr.run_job(lazy, query, reader="kernels", adaptive=cfg,
@@ -2104,8 +2590,10 @@ def main() -> int:
     train_batch = phase_data_pipeline()
     torch.cuda.empty_cache()
 
-    # --- 7. serve: llama3.2-1b and falcon-mamba-7b at full width ----------
+    # --- 7. serve: llama3.2-1b, falcon-mamba-7b and whisper-medium ---------
     served = {kernel: phase_serve(arch, kernel, rng) for arch, kernel in SERVE}
+    whisper = phase_serve(WHISPER, "flash_attention", rng,
+                          prompt=WHISPER_PROMPT, frames=WHISPER_FRAMES)
 
     # --- 8. times at main-path shapes ---------------------------------------
     # Each case: the kernel's own device time per call from the profiler
@@ -2169,6 +2657,15 @@ def main() -> int:
             f"({b}, {ROWS}) int32", lambda: block_sort.bitonic_sort(keys),
             lambda: block_sort.bitonic_sort_plain(keys), sort_bound(keys),
             None, library=lambda: torch.sort(keys, dim=-1, stable=True))
+    # the flash rows: the key each is counted under on the main paths
+    # (filled in after phase 9 from the launches counted by shape)
+    flash_keys = {}
+
+    def flash_key(name, kernel, what, q, k, causal):
+        flash_keys[name] = (f"{kernel}: "
+                            + flash_attention.launch_key(what, q, k, causal,
+                                                         None))
+
     q, k, v = attn_inputs(SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64,
                           torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2179,6 +2676,16 @@ def main() -> int:
         "flash_bf16_kernel",
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
+    flash_key("flash_llama_prefill", "flash_attention", "fwd", q, k, True)
+    # the training forward at the same shape: lse and the float32 output
+    # written too
+    timed["flash_fwd_llama_train"] = case(
+        "q (4,512,32,64) k/v (4,512,8,64) bf16 causal, lse and float32 O",
+        lambda: flash_attention.flash_attention_fwd(q, k, v),
+        lambda: ref.attention_lse(q, k, v),
+        attn_lse_bound(q, k, v, True, None), "flash_bf16_kernel")
+    flash_key("flash_fwd_llama_train", "flash_attention", "fwd+lse", q, k,
+              True)
     del q, k, v, qt, kt, vt
     inputs = scan_inputs(SERVE_BATCH, SERVE_PROMPT, 8192, 16)
     timed["scan_falcon_prefill"] = case(
@@ -2192,7 +2699,7 @@ def main() -> int:
     q, k, v = attn_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
                           torch.bfloat16)
     do = upstream_grad(q)
-    o, lse = flash_attention.flash_attention_fwd(q, k, v)
+    _, lse, o32 = flash_attention.flash_attention_fwd(q, k, v)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(
@@ -2200,12 +2707,71 @@ def main() -> int:
     do_t = do.transpose(1, 2)
     timed["flash_bwd_llama_train"] = case(
         "q/o/dO (4,512,32,64) k/v (4,512,8,64) bf16 causal",
-        lambda: flash_attention.flash_attention_bwd(q, k, v, o, lse, do),
-        lambda: ref.attention_bwd(q, k, v, o, lse, do),
+        lambda: flash_attention.flash_attention_bwd(q, k, v, o32, lse, do),
+        lambda: ref.attention_bwd(q, k, v, o32, lse, do),
         flash_bwd_bound(q, k, v, True, None), "flash_bwd",
         library=lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
                                             retain_graph=True))
-    del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, do_t
+    flash_key("flash_bwd_llama_train", "flash_attention_bwd",
+              "bwd from float32 O", q, k, True)
+    del q, k, v, do, o32, lse, qt, kt, vt, sdpa_out, do_t
+    # whisper's compute-bound shapes, non-causal: the encoder's (4, 1500)
+    # in prefill and training, and cross-attention from the prefill's 224
+    # and the training's 448 decoder tokens: the serving forward with SDPA
+    # (is_causal=False) beside it, the training forward (lse and the
+    # float32 O), and the backward with SDPA's backward beside it
+    for name, t, s, serve, train in [
+            ("encoder", WHISPER_FRAMES, WHISPER_FRAMES, True, True),
+            ("cross", WHISPER_PROMPT, WHISPER_FRAMES, True, False),
+            ("cross_train", WHISPER_TRAIN_SEQ, WHISPER_FRAMES, False, True)]:
+        q, k, v = attn_inputs(SERVE_BATCH, t, s, 16, 16, 64, torch.bfloat16)
+        shape = f"q (4,{t},16,64) k/v (4,{s},16,64) bf16 non-causal"
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        if serve:
+            timed[f"flash_whisper_{name}"] = case(
+                shape,
+                lambda: flash_attention.flash_attention(q, k, v,
+                                                        causal=False),
+                lambda: ref.attention(q, k, v, causal=False),
+                attn_bound(q, k, v, False, None), "flash_bf16_kernel",
+                library=lambda: torch.nn.functional.
+                scaled_dot_product_attention(qt, kt, vt, is_causal=False))
+            flash_key(f"flash_whisper_{name}", "flash_attention", "fwd", q,
+                      k, False)
+        if train:
+            timed[f"flash_fwd_whisper_{name}"] = case(
+                shape + ", lse and float32 O",
+                lambda: flash_attention.flash_attention_fwd(q, k, v,
+                                                            causal=False),
+                lambda: ref.attention_lse(q, k, v, causal=False),
+                attn_lse_bound(q, k, v, False, None), "flash_bf16_kernel",
+                plain_iters=1)
+            flash_key(f"flash_fwd_whisper_{name}", "flash_attention",
+                      "fwd+lse", q, k, False)
+            do = upstream_grad(q)
+            _, lse, o32 = flash_attention.flash_attention_fwd(
+                q, k, v, causal=False)
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=False)
+            do_t = do.transpose(1, 2)
+            timed[f"flash_bwd_whisper_{name}"] = case(
+                shape.replace("q (", "q/o/dO ("),
+                lambda: flash_attention.flash_attention_bwd(
+                    q, k, v, o32, lse, do, causal=False),
+                lambda: ref.attention_bwd(q, k, v, o32, lse, do,
+                                          causal=False),
+                flash_bwd_bound(q, k, v, False, None), "flash_bwd",
+                library=lambda: torch.autograd.grad(
+                    sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
+                plain_iters=1)
+            flash_key(f"flash_bwd_whisper_{name}", "flash_attention_bwd",
+                      "bwd from float32 O", q, k, False)
+            del do, lse, o32, sdpa_out, do_t
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    repair_cost = float32_o_cost(flash_attention)
+    torch.cuda.empty_cache()
     inputs = scan_inputs(TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
     dy = upstream_grad(inputs[0])
     timed["scan_bwd_falcon_train"] = case(
@@ -2241,13 +2807,33 @@ def main() -> int:
         lambda: pax_scan.pax_scan_plain(keys, proj, *lohi),
         pax_bound(keys, proj, mask, 1024), "scan_kernel", plain_iters=20)
     del keys, proj, mask
-    emit("times", cases=timed, profiler_misses=PROFILER_MISSES)
+    emit("times", cases=timed, float32_o_cost=repair_cost,
+         profiler_misses=PROFILER_MISSES)
 
     # --- 9. train: gradients through the kernels, two models trained -------
     trained = phase_train(train_batch)
     train_launches = collections.Counter()
-    for name in ("llama3.2-1b-train", "falcon-mamba-7b-train-8L"):
+    for name in ("llama3.2-1b-train", "falcon-mamba-7b-train-8L",
+                 "whisper-medium-train"):
         train_launches.update(trained[name]["launches"])
+    # the flash rows' launches on the main paths, as counted by shape:
+    # each serving prefill, and each training run's counted steps
+    by_path = {"llama3.2-1b prefill":
+               served["flash_attention"]["launches_prefill_by_shape"],
+               "whisper-medium prefill": whisper["launches_prefill_by_shape"],
+               **{f"{name} ({len(trained[name]['step_s'])} counted steps)":
+                  trained[name]["launches_by_shape"]
+                  for name in ("llama3.2-1b-train", "whisper-medium-train")}}
+    for name, key in flash_keys.items():
+        timed[name]["launch_key"] = key
+        timed[name]["launches_on_path"] = {
+            path: counts[key] for path, counts in by_path.items()
+            if key in counts}
+        check(bool(timed[name]["launches_on_path"]),
+              f"phase 8's {name} ({key}) was launched on no main path")
+    flash_fields = ("shape", "ms", "events_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_events_ms", "ms_by",
+                    "launch_key", "launches_on_path")
 
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
     reader_shapes = {k: {f: timed[k].get(f) for f in (
@@ -2309,11 +2895,21 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": served["flash_attention"]["launches"].get(
+             "flash_attention", 0) + whisper["launches"].get(
              "flash_attention", 0) + train_launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-         "shape": flash["shape"], "ms_by": flash["ms_by"]},
+         "shape": flash["shape"], "ms_by": flash["ms_by"],
+         "launch_key": flash["launch_key"],
+         "launches_on_path": flash["launches_on_path"],
+         "shapes": {k: {f: timed[k].get(f) for f in flash_fields}
+                    for k in ("flash_fwd_llama_train",
+                              "flash_whisper_encoder",
+                              "flash_fwd_whisper_encoder",
+                              "flash_whisper_cross",
+                              "flash_fwd_whisper_cross_train")},
+         "float32_o_cost": repair_cost},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",
@@ -2334,7 +2930,12 @@ def main() -> int:
          "bound_ms": flash_bwd["bound_ms"],
          "bound_by": flash_bwd["bound_by"],
          "library_ms": flash_bwd["library_ms"],
-         "shape": flash_bwd["shape"], "ms_by": flash_bwd["ms_by"]},
+         "shape": flash_bwd["shape"], "ms_by": flash_bwd["ms_by"],
+         "launch_key": flash_bwd["launch_key"],
+         "launches_on_path": flash_bwd["launches_on_path"],
+         "shapes": {k: {f: timed[k].get(f) for f in flash_fields}
+                    for k in ("flash_bwd_whisper_encoder",
+                              "flash_bwd_whisper_cross_train")}},
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",

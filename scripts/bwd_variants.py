@@ -2,6 +2,7 @@
 one CUDA card.
 
     python3 scripts/bwd_variants.py [--baseline OLD.cu ...]
+                                    [--baseline-bf16-o OLD.cu ...]
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu`` and
 ``selective_scan_bwd.cu`` as they are and variants made from them by exact
@@ -25,8 +26,13 @@ and, with ``--baseline`` (repeatable), other sources of either entry
 point (earlier versions, such as ``git show
 <commit>:src/repro_torch/kernels/csrc/selective_scan_bwd.cu``), each named
 by its file's stem; a scan baseline's channels and checkpoint interval are
-read from its constants.  Each is held to the plain version
-(``ref.attention_bwd``, ``ref.selective_scan_bwd``) at ``chip_smoke.py``'s
+read from its constants.  A flash source given by ``--baseline`` has the
+entry point of ``flash_attention_bwd.cu`` as it is (O in q's dtype or in
+float32, and the ``o_f32`` flag) and gets the forward's float32 output;
+one given by ``--baseline-bf16-o`` has the entry point of the sources
+before the float32 O (no ``o_f32``) and gets the bf16 output.  Each is
+held to the plain version (``ref.attention_bwd`` fed the same O,
+``ref.selective_scan_bwd``) at ``chip_smoke.py``'s
 train shapes and tolerances, and to itself bit for bit on a second call,
 then timed in turns (A B ... B A, three rounds): the kernels' device time
 from the profiler around 10 back-to-back calls.  The as-built kernels'
@@ -96,8 +102,9 @@ def scan_geometry(src: str) -> tuple[int, int]:
     return int(ch[1]), int(st[1])
 
 
-def build(sources: dict[str, tuple[str, str]]) -> dict:
-    """One library a variant, built with the port's nvcc flags."""
+def build(sources: dict[str, tuple[str, str]], bf16_o: set[str]) -> dict:
+    """One library a variant, built with the port's nvcc flags; the flash
+    sources named in ``bf16_o`` have the entry point without ``o_f32``."""
     from repro_torch.kernels import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -119,7 +126,8 @@ def build(sources: dict[str, tuple[str, str]]) -> dict:
         regs[name] = max(map(int, re.findall(r"Used (\d+) registers", log)))
         entry = sources[name][0]
         fn = getattr(ctypes.CDLL(str(OUT / f"lib{name}.so")), entry)
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        n_int = 9 if name in bf16_o else 10
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p]
                        if entry == FLASH_ENTRY else
                        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
@@ -135,6 +143,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", action="append", default=[])
+    ap.add_argument("--baseline-bf16-o", action="append", default=[])
     args = ap.parse_args()
     import chip_smoke as cs
     from repro_torch.kernels import ref
@@ -143,28 +152,33 @@ def main() -> int:
     sources = variants()
     geometry = {n: scan_geometry(src) for n, (e, src) in sources.items()
                 if e == SCAN_ENTRY}
-    for path in map(Path, args.baseline):
+    bf16_o = {Path(p).stem for p in args.baseline_bf16_o}
+    for path in map(Path, args.baseline + args.baseline_bf16_o):
         text = path.read_text()
         entry = FLASH_ENTRY if FLASH_ENTRY in text else SCAN_ENTRY
+        if path.stem in bf16_o and entry != FLASH_ENTRY:
+            raise ValueError(f"--baseline-bf16-o {path}: not a flash source")
         sources[path.stem] = (entry, text)
         if entry == SCAN_ENTRY:
             geometry[path.stem] = scan_geometry(text)
-    fns, regs = build(sources)
+    fns, regs = build(sources, bf16_o)
     stream = torch.cuda.current_stream().cuda_stream
 
     q, k, v = cs.attn_inputs(cs.TRAIN_BATCH, cs.TRAIN_SEQ, cs.TRAIN_SEQ, 32,
                              8, 64, torch.bfloat16)
     do = cs.upstream_grad(q)
-    o, lse = ref.attention_lse(q, k, v)
+    o, lse, o32 = ref.attention_lse(q, k, v)
     b, t, h, d = q.shape
     fl_out = [torch.empty_like(x) for x in (q, k, v)] + [
         torch.empty((b, h, t), dtype=torch.float32, device="cuda")]
 
     def flash(name):
-        code = fns[name](*(x.data_ptr() for x in (q, k, v, o, lse, do,
-                                                   *fl_out)),
-                         b, t, t, h, 8, d, 1, -1, 1, 1.0 / math.sqrt(d),
-                         stream)
+        f32_o = name not in bf16_o
+        code = fns[name](*(x.data_ptr() for x in (q, k, v,
+                                                   o32 if f32_o else o, lse,
+                                                   do, *fl_out)),
+                         b, t, t, h, 8, d, 1, -1, 1, *((1,) if f32_o else ()),
+                         1.0 / math.sqrt(d), stream)
         if code:
             raise RuntimeError(f"{name}: launch failed ({code})")
         return [x.clone() for x in fl_out[:3]]
@@ -191,7 +205,8 @@ def main() -> int:
             raise RuntimeError(f"{name}: launch failed ({code})")
         return [x.clone() for x in sc_out]
 
-    want = {FLASH_ENTRY: ref.attention_bwd(q, k, v, o, lse, do),
+    want = {FLASH_ENTRY: ref.attention_bwd(q, k, v, o32, lse, do),
+            "flash_bf16_o": ref.attention_bwd(q, k, v, o, lse, do),
             SCAN_ENTRY: ref.selective_scan_bwd(*ins, dy)}
     tol = {FLASH_ENTRY: cs.FLASH_BWD_RTOL[torch.bfloat16],
            SCAN_ENTRY: cs.SCAN_BWD_RTOL}
@@ -201,8 +216,9 @@ def main() -> int:
     for name, (entry, _) in sources.items():
         got, again = run[name](), run[name]()
         torch.cuda.synchronize()
+        ref_of = "flash_bf16_o" if name in bf16_o else entry
         share = max(cs.max_abs_err([g], [w]) / float(w.float().abs().max())
-                    for g, w in zip(got, want[entry]))
+                    for g, w in zip(got, want[ref_of]))
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         checks[name] = {"share_of_scale": share, "tol": tol[entry],
                         "deterministic": same, "registers": regs[name]}

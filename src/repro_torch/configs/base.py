@@ -1,8 +1,10 @@
 """Config dataclasses for the served models + the four assigned input shapes.
 
 The port of the JAX package's ``configs/base.py`` for the families the port
-serves so far (dense GQA and Mamba1).  ``MoECfg``, ``Mamba2Cfg`` and
-``moe_layer`` come with the families that need them.
+serves so far: dense GQA, Mamba1, and the encoder-decoder (whisper:
+``ModelCfg.encoder`` and ``ModelCfg.embed_inputs``).  ``MoECfg``,
+``Mamba2Cfg``, ``moe_layer`` and ``StackCfg.shared`` wait for the families
+that need them.
 """
 from __future__ import annotations
 
@@ -70,12 +72,14 @@ class StackCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelCfg:
     name: str
-    family: str                           # dense | ssm
+    family: str                           # dense | ssm | audio
     d_model: int
     vocab: int
     stack: StackCfg
+    encoder: Optional[StackCfg] = None    # whisper
     tie_embeddings: bool = True
     embed_scale: bool = False             # gemma: x *= sqrt(d_model)
+    embed_inputs: bool = True             # False: input_specs feeds embeddings
     norm_eps: float = 1e-6
     compute_dtype: torch.dtype = torch.bfloat16
     # which assigned shapes apply (long_500k skipped for pure full-attention)

@@ -10,6 +10,8 @@ unchanged one loads at once.
 
 ``KERNEL_LAUNCHES`` counts, per kernel, the wrapper calls that launched
 CUDA work — and nothing else: the plain versions never touch it.
+``SHAPE_LAUNCHES`` counts the same launches by (kernel, the shape key its
+wrapper passes), for the wrappers that pass one.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a")
 
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -112,12 +115,15 @@ def entry(name: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
-def check(kernel: str, code: int):
-    """Raise on a refused or failed launch; count one launch otherwise."""
+def check(kernel: str, code: int, shape: str | None = None):
+    """Raise on a refused or failed launch; count one launch otherwise,
+    also under ``shape`` where the wrapper gives one."""
     if code != 0:
         msg = library().repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed ({code}: {msg})")
     KERNEL_LAUNCHES[kernel] += 1
+    if shape is not None:
+        SHAPE_LAUNCHES[kernel, shape] += 1
 
 
 def note_variant(kernel: str, key) -> int:

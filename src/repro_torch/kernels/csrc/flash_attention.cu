@@ -60,8 +60,13 @@
 // row's log-sum-exp of the masked scaled scores, lse (B,H,T) float32, which
 // the backward kernels (flash_attention_bwd.cu) read to recompute P.  A row
 // with no key in its band gets lse = -1e30 (the mask value) exactly, the
-// backward's sign for "every key weighs 1/S".  `flash_attention_launch`
-// passes no lse pointer, and the serving path is unchanged.
+// backward's sign for "every key weighs 1/S".  The bf16 kernel also writes
+// the float32 output (the accumulator over l, before its rounding to bf16)
+// where it is given an `o32` pointer: the backward's D = rowsum(dO * O)
+// from the bf16 output moved dQ and dK by up to 0.005 of their scale, past
+// the 2^-8 tolerance, on non-causal attention.  It costs 4 bytes an output
+// element written, beside the 2 of the bf16 output.  `flash_attention_launch`
+// passes no lse and no o32 pointer, and the serving path is unchanged.
 //
 // float32 (`flash_f32_kernel`), what the per-layer route checks compute:
 // one CTA owns one (batch x head, 64-row q tile), one thread per query row,
@@ -254,7 +259,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 4)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
+                  float* __restrict__ o32, float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
                   int window, float scale) {
   __shared__ __align__(128) bf16 s_q[kTQ][D + kPad];  // q in, o out
   __shared__ __align__(128) bf16 s_k[2][kTK][D + kPad];
@@ -421,6 +426,18 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 : (m_run[r] + log2f(l_run[r])) * kLn2;
     }
   }
+  if (o32 != nullptr) {  // float32 O straight from the fragments, 8 B a lane
+    float* ob32 = o32 + q_off;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + tc * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (qp[r] < t_len)
+          *reinterpret_cast<float2*>(ob32 + qp[r] * q_row + c) = make_float2(
+              acc[n][2 * r] / den[r], acc[n][2 * r + 1] / den[r]);
+    }
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + tc * 2;
@@ -446,14 +463,15 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int t_len, int s_len, int n_heads, int n_kv, int causal,
-           int window, int is_bf16, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* o32,
+           float* lse, int batch, int t_len, int s_len, int n_heads, int n_kv,
+           int causal, int window, int is_bf16, float scale,
+           cudaStream_t stream) {
   if (is_bf16) {
     const dim3 grid(batch * n_heads, (t_len + kTQ - 1) / kTQ);
     flash_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, t_len,
-        s_len, n_heads, n_kv, causal, window, scale);
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32, lse,
+        t_len, s_len, n_heads, n_kv, causal, window, scale);
   } else {
     const dim3 grid(batch * n_heads, (t_len + kBQ - 1) / kBQ);
     flash_f32_kernel<D><<<grid, kBQ, 0, stream>>>(
@@ -478,39 +496,43 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, o, nullptr, batch, t_len, s_len, n_heads, n_kv,
-                        causal, window, is_bf16, scale, st);
+      return launch<16>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
+                        n_heads, n_kv, causal, window, is_bf16, scale, st);
     case 32:
-      return launch<32>(q, k, v, o, nullptr, batch, t_len, s_len, n_heads, n_kv,
-                        causal, window, is_bf16, scale, st);
+      return launch<32>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
+                        n_heads, n_kv, causal, window, is_bf16, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, nullptr, batch, t_len, s_len, n_heads, n_kv,
-                        causal, window, is_bf16, scale, st);
+      return launch<64>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
+                        n_heads, n_kv, causal, window, is_bf16, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The same launch, also writing lse (B,H,T) float32 (contiguous): the
-// training forward, whose backward is flash_attention_bwd_launch.
+// training forward, whose backward is flash_attention_bwd_launch.  With
+// bf16 inputs, o32 (B,T,H,D) float32 (contiguous), if not null, receives
+// the output before its rounding to bf16; float32 inputs ignore it.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k,
-                                          const void* v, void* o, void* lse,
-                                          int batch, int t_len, int s_len,
-                                          int n_heads, int n_kv, int head_dim,
-                                          int causal, int window, int is_bf16,
-                                          float scale, void* stream) {
+                                          const void* v, void* o, void* o32,
+                                          void* lse, int batch, int t_len,
+                                          int s_len, int n_heads, int n_kv,
+                                          int head_dim, int causal, int window,
+                                          int is_bf16, float scale,
+                                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
+  float* o32f = (float*)o32;
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, o, l, batch, t_len, s_len, n_heads, n_kv,
-                        causal, window, is_bf16, scale, st);
+      return launch<16>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
+                        n_kv, causal, window, is_bf16, scale, st);
     case 32:
-      return launch<32>(q, k, v, o, l, batch, t_len, s_len, n_heads, n_kv,
-                        causal, window, is_bf16, scale, st);
+      return launch<32>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
+                        n_kv, causal, window, is_bf16, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, l, batch, t_len, s_len, n_heads, n_kv,
-                        causal, window, is_bf16, scale, st);
+      return launch<64>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
+                        n_kv, causal, window, is_bf16, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,6 +9,11 @@
 //
 //   P  = exp(S - lse), S = scale q k^T masked as in the forward
 //   D  = rowsum(dO * O)                                  (dot kernel)
+//
+// O is the forward's output in q's dtype or in float32: the training
+// forward hands the bf16 path its float32 output (before the rounding to
+// bf16), since D from the rounded O moved dQ and dK by up to 0.005 of
+// their scale on non-causal attention, past the 2^-8 tolerance.
 //   dV = sum over the group's q heads of P^T dO          (dK/dV kernel)
 //   dS = P * (dO v^T - D), 0 where the mask holds
 //   dK = scale dS^T q                                    (dK/dV kernel)
@@ -143,11 +148,12 @@ __device__ __forceinline__ float lanes_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// D = rowsum(dO * O), one warp a (b, t, h) row; written as (B,H,T)
+// D = rowsum(dO * O), one warp a (b, t, h) row; written as (B,H,T).  O in
+// dO's dtype or in float32.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
+template <typename TO, typename T>
+__global__ void flash_bwd_dot_kernel(const TO* __restrict__ o,
                                      const T* __restrict__ dout,
                                      float* __restrict__ dsum, int n_rows,
                                      int t_len, int n_heads, int head_dim) {
@@ -770,13 +776,18 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           float* dsum, int batch, int t_len, int s_len, int n_heads,
-           int n_kv, int causal, int window, float scale,
+           int o_f32, const void* lse, const void* dout, void* dq, void* dk,
+           void* dv, float* dsum, int batch, int t_len, int s_len,
+           int n_heads, int n_kv, int causal, int window, float scale,
            cudaStream_t stream) {
   const int n_rows = batch * t_len * n_heads;
-  flash_bwd_dot_kernel<T><<<(n_rows + 7) / 8, 256, 0, stream>>>(
-      (const T*)o, (const T*)dout, dsum, n_rows, t_len, n_heads, D);
+  const int dot_blocks = (n_rows + 7) / 8;
+  if (o_f32)
+    flash_bwd_dot_kernel<float, T><<<dot_blocks, 256, 0, stream>>>(
+        (const float*)o, (const T*)dout, dsum, n_rows, t_len, n_heads, D);
+  else
+    flash_bwd_dot_kernel<T, T><<<dot_blocks, 256, 0, stream>>>(
+        (const T*)o, (const T*)dout, dsum, n_rows, t_len, n_heads, D);
   int err = (int)cudaGetLastError();
   if (err) return err;
   if constexpr (std::is_same<T, bf16>::value) {
@@ -813,46 +824,48 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 template <int D>
 int launch_dtype(int is_bf16, const void* q, const void* k, const void* v,
-                 const void* o, const void* lse, const void* dout, void* dq,
-                 void* dk, void* dv, float* dsum, int batch, int t_len,
-                 int s_len, int n_heads, int n_kv, int causal, int window,
-                 float scale, cudaStream_t st) {
+                 const void* o, int o_f32, const void* lse, const void* dout,
+                 void* dq, void* dk, void* dv, float* dsum, int batch,
+                 int t_len, int s_len, int n_heads, int n_kv, int causal,
+                 int window, float scale, cudaStream_t st) {
   if (is_bf16)
-    return launch<D, bf16>(q, k, v, o, lse, dout, dq, dk, dv, dsum, batch,
-                           t_len, s_len, n_heads, n_kv, causal, window,
-                           scale, st);
-  return launch<D, float>(q, k, v, o, lse, dout, dq, dk, dv, dsum, batch,
+    return launch<D, bf16>(q, k, v, o, o_f32, lse, dout, dq, dk, dv, dsum,
+                           batch, t_len, s_len, n_heads, n_kv, causal,
+                           window, scale, st);
+  return launch<D, float>(q, k, v, o, 1, lse, dout, dq, dk, dv, dsum, batch,
                           t_len, s_len, n_heads, n_kv, causal, window, scale,
                           st);
 }
 
 }  // namespace
 
-// q, o, dout, dq (B,T,H,D); k, v, dk, dv (B,S,KV,D), all contiguous and of
-// one dtype (is_bf16 ? bfloat16 : float32); lse and dsum (B,H,T) float32,
-// dsum scratch that the launch fills.  window <= 0 means none.  Three
-// kernels on `stream`; returns the first cudaGetLastError() that is not 0.
+// q, dout, dq (B,T,H,D); k, v, dk, dv (B,S,KV,D), all contiguous and of
+// one dtype (is_bf16 ? bfloat16 : float32); o (B,T,H,D) contiguous, float32
+// if o_f32 (as it always is with float32 inputs), else bfloat16; lse and
+// dsum (B,H,T) float32, dsum scratch that the launch fills.  window <= 0
+// means none.  Three kernels on `stream`; returns the first
+// cudaGetLastError() that is not 0.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* dsum, int batch, int t_len, int s_len, int n_heads, int n_kv,
-    int head_dim, int causal, int window, int is_bf16, float scale,
-    void* stream) {
+    int head_dim, int causal, int window, int is_bf16, int o_f32,
+    float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* ds = (float*)dsum;
   switch (head_dim) {
     case 16:
-      return launch_dtype<16>(is_bf16, q, k, v, o, lse, dout, dq, dk, dv, ds,
-                              batch, t_len, s_len, n_heads, n_kv, causal,
-                              window, scale, st);
+      return launch_dtype<16>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
+                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
+                              causal, window, scale, st);
     case 32:
-      return launch_dtype<32>(is_bf16, q, k, v, o, lse, dout, dq, dk, dv, ds,
-                              batch, t_len, s_len, n_heads, n_kv, causal,
-                              window, scale, st);
+      return launch_dtype<32>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
+                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
+                              causal, window, scale, st);
     case 64:
-      return launch_dtype<64>(is_bf16, q, k, v, o, lse, dout, dq, dk, dv, ds,
-                              batch, t_len, s_len, n_heads, n_kv, causal,
-                              window, scale, st);
+      return launch_dtype<64>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
+                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
+                              causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,11 +17,15 @@ launches the kernel or raises.
 
 The training path (``ops.attention`` with grad) uses the two entries
 beside it, routed the same way: ``flash_attention_fwd`` is the same kernel
-also writing each row's log-sum-exp (``flash_attention_lse_launch``; plain
-version ``ref.attention_lse``), and ``flash_attention_bwd`` is the backward
+also writing each row's log-sum-exp and, for bfloat16, the float32
+output before its rounding (``flash_attention_lse_launch``; plain version
+``ref.attention_lse``), and ``flash_attention_bwd`` is the backward
 (``csrc/flash_attention_bwd.cu``: a dot kernel for D = rowsum(dO * O), a
 dK/dV kernel and a dQ kernel, deterministic, no atomics; plain version
-``ref.attention_bwd``).  bfloat16 runs on the tensor cores (``mma.sync``):
+``ref.attention_bwd``).  The backward reads O in q's dtype or in float32;
+the training path hands it the float32 O, since D from the bfloat16 O
+moves dQ and dK past the 2^-8 tolerance.  bfloat16 runs on the tensor
+cores (``mma.sync``):
 the dK/dV kernel holds a 64-key tile's K and V in registers and walks the
 group's q heads and the band's 64-row q tiles (S^T, P^T, dV += P^T dO,
 dP^T, dS^T, dK += dS^T Q), the dQ kernel holds a 64-row tile's Q and dO
@@ -29,7 +33,8 @@ and walks the band's 64-key tiles (S, dP, dS, dQ += dS K); P and dS are
 rounded to bfloat16 before their products, the scale applied in float32
 at the store.  float32 runs on the CUDA cores in full float32.  The
 forward counts as a ``flash_attention`` launch, the backward as one
-``flash_attention_bwd`` launch.
+``flash_attention_bwd`` launch, each also under its ``launch_key`` in
+``_build.SHAPE_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -48,8 +53,8 @@ flash_attention_plain = ref.attention
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
-_LSE_ARGTYPES = [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
+_LSE_ARGTYPES = [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P]
 
 
 def _check(q, k, v, window):
@@ -86,15 +91,28 @@ def _check(q, k, v, window):
                          "chunks)")
 
 
+def launch_key(what: str, q, k, causal: bool, window) -> str:
+    """The key a launch is counted under in ``_build.SHAPE_LAUNCHES``:
+    ``what`` ("fwd", "fwd+lse" or "bwd from <O's dtype> O"), q's and k's
+    shapes, the dtype and the mask."""
+    return (f"{what} q {tuple(q.shape)} k/v {tuple(k.shape)} "
+            f"{str(q.dtype)[6:]} {'causal' if causal else 'non-causal'}"
+            + ("" if window is None else f" window {window}"))
+
+
 def _launch(q, k, v, causal: bool, window, with_lse: bool = False):
+    """-> out, or (out, lse, out in float32) with ``with_lse``."""
     _check(q, k, v, window)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    lse = o32 = None
+    if with_lse:
+        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        o32 = out if q.dtype == torch.float32 else torch.empty(
+            q.shape, dtype=torch.float32, device=q.device)
     if b == 0 or t == 0:
-        return (out, lse) if with_lse else out
+        return (out, lse, o32) if with_lse else out
     tail = (b, t, s, h, kvh, d, int(causal),
             -1 if window is None else int(window),
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d))
@@ -103,23 +121,27 @@ def _launch(q, k, v, causal: bool, window, with_lse: bool = False):
         if with_lse:
             fn = _build.entry("flash_attention_lse_launch", _LSE_ARGTYPES)
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), *tail, stream)
+                      out.data_ptr(), o32.data_ptr(), lse.data_ptr(), *tail,
+                      stream)
         else:
             fn = _build.entry("flash_attention_launch", _ARGTYPES)
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), *tail, stream)
-    _build.check("flash_attention", code)
-    return (out, lse) if with_lse else out
+    _build.check("flash_attention", code, launch_key(
+        "fwd+lse" if with_lse else "fwd", q, k, causal, window))
+    return (out, lse, o32) if with_lse else out
 
 
 def _check_bwd(q, k, v, o, lse, do, window):
     _check(q, k, v, window)
     b, t, h, _ = q.shape
-    for name, x in (("o", o), ("do", do)):
-        if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
-                or not x.is_contiguous()):
+    for name, x, dtypes in (("o", o, (q.dtype, torch.float32)),
+                            ("do", do, (q.dtype,))):
+        if (x.shape != q.shape or x.dtype not in dtypes
+                or x.device != q.device or not x.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} must be "
-                             f"contiguous, of q's shape, dtype and device")
+                             f"contiguous, of q's shape and device, and of "
+                             f"dtype {' or '.join(map(str, dtypes))}")
         if q.dtype == torch.bfloat16 and x.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} must start on a "
                              f"16-byte boundary")
@@ -144,8 +166,10 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, window):
                                             dsum)),
                   b, t, s, h, kvh, d, int(causal),
                   -1 if window is None else int(window),
-                  int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
-    _build.check("flash_attention_bwd", code)
+                  int(q.dtype == torch.bfloat16),
+                  int(o.dtype == torch.float32), 1.0 / math.sqrt(d), stream)
+    _build.check("flash_attention_bwd", code, launch_key(
+        f"bwd from {str(o.dtype)[6:]} O", q, k, causal, window))
     return dq, dk, dv
 
 
@@ -160,9 +184,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
-    """The training forward: ``flash_attention`` and each row's log-sum-exp
-    of the masked scaled scores -> (out (B,T,H,D) in q's dtype, lse (B,H,T)
-    float32; -1e30 for a row with no key in its band)."""
+    """The training forward: ``flash_attention``, each row's log-sum-exp
+    of the masked scaled scores and the output before its rounding to q's
+    dtype -> (out (B,T,H,D) in q's dtype, lse (B,H,T) float32, -1e30 for
+    a row with no key in its band; o32 (B,T,H,D) float32, ``out`` itself
+    for float32 inputs): o32 is what the backward's D = rowsum(dO * O)
+    reads."""
     if q.device.type == "cpu":
         return ref.attention_lse(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -172,9 +199,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window=None):
-    """The backward from ``flash_attention_fwd``'s output and lse and the
-    upstream gradient ``do`` (contiguous, q's shape and dtype) -> (dq, dk,
-    dv) in the inputs' dtype."""
+    """The backward from ``flash_attention_fwd``'s output ``o`` (in q's
+    dtype or in float32) and lse and the upstream gradient ``do``
+    (contiguous, q's shape and dtype) -> (dq, dk, dv) in the inputs'
+    dtype."""
     if q.device.type == "cpu":
         return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
                                  window=window)

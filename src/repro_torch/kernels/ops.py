@@ -281,21 +281,24 @@ def _wants_grad(*xs) -> bool:
 
 class AttentionFn(torch.autograd.Function):
     """Flash attention with its backward: forward kernel with log-sum-exp,
-    backward kernel (plain versions of both on a CPU tensor)."""
+    backward kernel (plain versions of both on a CPU tensor).  The backward
+    gets the forward's float32 output, not the one rounded to q's dtype:
+    D = rowsum(dO * O) from a bfloat16 O moves dQ and dK past 2^-8 of
+    their scale (4 bytes an output element kept until the backward)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
-                                                       window=window)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, o32 = flash_attention.flash_attention_fwd(
+            q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention.flash_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            q, k, v, o32, lse, dout.contiguous(), causal=ctx.causal,
             window=ctx.window)
         return dq, dk, dv, None, None
 

@@ -114,7 +114,8 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D), float32 softmax; query and
     key positions are their indices; q head h reads kv head h // (H/KV).
     Computes in float32 whatever the inputs' dtype."""
-    return _attend(q, v, _scores(q, k, causal, window, torch.float32))
+    return _attend(q, v, _scores(q, k, causal, window,
+                                 torch.float32)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -150,21 +151,28 @@ def _scores(q, k, causal, window, wd):
 
 
 def _attend(q, v, sc):
-    """softmax(scores) V -> (B,T,H,D) in q's dtype."""
+    """softmax(scores) V -> (B,T,H,D) in the scores' dtype."""
     b, t, h, d = q.shape
     w = torch.softmax(sc, dim=-1)
     out = torch.einsum("bgrts,bsgk->btgrk", w, v.to(sc.dtype))
-    return out.reshape(b, t, h, d).to(q.dtype)
+    return out.reshape(b, t, h, d)
 
 
 def attention_lse(q, k, v, *, causal: bool = True, window=None):
-    """``attention`` and its rows' log-sum-exp of the masked scaled scores:
-    -> (out (B,T,H,D) in q's dtype, lse (B,H,T) float32).  A row with no
-    key in its band has lse = -1e30 (every score is the mask value): its
-    output is the uniform average of v, as in ``attention``."""
+    """``attention`` with its rows' log-sum-exp of the masked scaled scores
+    and the output before its rounding to q's dtype -> (out (B,T,H,D) in
+    q's dtype, lse (B,H,T) float32, o32 (B,T,H,D) float32, ``out`` itself
+    for float32 and float64 inputs): o32 is the O that ``attention_bwd``
+    takes on the training path.  A row with no key in its band has lse =
+    -1e30 (every score is the mask value): its output is the uniform
+    average of v, as in ``attention``."""
     b, t, h, _ = q.shape
     sc = _scores(q, k, causal, window, _work_dtype(q))
-    return _attend(q, v, sc), torch.logsumexp(sc, dim=-1).reshape(b, h, t)
+    full = _attend(q, v, sc)
+    out = full.to(q.dtype)
+    lse = torch.logsumexp(sc, dim=-1).reshape(b, h, t)
+    return out, lse, (out if q.dtype in (torch.float32, torch.float64)
+                      else full)
 
 
 def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None):
@@ -179,7 +187,10 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None):
 
     A row with no key in its band (lse <= -1e30 / 2) weighs every key
     1/S and passes no gradient to its scores, as softmax over equal masked
-    scores does.  -> (dq, dk, dv) in the inputs' dtypes."""
+    scores does.  ``o`` is in q's dtype or in float32 (the output before
+    its rounding, which the training path passes: D from a bfloat16 O
+    moves dQ and dK by up to 0.005 of their scale).  -> (dq, dk, dv) in
+    the inputs' dtypes."""
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     rep = h // kvh

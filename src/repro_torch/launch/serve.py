@@ -7,7 +7,11 @@ The port of the JAX package's ``launch/serve.py``, with ``--device``
 (default ``cuda``: it runs on the card unless asked for the CPU, and never
 falls back) and ``--seed`` (parameters from a seeded ``torch.Generator`` on
 the device, prompt tokens from numpy).  Parameters are bfloat16, as in the
-JAX launcher.  Prints the prefill and decode walls and tokens per second.
+JAX launcher.  The batch is the JAX launcher's: prompt tokens, or
+embeddings for a model fed by a stub frontend, and for an
+encoder-decoder (whisper) also ``prompt_len`` frame embeddings for the
+encoder, normal draws from numpy in bfloat16.  Prints the prefill and
+decode walls and tokens per second.
 """
 from __future__ import annotations
 
@@ -52,8 +56,23 @@ def main(argv=None) -> dict:
     decode = make_decode_step(cfg)
 
     rng = np.random.default_rng(args.seed + 1)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
+    shape = (args.batch, args.prompt_len)
+
+    def normal():
+        return torch.from_numpy(rng.standard_normal(
+            (*shape, cfg.d_model), dtype=np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+
+    batch = {}
+    if cfg.embed_inputs:
+        batch["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, shape)).to(device)
+    else:
+        batch["inputs"] = normal()
+    if cfg.encoder is not None:
+        batch.setdefault("tokens", torch.from_numpy(rng.integers(
+            0, cfg.vocab, shape)).to(device))
+        batch["enc_inputs"] = normal()
 
     def sample(lg):
         if args.temperature <= 0:
@@ -63,7 +82,7 @@ def main(argv=None) -> dict:
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     tok = sample(logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0

@@ -16,7 +16,10 @@ Parameters are float32 from a ``torch.Generator`` seeded with ``--seed``.
 Random batches (without ``--hail-select``) come from a ``torch.Generator``
 seeded per step from (``--seed``, step), so a resumed run sees the batches
 an uninterrupted one would; their numbers differ from ``jax.random``'s, so
-a run does not reproduce the JAX launcher's batches.
+a run does not reproduce the JAX launcher's batches.  The batches are
+tokens only, as the JAX launcher's: a model that takes encoder inputs or
+embeddings (whisper) is refused before any step, where the JAX launcher
+fails inside its first.
 """
 from __future__ import annotations
 
@@ -80,6 +83,12 @@ def main(argv=None) -> dict:
         raise RuntimeError("train: no CUDA device (pass --device cpu to run "
                            "on the CPU)")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.encoder is not None or not cfg.embed_inputs:
+        raise ValueError(f"train: {cfg.name} takes encoder inputs or "
+                         f"embeddings, and this launcher's batches are "
+                         f"tokens only (as the JAX launcher's); train it "
+                         f"through train.step.make_train_step with a batch "
+                         f"that holds them")
     mesh = make_host_mesh(device)
     print(f"arch={cfg.name} device={device} mesh={mesh.shape}")
 

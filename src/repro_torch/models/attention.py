@@ -1,9 +1,10 @@
-"""GQA self-attention with full-length KV caches.
+"""GQA self-attention with full-length KV caches, and cross-attention.
 
-The port of the JAX package's ``models/attention.py`` for self-attention.
-Cache layout per layer: {"k": (B, S, KV, Dh), "v": (B, S, KV, Dh),
-"pos": (B, S) int32 absolute positions (-1 = empty)}.  Keys are stored
-post-RoPE (absolute rotary), the standard serving convention.
+The port of the JAX package's ``models/attention.py`` for self-attention
+and for the encoder-decoder's cross-attention (whisper).  Cache layout per
+layer: {"k": (B, S, KV, Dh), "v": (B, S, KV, Dh), "pos": (B, S) int32
+absolute positions (-1 = empty)}.  Keys are stored post-RoPE (absolute
+rotary), the standard serving convention.
 
 * **Prefill and train** call ``ops.attention(q, k, v, causal=cfg.causal,
   window=cfg.window)``: the flash kernel on the card, ``ref.attention`` on
@@ -19,10 +20,18 @@ post-RoPE (absolute rotary), the standard serving convention.
 * **The cache is written in place at decode**: ``_write_slot`` stores the
   new key, value and position into the caller's cache tensors, where the
   JAX package donates the cache to the decode step and gets a new one.
+* **Cross-attention** (``cfg.cross``, ``_cross_attention``): queries from
+  the decoder, keys and values projected from the encoder's hidden states
+  (``enc_kv``, (B, S_enc, D)), no RoPE and no mask.  Prefill and train run
+  ``ops.attention(q, k, v, causal=False)``, the flash kernel with T != S,
+  where the JAX package runs ``_sdpa_full`` (every key position is valid);
+  prefill caches the projected keys and values wholesale
+  (``cross_cache_specs``).  Decode reads that cache through ``_sdpa_full``
+  and never writes it.
 
-Softcap, qk-norm, cross-attention, M-RoPE and ring caches for windows
-shorter than the sequence wait for the families that need them; such a
-config raises ``NotImplementedError``.
+Softcap, qk-norm, M-RoPE and ring caches for windows shorter than the
+sequence wait for the families that need them; such a config raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +56,6 @@ NEG_INF = -1e30
 
 def _supported(cfg: AttnCfg):
     for name, on in (("softcap", cfg.softcap), ("qk_norm", cfg.qk_norm),
-                     ("cross-attention", cfg.cross),
                      ("M-RoPE", cfg.mrope_section)):
         if on:
             raise NotImplementedError(
@@ -75,6 +83,11 @@ def attn_cache_specs(cfg: AttnCfg, batch: int, cache_len: int,
         "pos": tspec((batch, cache_len), ("batch", "kv_seq"), torch.int32,
                      init="zeros"),
     }
+
+
+def cross_cache_specs(cfg: AttnCfg, batch: int, enc_len: int,
+                      dtype=torch.bfloat16) -> dict[str, TensorSpec]:
+    return attn_cache_specs(cfg, batch, enc_len, dtype)
 
 
 def cache_len_for(cfg: AttnCfg, seq_len: int) -> int:
@@ -109,9 +122,9 @@ def _project(params, x, cfg: AttnCfg, positions):
 def _mask(q_pos, k_pos, cfg: AttnCfg):
     """(..., T, S) boolean validity from absolute positions."""
     m = k_pos[..., None, :] >= 0
-    if cfg.causal:
+    if cfg.causal and not cfg.cross:
         m = m & (k_pos[..., None, :] <= q_pos[..., :, None])
-    if cfg.window is not None:
+    if cfg.window is not None and not cfg.cross:
         m = m & (k_pos[..., None, :] > q_pos[..., :, None] - cfg.window)
     return m
 
@@ -137,7 +150,8 @@ def _sdpa_full(q, k, v, q_pos, k_pos, cfg: AttnCfg):
 
 
 def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
-              cache: Optional[dict], cache_len: Optional[int] = None):
+              cache: Optional[dict], enc_kv=None,
+              cache_len: Optional[int] = None):
     """Returns (out (B,T,D), new_cache).
 
     mode='train'   : no cache.
@@ -145,8 +159,14 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
                      empty slots pos=-1) so decode steps append.
     mode='decode'  : T == 1; writes the cache IN PLACE at ``positions``
                      (B,1) and returns it.
+    Cross-attention (cfg.cross): keys/values come from ``enc_kv``, the
+    encoder's hidden states (B, S_enc, D), cached wholesale at prefill and
+    read, not written, at decode.
     """
     _supported(cfg)
+    if cfg.cross:
+        return _cross_attention(params, x, cfg, cache=cache, enc_kv=enc_kv,
+                                mode=mode)
     b, t, _ = x.shape
     q, k, v = _project(params, x, cfg, positions)
 
@@ -186,3 +206,27 @@ def _write_slot(buf, val, slot):
     """buf (B,S,...) <- val (B,...) at per-batch slot (B,), in place."""
     bidx = torch.arange(buf.shape[0], device=buf.device)
     buf[bidx, slot] = val.to(buf.dtype)
+
+
+def _cross_attention(params, x, cfg: AttnCfg, *, cache, enc_kv, mode):
+    b, t, _ = x.shape
+    q = _proj(x, params["wq"])
+    if mode == "decode":
+        new_cache = cache
+        q_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+        out = _sdpa_full(q, cache["k"], cache["v"], q_pos, cache["pos"], cfg)
+    else:
+        if enc_kv is None:
+            raise ValueError("cross-attention needs the encoder's hidden "
+                             "states (enc_kv)")
+        k = _proj(enc_kv, params["wk"])
+        v = _proj(enc_kv, params["wv"])
+        new_cache = None
+        if mode == "prefill":
+            kp = torch.arange(k.shape[1], dtype=torch.int32,
+                              device=x.device)[None].expand(b, -1)
+            new_cache = {"k": k, "v": v, "pos": kp.contiguous()}
+        out = ops.attention(q, k, v, causal=False)
+    wo = params["wo"]
+    out = out.reshape(b, t, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
+    return out, new_cache

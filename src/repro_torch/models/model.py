@@ -1,12 +1,21 @@
-"""Top-level decoder-only LM.
+"""Top-level models: decoder-only LM and encoder-decoder (whisper).
 
-The port of the JAX package's ``models/model.py`` (no encoder yet).
-Pure-function API over parameter trees (nested dicts of tensors, the JAX
-package's paths and layouts):
+The port of the JAX package's ``models/model.py``.  Pure-function API over
+parameter trees (nested dicts of tensors, the JAX package's paths and
+layouts):
 
-  model_specs(cfg)                      -> param spec tree (no allocation)
-  model_cache_specs(cfg, batch, S)      -> KV/SSM cache spec tree
-  forward(params, cfg, tokens, ...)     -> logits (+ cache for prefill/decode)
+  model_specs(cfg)                        -> param spec tree (no allocation)
+  model_cache_specs(cfg, batch, S, S_enc) -> KV/SSM cache spec tree
+  encode(params, cfg, enc_inputs)         -> the encoder's hidden states
+  forward(params, cfg, inputs, ...)       -> logits (+ cache for
+                                             prefill/decode)
+
+An encoder-decoder (``cfg.encoder``, whisper) runs its encoder stack over
+frame embeddings (B, S_enc, D) in train mode at default positions,
+non-causal, then the decoder with cross-attention over the result;
+``forward`` also takes embeddings (B, T, D) as its inputs, for the models
+fed by a stub frontend (``cfg.embed_inputs`` False).  M-RoPE positions
+wait for the family that needs them.
 
 ``LM`` is the same model as an ``nn.Module`` that owns the tree as
 parameters under the tree's paths.  ``params_from_numpy`` carries a JAX
@@ -40,12 +49,29 @@ def model_specs(cfg: ModelCfg) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = unembed_spec(d, cfg.vocab)
+    if cfg.encoder is not None:
+        s["encoder"] = stack_specs(cfg.encoder, d)
+        s["enc_norm"] = rmsnorm_spec(d)
     return s
 
 
 def model_cache_specs(cfg: ModelCfg, batch: int, seq_len: int,
+                      enc_len: int | None = None,
                       dtype=torch.bfloat16) -> dict[str, Any]:
-    return stack_cache_specs(cfg.stack, cfg.d_model, batch, seq_len, dtype)
+    return stack_cache_specs(cfg.stack, cfg.d_model, batch, seq_len,
+                             enc_len, dtype)
+
+
+def encode(params, cfg: ModelCfg, enc_inputs, *, remat: str = "none"):
+    """Encoder forward (whisper): enc_inputs (B, S_enc, D) stub frame
+    embeddings -> the normed hidden states (B, S_enc, D) in the compute
+    dtype."""
+    x = enc_inputs.to(cfg.compute_dtype)
+    b, s, _ = x.shape
+    aux = {"positions": default_positions(b, s, x.device), "enc": None}
+    x, _ = apply_stack(params["encoder"], x, cfg.encoder, mode="train",
+                       cache=None, aux=aux, eps=cfg.norm_eps, remat=remat)
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def lm_head(params, cfg: ModelCfg):
@@ -53,13 +79,18 @@ def lm_head(params, cfg: ModelCfg):
 
 
 def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
-            cache=None, positions=None, cache_len: Optional[int] = None,
-            remat: str = "none", return_hidden: bool = False):
-    """inputs: tokens (B,T) int.  Returns float32 logits (B,T,V) for train;
-    (logits, cache) for prefill/decode.  ``return_hidden`` returns the
-    final-normed hidden states (B,T,D) in the compute dtype instead of the
-    logits (the chunked training loss applies the head itself); ``remat``
-    ("none" | "full" | "dots") checkpoints each group in train mode
+            cache=None, positions=None, enc_inputs=None,
+            cache_len: Optional[int] = None, remat: str = "none",
+            return_hidden: bool = False):
+    """inputs: tokens (B,T) int, or embeddings (B,T,D) (the stub frontends
+    of models with ``cfg.embed_inputs`` False) in train/prefill;
+    ``enc_inputs`` (B,S_enc,D), the encoder's frame embeddings, for an
+    encoder-decoder in train/prefill (decode reads the cross caches
+    instead).  Returns float32 logits (B,T,V) for train; (logits, cache)
+    for prefill/decode.  ``return_hidden`` returns the final-normed hidden
+    states (B,T,D) in the compute dtype instead of the logits (the chunked
+    training loss applies the head itself); ``remat`` ("none" | "full" |
+    "dots") checkpoints each group in train mode, the encoder's too
     (``stack.apply_stack``).  (The JAX package's ``logits_f32`` has no
     counterpart: logits are always float32.)
 
@@ -68,12 +99,15 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
     positions (``decode_positions``) and updates ``cache`` in place."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward: unknown mode {mode!r}")
-    if inputs.dim() != 2:
-        raise NotImplementedError(
-            "forward: embedding inputs wait for the audio/vlm families")
     dt = cfg.compute_dtype
-    scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
-    x = embed_tokens(params["embed"], inputs, scale, dt)
+    if inputs.dim() == 2:  # token ids
+        scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
+        x = embed_tokens(params["embed"], inputs, scale, dt)
+    else:
+        x = inputs.to(dt)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
+                                 device=x.device)
     b, t = x.shape[:2]
 
     if mode == "decode":
@@ -85,7 +119,14 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
     else:
         positions = default_positions(b, t, x.device)
 
-    aux = {"positions": positions, "cache_len": cache_len}
+    enc = None
+    if cfg.encoder is not None and mode != "decode":
+        if enc_inputs is None:
+            raise ValueError("forward: an encoder-decoder model needs "
+                             "encoder inputs")
+        enc = encode(params, cfg, enc_inputs, remat=remat)
+
+    aux = {"positions": positions, "enc": enc, "cache_len": cache_len}
     x, new_cache = apply_stack(params["stack"], x, cfg.stack, mode=mode,
                                cache=cache, aux=aux, eps=cfg.norm_eps,
                                remat=remat)
@@ -129,8 +170,9 @@ class _Node(nn.Module):
 
 
 class LM(_Node):
-    """The decoder-only LM: owns ``params`` (a tree from ``init_params`` or
-    ``params_from_numpy``) as parameters under the tree's paths, e.g.
+    """The LM (decoder-only or encoder-decoder): owns ``params`` (a tree
+    from ``init_params`` or ``params_from_numpy``) as parameters under the
+    tree's paths, e.g.
     ``stack.groups.p0.attn.wq``.  Parameters take no gradients by default:
     serving needs none, and training differentiates the parameter tree
     itself, as the JAX package does (``train.step.make_train_step`` works
@@ -141,9 +183,11 @@ class LM(_Node):
         self.cfg = cfg
 
     def forward(self, inputs, *, mode: str = "train", cache=None,
-                positions=None, cache_len: Optional[int] = None):
+                positions=None, enc_inputs=None,
+                cache_len: Optional[int] = None):
         return forward(self.tree(), self.cfg, inputs, mode=mode, cache=cache,
-                       positions=positions, cache_len=cache_len)
+                       positions=positions, enc_inputs=enc_inputs,
+                       cache_len=cache_len)
 
 
 def _tree_map(fn, tree):

@@ -8,7 +8,11 @@ Python loop: each layer takes its group's view of every parameter (one
 ``unbind`` a leaf) and the view ``[g]`` of every cache leaf.  Decode
 caches are written through those views, in place; prefill stacks the
 layers' new caches once at the end.  A partial ``tail`` runs after the
-groups.  Shared layers and MoE wait for the families that need them.
+groups.  A layer whose attention is ``cross`` (the whisper decoder's) runs
+causal self-attention (``_no_cross``), then cross-attention over the
+encoder's hidden states (``aux["enc"]``, under ``ln_x`` / ``xattn``), then
+its MLP, with a "self" and a "cross" cache.  Shared layers and MoE wait
+for the families that need them.
 
 Remat in train mode, as the JAX package's ``jax.checkpoint`` around each
 group: ``"full"`` wraps each group in ``torch.utils.checkpoint.checkpoint``
@@ -20,6 +24,7 @@ counterpart of ``dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Optional
 
@@ -32,7 +37,7 @@ from repro_torch.dist.sharding import TensorSpec, map_specs
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import (attn_cache_specs, attn_specs,
-                                          cache_len_for)
+                                          cache_len_for, cross_cache_specs)
 from repro_torch.models.common import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
 
@@ -51,21 +56,29 @@ def _kind(lc: LayerCfg):
 def layer_specs(lc: LayerCfg, d_model: int) -> dict[str, Any]:
     _kind(lc)
     if lc.kind == "attn_mlp":
-        return {"ln1": rmsnorm_spec(d_model),
-                "attn": attn_specs(lc.attn, d_model),
-                "ln2": rmsnorm_spec(d_model),
-                "ffn": mlp_specs(lc.mlp, d_model)}
+        s: dict[str, Any] = {"ln1": rmsnorm_spec(d_model),
+                             "attn": attn_specs(lc.attn, d_model),
+                             "ln2": rmsnorm_spec(d_model)}
+        if lc.attn.cross:
+            s["ln_x"] = rmsnorm_spec(d_model)
+            s["xattn"] = attn_specs(lc.attn, d_model)
+        s["ffn"] = mlp_specs(lc.mlp, d_model)
+        return s
     return {"ln": rmsnorm_spec(d_model),
             "ssm": mamba_mod.mamba1_specs(lc.ssm, d_model)}
 
 
 def layer_cache_specs(lc: LayerCfg, d_model: int, batch: int, seq_len: int,
+                      enc_len: int | None = None,
                       dtype=torch.bfloat16) -> dict[str, Any]:
     _kind(lc)
     if lc.kind == "attn_mlp":
-        return {"self": attn_cache_specs(lc.attn, batch,
-                                         cache_len_for(lc.attn, seq_len),
-                                         dtype)}
+        c = {"self": attn_cache_specs(lc.attn, batch,
+                                      cache_len_for(lc.attn, seq_len),
+                                      dtype)}
+        if lc.attn.cross:
+            c["cross"] = cross_cache_specs(lc.attn, batch, enc_len, dtype)
+        return c
     return {"ssm": mamba_mod.mamba1_cache_specs(lc.ssm, d_model, batch,
                                                 dtype)}
 
@@ -74,20 +87,37 @@ def apply_layer(lc: LayerCfg, params, x, *, mode: str, cache, aux: dict,
                 eps: float):
     _kind(lc)
     if lc.kind == "attn_mlp":
+        a_cfg = lc.attn
         h = rmsnorm(x, params["ln1"], eps)
         a, c_self = attn_mod.attention(
-            params["attn"], h, lc.attn, positions=aux["positions"],
-            mode=mode, cache=cache.get("self") if cache else None,
+            params["attn"], h, _no_cross(a_cfg) if a_cfg.cross else a_cfg,
+            positions=aux["positions"], mode=mode,
+            cache=cache.get("self") if cache else None,
             cache_len=aux.get("cache_len"))
         x = x + a
+        new_cache = {} if c_self is None else {"self": c_self}
+        if a_cfg.cross:
+            h = rmsnorm(x, params["ln_x"], eps)
+            a, c_cross = attn_mod.attention(
+                params["xattn"], h, a_cfg, positions=None, mode=mode,
+                cache=cache.get("cross") if cache else None,
+                enc_kv=aux.get("enc"))
+            x = x + a
+            if c_cross is not None:
+                new_cache["cross"] = c_cross
         h = rmsnorm(x, params["ln2"], eps)
         x = x + mlp(params["ffn"], h, lc.mlp)
-        return x, ({"self": c_self} if c_self is not None else None)
+        return x, (new_cache or None)
     h = rmsnorm(x, params["ln"], eps)
     y, c = mamba_mod.mamba1(params["ssm"], h, lc.ssm, mode=mode,
                             cache=cache.get("ssm") if cache else None)
     x = x + y
     return x, ({"ssm": c} if c is not None else None)
+
+
+def _no_cross(a_cfg):
+    """The cross layer's own self-attention config: causal, no cross."""
+    return dataclasses.replace(a_cfg, cross=False)
 
 
 # ---------------------------------------------------------------------------
@@ -114,15 +144,17 @@ def stack_specs(sc: StackCfg, d_model: int) -> dict[str, Any]:
 
 
 def stack_cache_specs(sc: StackCfg, d_model: int, batch: int, seq_len: int,
+                      enc_len: int | None = None,
                       dtype=torch.bfloat16) -> dict[str, Any]:
     out: dict[str, Any] = {}
-    group = {f"p{i}": layer_cache_specs(lc, d_model, batch, seq_len, dtype)
+    group = {f"p{i}": layer_cache_specs(lc, d_model, batch, seq_len, enc_len,
+                                        dtype)
              for i, lc in enumerate(sc.pattern)}
     if sc.n_groups > 0:
         out["groups"] = _stack_tree(group, sc.n_groups)
     if sc.tail:
         out["tail"] = {f"t{i}": layer_cache_specs(lc, d_model, batch,
-                                                  seq_len, dtype)
+                                                  seq_len, enc_len, dtype)
                        for i, lc in enumerate(sc.tail)}
     return out
 

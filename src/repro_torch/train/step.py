@@ -11,9 +11,10 @@ serving steps run under ``torch.no_grad()``; the decode step writes the
 cache in place and returns it, where the JAX package donates the cache to
 the jitted step.
 
-Encoder-decoder models and models fed embeddings (``embed_inputs=False``)
-wait for their families: the port's configs have neither, and a batch
-without "tokens" raises ``NotImplementedError``.
+Batches as the JAX package's: "tokens" (B,T), or "inputs" (B,T,D)
+embeddings for a model with ``embed_inputs=False``; an encoder-decoder
+(whisper) takes "tokens" and "enc_inputs" (B,S_enc,D) frame embeddings in
+train and prefill, and decode runs no encoder.
 """
 from __future__ import annotations
 
@@ -52,11 +53,22 @@ class StepCfg:
 def batch_specs(cfg: ModelCfg, shape: ShapeCfg) -> dict[str, Any]:
     """TensorSpec tree of every model input of (arch x shape)."""
     b, s = shape.global_batch, shape.seq_len
-    if shape.kind == "train":
-        return {"tokens": tspec((b, s), ("batch", "seq"), torch.int32),
-                "labels": tspec((b, s), ("batch", "seq"), torch.int32)}
-    if shape.kind == "prefill":
-        return {"tokens": tspec((b, s), ("batch", "seq"), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        specs: dict[str, Any] = {}
+        if cfg.embed_inputs:
+            specs["tokens"] = tspec((b, s), ("batch", "seq"), torch.int32)
+        else:  # vlm stub: precomputed patch/frame embeddings
+            specs["inputs"] = tspec((b, s, cfg.d_model),
+                                    ("batch", "seq", "act_embed"),
+                                    torch.bfloat16)
+        if cfg.encoder is not None:  # whisper: frame embeddings + text tokens
+            specs["tokens"] = tspec((b, s), ("batch", "seq"), torch.int32)
+            specs["enc_inputs"] = tspec((b, s, cfg.d_model),
+                                        ("batch", "seq", "act_embed"),
+                                        torch.bfloat16)
+        if shape.kind == "train":
+            specs["labels"] = tspec((b, s), ("batch", "seq"), torch.int32)
+        return specs
     if shape.kind == "decode":
         return {"tokens": tspec((b,), ("batch",), torch.int32),
                 "pos": tspec((), (), torch.int32)}
@@ -67,7 +79,8 @@ def cache_specs_for(cfg: ModelCfg, shape: ShapeCfg) -> dict[str, Any]:
     if shape.kind != "decode":
         raise ValueError(f"cache_specs_for: a decode shape, got "
                          f"{shape.kind!r}")
-    return model_cache_specs(cfg, shape.global_batch, shape.seq_len)
+    return model_cache_specs(cfg, shape.global_batch, shape.seq_len,
+                             enc_len=min(shape.seq_len, 32768))
 
 
 def train_state_specs(cfg: ModelCfg, opt: OptCfg) -> dict[str, Any]:
@@ -94,12 +107,20 @@ def init_train_state(cfg: ModelCfg, opt: OptCfg, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _inputs(batch: dict) -> torch.Tensor:
-    if "tokens" not in batch:
-        raise NotImplementedError(
-            "train step: models fed embeddings or encoder inputs wait for "
-            "their families")
-    return batch["tokens"]
+def _inputs(cfg: ModelCfg, batch: dict) -> tuple[torch.Tensor, dict]:
+    """(the model's inputs, forward's keyword arguments) of a batch, as the
+    JAX package's steps pick them."""
+    if cfg.encoder is not None:
+        need = ("tokens", "enc_inputs")
+    else:
+        need = ("tokens",) if cfg.embed_inputs else ("inputs",)
+    missing = [k for k in need if k not in batch]
+    if missing:
+        raise ValueError(f"step: {cfg.name} takes a batch with {need}, "
+                         f"missing {missing}")
+    if cfg.encoder is not None:
+        return batch["tokens"], {"enc_inputs": batch["enc_inputs"]}
+    return batch[need[0]], {}
 
 
 def loss_and_grads(cfg: ModelCfg, step_cfg: StepCfg, params, batch):
@@ -108,19 +129,19 @@ def loss_and_grads(cfg: ModelCfg, step_cfg: StepCfg, params, batch):
     ``jax.value_and_grad`` of the JAX package's loss."""
     if step_cfg.loss not in ("plain", "chunked"):
         raise ValueError(f"train step: unknown loss {step_cfg.loss!r}")
-    inputs = _inputs(batch)
+    inputs, kw = _inputs(cfg, batch)
     flat = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     live = tree_rebuild(params, flat)
     with torch.enable_grad():
         if step_cfg.loss == "chunked":
             hidden = forward(live, cfg, inputs, mode="train",
-                             remat=step_cfg.remat, return_hidden=True)
+                             remat=step_cfg.remat, return_hidden=True, **kw)
             head = lm_head(live, cfg).to(hidden.dtype)
             loss = chunked_xent(hidden, head, batch["labels"],
                                 step_cfg.loss_chunks)
         else:
             logits = forward(live, cfg, inputs, mode="train",
-                             remat=step_cfg.remat)
+                             remat=step_cfg.remat, **kw)
             loss = xent(logits, batch["labels"])
             del logits
         grads = torch.autograd.grad(loss, flat)
@@ -151,9 +172,10 @@ def make_prefill_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg(),
     """max_len: KV-cache capacity for subsequent decode steps (defaults to
     the prompt length — pass prompt+generation budget when serving)."""
     def prefill_step(params, batch):
+        inputs, kw = _inputs(cfg, batch)
         with torch.no_grad():
-            logits, cache = forward(params, cfg, batch["tokens"],
-                                    mode="prefill", cache_len=max_len)
+            logits, cache = forward(params, cfg, inputs, mode="prefill",
+                                    cache_len=max_len, **kw)
             return logits[:, -1], cache
 
     return prefill_step

@@ -204,8 +204,8 @@ def test_flash_bwd_bf16_design_is_inside_the_bf16_tolerance(t, s, h, kv, d,
               for shape in ((2, t, h, d), (2, s, kv, d), (2, s, kv, d),
                             (2, t, h, d))]
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
-    o32, lse = ref.attention_lse(q.float(), k.float(), v.float(),
-                                 causal=causal, window=window)
+    o32, lse, _ = ref.attention_lse(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
     o = o32.to(torch.bfloat16)      # what the bf16 forward hands over
     got = _flash_bwd_bf16_model(q, k, v, o, lse, do, causal=causal,
                                 window=window)

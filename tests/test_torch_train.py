@@ -268,11 +268,13 @@ def test_train_state_and_batch_specs_match_jax(arch):
 
 
 def test_train_step_rejects_embedding_inputs():
+    """A token model (``embed_inputs``) given embeddings and no tokens is
+    refused before any forward."""
     cfg = get_reduced("llama3.2-1b")
     opt = popt.OptCfg()
     state = init_train_state(cfg, opt, torch.Generator().manual_seed(0),
                              "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tokens"):
         make_train_step(cfg, opt)(state, {"inputs": torch.zeros((1, 4, 64)),
                                           "labels": torch.zeros((1, 4))})
 

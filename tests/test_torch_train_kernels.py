@@ -65,8 +65,8 @@ def test_attention_bwd_matches_autograd_and_jax_vjp(case):
     do = torch.from_numpy(doa)
     out = ref.attention(q, k, v, causal=causal, window=window)
     auto = torch.autograd.grad(out, (q, k, v), do)
-    o, lse = ref.attention_lse(q.detach(), k.detach(), v.detach(),
-                               causal=causal, window=window)
+    o, lse, _ = ref.attention_lse(q.detach(), k.detach(), v.detach(),
+                                  causal=causal, window=window)
     assert torch.equal(o, out.detach())
     got = ref.attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, do,
                             causal=causal, window=window)
@@ -86,7 +86,7 @@ def test_attention_lse_marks_rows_without_keys():
     backward reads as 'every key weighs 1/S'."""
     qa, ka, va, _ = _attn_arrays(0, 1, 50, 20, 2, 1, 16)
     q, k, v = map(torch.from_numpy, (qa, ka, va))
-    o, lse = ref.attention_lse(q, k, v, causal=True, window=8)
+    o, lse, _ = ref.attention_lse(q, k, v, causal=True, window=8)
     empty = lse[0, 0] <= ref.NEG_INF / 2
     assert empty[27:].all() and not empty[:27].any()
     np.testing.assert_allclose(o[0, 30, 0].numpy(),
@@ -188,7 +188,7 @@ def test_ops_route_through_the_functions_only_with_grad():
 def test_backward_wrappers_reject_what_the_kernels_do_not_take():
     qa, ka, va, doa = _attn_arrays(3, 1, 8, 8, 2, 1, 16)
     q, k, v, do = map(torch.from_numpy, (qa, ka, va, doa))
-    o, lse = ref.attention_lse(q, k, v)
+    o, lse, _ = ref.attention_lse(q, k, v)
     flash_attention._check_bwd(q, k, v, o, lse, do, None)
     for args, match in [((q, k, v, o, lse[:, :1], do), "lse"),
                         ((q, k, v, o, lse, do.double()), "do"),
