@@ -14,15 +14,22 @@ full width and depth in bfloat16, with random weights from a seeded
 generator: 4 prompts of 512 tokens, then 31 greedy decode steps; and
 whisper-medium, the encoder-decoder, at full width and depth: 4 clips of
 1,500 frame embeddings and 4 decoder prompts of 224 tokens, then 31
-greedy decode steps.  Training runs llama3.2-1b at full width and depth
+greedy decode steps; h2o-danube-1.8b at full width and depth (head dim
+80, a sliding window of 4,096): 4 prompts of 8,192 tokens, twice the
+window, into ring caches of 4,096 slots that the 31 decode steps wrap;
+and qwen2-vl-72b at full width on 16 of its 80 layers (head dim 128,
+M-RoPE): 4 prompts of 512 patch embeddings, then 31 decode steps at
+(3, B, 1) positions.  Training runs llama3.2-1b at full width and depth
 and falcon-mamba-7b at full width on 8 of its 64 layers, with float32
-parameters and AdamW state, on batches of 4 x 512 tokens, and
+parameters and AdamW state, on batches of 4 x 512 tokens,
 whisper-medium at full width and depth on 4 x 1,500 frames and 4 x 448
+tokens, and h2o-danube-1.8b at full width and depth on 1 x 8,192
 tokens.
 
 1. device   the card, its count, its power limit and the float32 matmul
             settings (TF32 off for matmuls and cuDNN);
-2. build    the kernels' build time;
+2. build    the kernels' build time, and each flash kernel's registers,
+            spills and static shared memory a head dim from ptxas -v;
 3. kernels  each kernel against its plain version at main-path shapes
             (the reader, the sort, the root-directory lookup and the range
             scan at HAIL's, flash attention at the llama prefill's, the
@@ -36,9 +43,14 @@ tokens.
             and at the same edges, and once from the bf16 output; the
             scan's at the falcon-mamba train shape, small, ragged and
             N = 1; flash forward and backward at whisper's encoder,
-            decoder-self and cross shapes; the bf16 backward from the bf16
-            and from the float32 output against the exact gradient), and
-            the HAIL slice at the test shape on the card against the CPU;
+            decoder-self and cross shapes; flash forward and backward at
+            head dims 80 and 128 in bf16 and float32, causal, non-causal
+            and windowed, T != S, ragged, GQA 32/8 and 64/8, at qwen2-vl's
+            prefill shape and at h2o-danube's T of 8,192 and window of
+            4,096; the bf16 backward from the bf16 and from the float32
+            output against the exact gradient, at h2o-danube's and
+            qwen2-vl's shapes too), and the HAIL slice at the test shape
+            on the card against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
             the same query over a plain HDFS upload; then the same query
             read by the two standalone primitives (``ops.index_search`` on
@@ -76,11 +88,14 @@ tokens.
             (doc ids and tokens bit-equal to the generated corpus), and
             the first (4, 512) batch, which phase 9 trains on;
 7. serve    each model: prefill + decode through the serve steps, with
-            one flash-attention (llama, 16) or scan (falcon-mamba, 64)
-            launch per layer in prefill (whisper: 72, one a layer of its
-            encoder, two a decoder layer) and none in decode; every layer's
-            output on the kernel route against the plain route from the
-            same input, and the logits of both routes; walls, tokens/s,
+            one flash-attention (llama, 16; h2o-danube, 24; qwen2-vl, 16)
+            or scan (falcon-mamba, 64) launch per layer in prefill
+            (whisper: 72, one a layer of its encoder, two a decoder layer)
+            and none in decode; every layer's output on the kernel route
+            against the plain route from the same input, and the logits of
+            both routes (for h2o-danube on the first prompt); h2o-danube's
+            ring caches slot by slot after prefill and after the last
+            decode step, and against the plain route's; walls, tokens/s,
             parameter bytes, peak memory, and one profiled prefill and
             decode step (with the kernel's share of the device time);
 8. times    each kernel's own device time (from the CUDA profiler) against
@@ -92,13 +107,16 @@ tokens.
             with its launches on its path; the sort at one block, at 16
             and at 64; the two backward kernels at the train shapes, flash
             beside SDPA's backward; flash forward and backward at whisper's
-            encoder and cross shapes, beside SDPA and its backward);
+            encoder and cross shapes, at h2o-danube's prefill and training
+            shapes and at qwen2-vl's prefill shape, beside SDPA and its
+            backward);
 9. train    gradients through the kernels: one llama attention layer,
-            one falcon-mamba Mamba1 layer and one whisper decoder layer at
-            full width, dx and every parameter gradient on the kernel
-            route against the plain route (one forward and one backward
-            launch a mixer call); the llama and whisper layers again in
-            bf16 compute (each attention call's gradients against the
+            one falcon-mamba Mamba1 layer, one whisper decoder layer, one
+            h2o-danube layer on 6,144 tokens (past its window) and one
+            qwen2-vl layer at full width, dx and every parameter gradient
+            on the kernel route against the plain route (one forward and
+            one backward launch a mixer call); the attention layers again
+            in bf16 compute (each attention call's gradients against the
             plain attention's, every gradient against float32 compute,
             see LAYER_BF16_EXCESS); a whole
             llama step at full width on 2 groups in float32 compute on
@@ -112,7 +130,9 @@ tokens.
             falcon-mamba-7b the same on 8 layers (8 + 8 scan launches a
             step), whisper-medium the same at full width and depth on a
             repeated batch of 4 x 1,500 frames and 4 x 448 tokens (a
-            warm-up and 3 counted steps, 72 + 72 flash launches a step);
+            warm-up and 3 counted steps, 72 + 72 flash launches a step),
+            h2o-danube-1.8b the same at full width and depth on a repeated
+            1 x 8,192 tokens (24 + 24 a step, windowed);
             and a checkpoint round trip of a full-width two-group
             llama train state (bit for bit onto the card, the same loss
             from the restored state, a corrupted leaf falling back to the
@@ -162,6 +182,42 @@ INT32_MAX = 2**31 - 1
 SERVE = (("llama3.2-1b", "flash_attention"),
          ("falcon-mamba-7b", "selective_scan"))
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# h2o-danube-1.8b (arXiv:2401.16818: 24 layers, width 2,560, 32 heads over
+# 8 KV heads of 80, sliding window 4,096): prompts of twice the window, so
+# prefill keeps a ring of the last 4,096 positions a layer and every decode
+# step wraps it; trained on one sequence of the same length.  qwen2-vl-72b
+# (arXiv:2409.12191: 80 layers, width 8,192, 64 heads over 8 KV heads of
+# 128, M-RoPE) served at 16 of its 80 layers: its bf16 weights are ~145
+# GB, 16 layers and both 1.25 B-parameter tables ~33 GB.
+H2O, QWEN = "h2o-danube-1.8b", "qwen2-vl-72b"
+H2O_WINDOW = 4096
+H2O_PROMPT = 2 * H2O_WINDOW
+H2O_TRAIN_BATCH, H2O_TRAIN_SEQ = 1, 2 * H2O_WINDOW
+H2O_TRAIN_STEPS = 4             # one of them the warm-up
+QWEN_GROUPS = 16
+# The per-layer checks at h2o-danube's widths run past the window at batch
+# 1: the plain route's float32 scores are 32 heads x T^2 x 4 B a copy
+# (34 GB for the 4 prompts of 8,192, 8.6 GB for one; 4.8 GB at 6,144,
+# where the gradient check's autograd keeps several).
+H2O_CHECK_BATCH = 1
+H2O_LAYER_SEQ = 3 * H2O_WINDOW // 2
+# their attention shapes in bf16: h2o's prefill (4 x 8,192 against a
+# window of 4,096) and training (1 x 8,192), qwen2-vl's prefill (4 x 512)
+H2O_PREFILL_ATTN = (SERVE_BATCH, H2O_PROMPT, H2O_PROMPT, 32, 8, 80, True,
+                    H2O_WINDOW, torch.bfloat16)
+H2O_TRAIN_ATTN = (H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, H2O_TRAIN_SEQ, 32, 8, 80,
+                  True, H2O_WINDOW, torch.bfloat16)
+QWEN_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8, 128, True, None,
+             torch.bfloat16)
+# The plain versions at h2o's T of 8,192 hold the (T, T) float32 scores of
+# every head several times over (34 GB a copy for the prefill's 4 prompts;
+# the backward about 6 copies, reckoned ~52 GB at 32 heads).  So phase 3
+# launches the kernels at these two shapes whole and holds each output to
+# the plain version on parts (plain_parts): the prefill's first and last
+# prompt, and the training shape's first and last 8 of 32 heads (2 of 8 KV
+# heads, the model's GQA 4:1).  Phase 8 times the plain versions on one
+# such part, and says so.
+H2O_PLAIN_HEADS = 8
 # the CUDA function each serving kernel launches (profiler names; the range
 # scan's is "scan_kernel", which no other name contains)
 KERNEL_NAMES = {"flash_attention": "flash_bf16_kernel",
@@ -193,6 +249,11 @@ SERVE_LAYER_TOL = 1e-4
 # up to 512 steps and 8,192 channels in float32: 1e-4, as the forward.
 # The forward's lse (natural log, float32): 1e-5 of its magnitude.
 FLASH_BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
+# (The bf16 backward is held to the plain version's float32 gradient, its
+# value before its own rounding to bf16: the kernel's one rounding is then
+# the 2^-9, where against the plain version's bf16 gradient two roundings
+# of one value may land a whole bf16 step apart, 2^-7 of the scale near
+# the largest gradient.)
 SCAN_BWD_RTOL = 1e-4
 LSE_TOL = 1e-5
 # Training (phase 9): batch 4 x 512 tokens; llama3.2-1b at full width and
@@ -284,6 +345,38 @@ def shape_launches() -> dict:
 
     return {f"{kernel}: {key}": n
             for (kernel, key), n in sorted(_build.SHAPE_LAUNCHES.items())}
+
+
+def ptxas_flash(log: str) -> list:
+    """Registers, spills and static shared memory of every flash kernel
+    instantiation (one a head dim) as ``ptxas -v`` reported them in the
+    build: [{"kernel", "head_dim", "registers", "spill_stores",
+    "spill_loads", "static_smem_bytes"}]."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"(flash_(?:bf16|f32|bwd_dq|bwd_dkdv|bwd_dq_bf16|"
+                             r"bwd_dkdv_bf16)_kernel)ILi(\d+)E", entry[1])
+            cur = None
+            if name:
+                cur = {"kernel": name[1], "head_dim": int(name[2])}
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            cur["spill_stores"], cur["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            cur["registers"] = int(used[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(smem[1]) if smem else 0
+    return sorted(rows, key=lambda r: (r["kernel"], r["head_dim"]))
 
 
 def nvidia_smi() -> str:
@@ -538,37 +631,57 @@ def bf16_grad_repair(flash_attention, ref) -> list:
     (the plain formula in float32 from the float32 output), as a share of
     each gradient's largest magnitude: at the llama train shape and
     whisper's encoder and cross shapes, and at the last two again with q
-    scaled by REPAIR_PEAK.  After the repair each must be within 2^-8;
+    scaled by REPAIR_PEAK; at h2o-danube's training shape (the plain side
+    on plain_parts) and qwen2-vl's prefill shape.  After the repair each
+    must be within 2^-8;
     before it, the peaked cases must not (the control)."""
     rows = []
-    for name, (b, t, s, h, kv, d, causal, window, dtype), peak in (
+    for name, shape, peak in (
             ("llama train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
                              True, None, torch.bfloat16), None),
             ("whisper encoder", WHISPER_ATTN[0], None),
             ("whisper cross", WHISPER_ATTN[2], None),
             ("whisper encoder, peaked", WHISPER_ATTN[0], REPAIR_PEAK),
-            ("whisper cross, peaked", WHISPER_ATTN[2], REPAIR_PEAK)):
+            ("whisper cross, peaked", WHISPER_ATTN[2], REPAIR_PEAK),
+            ("h2o-danube train shape, plain on 2 x 8 of its 32 heads",
+             H2O_TRAIN_ATTN, None),
+            ("qwen2-vl prefill shape", QWEN_ATTN, None)):
+        b, t, s, h, kv, d, causal, window, dtype = shape
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         if peak is not None:
             q = (q.float() * peak).to(dtype)
         do = upstream_grad(q)
-        o, lse, o32 = flash_attention.flash_attention_fwd(q, k, v,
-                                                          causal=causal)
-        f = [x.float() for x in (q, k, v, do)]
-        _, lse_x, o_x = ref.attention_lse(*f[:3], causal=causal)
-        exact = ref.attention_bwd(*f[:3], o_x, lse_x, f[3], causal=causal)
+        o, lse, o32 = flash_attention.flash_attention_fwd(
+            q, k, v, causal=causal, window=window)
+        from_bf16 = flash_attention.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, window=window)
+        from_f32 = flash_attention.flash_attention_bwd(
+            q, k, v, o32, lse, do, causal=causal, window=window)
+        before, after, plain = [0.0] * 3, [0.0] * 3, [0.0] * 3
+        for part in plain_parts(shape):
+            qp, dop = part_of(part, q), part_of(part, do)
+            kp, vp = part_of(part, k, True), part_of(part, v, True)
+            f = [x.float() for x in (qp, kp, vp, dop)]
+            _, lse_x, o_x = ref.attention_lse(*f[:3], causal=causal,
+                                              window=window)
+            exact = ref.attention_bwd(*f[:3], o_x, lse_x, f[3],
+                                      causal=causal, window=window)
 
-        def shares(got):
-            return [max_abs_err([g], [e]) / float(e.abs().max())
-                    for g, e in zip(got, exact)]
+            def shares(got):
+                return [max_abs_err([g], [e]) / float(e.abs().max())
+                        for g, e in zip(got, exact)]
 
-        before = shares(flash_attention.flash_attention_bwd(
-            q, k, v, o, lse, do, causal=causal))
-        after = shares(flash_attention.flash_attention_bwd(
-            q, k, v, o32, lse, do, causal=causal))
-        qa, ka, va = (x.detach().requires_grad_(True) for x in (q, k, v))
-        plain = shares(torch.autograd.grad(
-            ref.attention(qa, ka, va, causal=causal), (qa, ka, va), do))
+            qa, ka, va = (x.detach().requires_grad_(True)
+                          for x in (qp, kp, vp))
+            got_plain = torch.autograd.grad(
+                ref.attention(qa, ka, va, causal=causal, window=window),
+                (qa, ka, va), dop)
+            before = list(map(max, before,
+                              shares(grads_part(part, from_bf16))))
+            after = list(map(max, after, shares(grads_part(part, from_f32))))
+            plain = list(map(max, plain, shares(got_plain)))
+            del qp, kp, vp, dop, f, o_x, lse_x, exact, qa, ka, va, got_plain
+            torch.cuda.empty_cache()
         torch.cuda.synchronize()
         tol = FLASH_BWD_RTOL[dtype]
         check(max(after) <= tol, f"flash_attention_bwd from the float32 O "
@@ -579,10 +692,11 @@ def bf16_grad_repair(flash_attention, ref) -> list:
                   f"at {name}: dq, dk, dv {before} of the exact gradient's "
                   f"scale, all within 2^-8: the control shows no fault")
         rows.append({"shape": name, "q": [b, t, h, d], "kv": [b, s, kv, d],
-                     "causal": causal, "q_scale": peak,
+                     "causal": causal, "window": window, "q_scale": peak,
                      "bf16_o_share": before, "f32_o_share": after,
                      "plain_autograd_share": plain, "tol_share": tol})
-        del q, k, v, do, o, o32, f, o_x, exact, qa, ka, va
+        del q, k, v, do, o, o32, lse, from_bf16, from_f32
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -749,6 +863,42 @@ def max_abs_err(got, want) -> float:
                if g.numel() else 0.0 for g, w in zip(got, want))
 
 
+def grad_shares(got, want) -> list:
+    """Each gradient's max abs error as a share of its reference's largest
+    magnitude."""
+    return [max_abs_err([g], [w]) / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def plain_parts(shape) -> list:
+    """The (prompts, heads, KV heads) slices on which an attention kernel
+    launched at ``shape`` is held to its plain version: the whole, except
+    at h2o-danube's two long shapes (H2O_PLAIN_HEADS)."""
+    b, _, _, h, kv = shape[:5]
+    every = slice(None)
+    if shape == H2O_PREFILL_ATTN:
+        return [(slice(i, i + 1), every, every) for i in (0, b - 1)]
+    if shape == H2O_TRAIN_ATTN:
+        g, gk = H2O_PLAIN_HEADS, H2O_PLAIN_HEADS * kv // h
+        return [(every, slice(0, g), slice(0, gk)),
+                (every, slice(h - g, h), slice(kv - gk, kv))]
+    return [(every, every, every)]
+
+
+def part_of(part, x, kv=False):
+    """``x`` (B, T, H, D), or lse (B, H, T) when 3-d, on ``part``'s prompts
+    and heads (its KV heads if ``kv``), contiguous."""
+    bs, hs, ks = part
+    if x.dim() == 3:
+        return x[bs, hs].contiguous()
+    return x[bs, :, ks if kv else hs].contiguous()
+
+
+def grads_part(part, grads):
+    """dq, dk, dv on ``part``."""
+    return [part_of(part, g, kv) for g, kv in zip(grads, (False, True, True))]
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -861,7 +1011,7 @@ def phase_kernels(rng):
                               [bits(g) for g in got],
                               [bits(w) for w in want])})
     flash_cases = []
-    for b, t, s, h, kv, d, causal, window, dtype in [
+    for shape in [
             (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
             (2, 128, 128, 4, 4, 32, False, None, torch.float32),
             (1, 256, 256, 2, 2, 32, True, 32, torch.float32),
@@ -878,19 +1028,44 @@ def phase_kernels(rng):
             (1, 70, 130, 4, 1, 32, False, None, torch.bfloat16),
             (1, 200, 50, 2, 1, 64, True, 16, torch.bfloat16),
             (1, 200, 50, 2, 1, 64, True, 16, torch.float32),
-            *WHISPER_ATTN]:
+            *WHISPER_ATTN,
+            # head dims 80 (h2o-danube) and 128 (qwen2-vl): GQA 32/8 and
+            # 64/8, T and S off the 64-row tiles, T != S, causal,
+            # non-causal and windowed with a window shorter than T, and
+            # rows with no key in their band; then the main paths' shapes
+            (2, 100, 100, 32, 8, 80, True, None, torch.bfloat16),
+            (2, 100, 77, 4, 2, 80, False, 24, torch.bfloat16),
+            (1, 300, 300, 32, 8, 80, True, 128, torch.bfloat16),
+            (1, 200, 50, 4, 1, 80, True, 16, torch.bfloat16),
+            (1, 70, 130, 64, 8, 128, False, None, torch.bfloat16),
+            (2, 97, 161, 64, 8, 128, True, None, torch.bfloat16),
+            (1, 300, 300, 8, 1, 128, True, 100, torch.bfloat16),
+            (2, 100, 77, 4, 2, 80, False, 24, torch.float32),
+            (1, 300, 300, 32, 8, 80, True, 128, torch.float32),
+            (2, 97, 161, 64, 8, 128, True, None, torch.float32),
+            (1, 200, 50, 2, 1, 128, True, 16, torch.float32),
+            QWEN_ATTN, H2O_PREFILL_ATTN]:
+        b, t, s, h, kv, d, causal, window, dtype = shape
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         got = flash_attention.flash_attention(q, k, v, causal=causal,
                                               window=window)
-        want = ref.attention(q, k, v, causal=causal, window=window)
+        err = 0.0
+        for part in plain_parts(shape):
+            want = ref.attention(part_of(part, q), part_of(part, k, True),
+                                 part_of(part, v, True), causal=causal,
+                                 window=window)
+            err = max(err, max_abs_err([part_of(part, got)], [want]))
+            del want
         torch.cuda.synchronize()
-        err = max_abs_err([got], [want])
         case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
                f"causal={causal} window={window}"
+        if len(plain_parts(shape)) > 1:
+            case += " (plain on its first and last prompt)"
         check(err <= FLASH_TOL[dtype], f"flash_attention kernel == plain "
               f"at {case}: {err} > {FLASH_TOL[dtype]}")
         flash_cases.append({"case": case, "max_abs_err": err,
                             "tol": FLASH_TOL[dtype]})
+        del q, k, v, got
     scan_cases = []
     for b, t, d, n in [(SERVE_BATCH, SERVE_PROMPT, 8192, 16),  # falcon-mamba
                        (2, 100, 300, 8), (1, 70, 130, 5)]:
@@ -915,7 +1090,7 @@ def phase_kernels(rng):
     # (causal and not), T and S off the tiles, T < S causal; then
     # whisper's encoder, decoder self and cross shapes
     flash_bwd_cases = []
-    for b, t, s, h, kv, d, causal, window, dtype in [
+    for shape in [
             (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16),  # llama
             (4, 512, 512, 32, 8, 64, True, None, torch.float32),
             (2, 128, 128, 4, 4, 32, False, None, torch.float32),
@@ -933,54 +1108,99 @@ def phase_kernels(rng):
             (1, 150, 40, 2, 1, 16, False, 8, torch.bfloat16),
             (1, 130, 190, 4, 4, 64, False, 100, torch.bfloat16),
             (2, 97, 161, 4, 1, 32, True, None, torch.bfloat16),
-            *WHISPER_ATTN]:
+            *WHISPER_ATTN,
+            # head dims 80 and 128 as the forward's, and h2o-danube's
+            # training shape (the plain side on plain_parts)
+            (2, 100, 100, 32, 8, 80, True, None, torch.bfloat16),
+            (2, 100, 77, 4, 2, 80, False, 24, torch.bfloat16),
+            (1, 300, 300, 32, 8, 80, True, 128, torch.bfloat16),
+            (1, 200, 50, 4, 1, 80, True, 16, torch.bfloat16),
+            (1, 70, 130, 64, 8, 128, False, None, torch.bfloat16),
+            (2, 97, 161, 64, 8, 128, True, None, torch.bfloat16),
+            (1, 300, 300, 8, 1, 128, True, 100, torch.bfloat16),
+            (2, 100, 77, 4, 2, 80, False, 24, torch.float32),
+            (1, 300, 300, 32, 8, 80, True, 128, torch.float32),
+            (2, 97, 161, 64, 8, 128, True, None, torch.float32),
+            (1, 200, 50, 2, 1, 128, True, 16, torch.float32),
+            QWEN_ATTN, H2O_TRAIN_ATTN]:
+        b, t, s, h, kv, d, causal, window, dtype = shape
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         do = upstream_grad(q)
         o, lse, o32 = flash_attention.flash_attention_fwd(
             q, k, v, causal=causal, window=window)
-        _, lse_plain, _ = ref.attention_lse(q, k, v, causal=causal,
-                                            window=window)
         got = flash_attention.flash_attention_bwd(q, k, v, o32, lse, do,
                                                   causal=causal,
                                                   window=window)
-        want = ref.attention_bwd(q, k, v, o32, lse, do, causal=causal,
-                                 window=window)
-        torch.cuda.synchronize()
         case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
                f"causal={causal} window={window}"
+        if len(plain_parts(shape)) > 1:
+            case += " (plain on its first and last 8 heads)"
         check(o32.dtype == torch.float32 and torch.equal(o32.to(dtype), o),
               f"flash forward's float32 output rounds to its output at "
               f"{case}")
-        lse_err = float(((lse - lse_plain).abs()
-                         / lse_plain.abs().clamp(min=1.0)).max())
+        out_err = lse_err = abs_err = 0.0
+        rel, rel_bf16 = [0.0] * 3, [0.0] * 3
+        for part in plain_parts(shape):
+            qp, kp, vp = (part_of(part, q), part_of(part, k, True),
+                          part_of(part, v, True))
+            o32p, lsep, dop = (part_of(part, o32), part_of(part, lse),
+                               part_of(part, do))
+            out_plain, lse_plain, _ = ref.attention_lse(
+                qp, kp, vp, causal=causal, window=window)
+            out_err = max(out_err, max_abs_err([part_of(part, o)],
+                                               [out_plain]))
+            lse_err = max(lse_err, float(
+                ((lsep - lse_plain).abs()
+                 / lse_plain.abs().clamp(min=1.0)).max()))
+            del out_plain, lse_plain
+            gotp = grads_part(part, got)
+            # the plain version's float32 gradient (see FLASH_BWD_RTOL);
+            # its gradient in q's dtype is reported beside it, unchecked:
+            # two roundings may land a whole bf16 step apart
+            want = ref.attention_bwd(qp.float(), kp.float(), vp.float(),
+                                     o32p, lsep, dop.float(), causal=causal,
+                                     window=window)
+            rel = list(map(max, rel, grad_shares(gotp, want)))
+            abs_err = max(abs_err, max_abs_err(gotp, want))
+            del want
+            want = ref.attention_bwd(qp, kp, vp, o32p, lsep, dop,
+                                     causal=causal, window=window)
+            rel_bf16 = list(map(max, rel_bf16, grad_shares(gotp, want)))
+            del want
+            del qp, kp, vp, o32p, lsep, dop, gotp
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        check(out_err <= FLASH_TOL[dtype], f"flash training forward == "
+              f"plain at {case}: {out_err} > {FLASH_TOL[dtype]}")
         check(lse_err <= LSE_TOL, f"flash lse kernel == plain at {case}: "
               f"{lse_err} > {LSE_TOL} of its magnitude")
-        rel = [max_abs_err([g], [w]) / max(float(w.float().abs().max()),
-                                           1e-30)
-               for g, w in zip(got, want)]
         check(max(rel) <= FLASH_BWD_RTOL[dtype], f"flash_attention_bwd "
               f"kernel == plain at {case}: dq, dk, dv {rel} of their scale "
               f"> {FLASH_BWD_RTOL[dtype]}")
-        flash_bwd_cases.append({"case": case, "lse_share": lse_err,
-                                "max_abs_err": max_abs_err(got, want),
+        flash_bwd_cases.append({"case": case, "out_max_abs_err": out_err,
+                                "lse_share": lse_err,
+                                "max_abs_err": abs_err,
                                 "share_of_scale": rel,
+                                "share_of_plain_in_dtype": rel_bf16,
                                 "tol_share": FLASH_BWD_RTOL[dtype]})
-        del q, k, v, do, o, o32, got, want
+        del q, k, v, do, o, o32, got, lse
     # the backward also takes O in q's dtype (the D kernel's other path)
     q, k, v = attn_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
                           torch.bfloat16)
     do = upstream_grad(q)
     o, lse, _ = flash_attention.flash_attention_fwd(q, k, v)
     got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do)
-    want = ref.attention_bwd(q, k, v, o, lse, do)
+    want = ref.attention_bwd(q.float(), k.float(), v.float(), o, lse,
+                             do.float())
+    rel_bf16 = grad_shares(got, ref.attention_bwd(q, k, v, o, lse, do))
     torch.cuda.synchronize()
-    rel = [max_abs_err([g], [w]) / float(w.float().abs().max())
-           for g, w in zip(got, want)]
+    rel = grad_shares(got, want)
     check(max(rel) <= FLASH_BWD_RTOL[torch.bfloat16], f"flash_attention_bwd "
           f"kernel == plain from a bf16 O: {rel} > 2^-8")
     flash_bwd_cases.append({"case": "llama train shape, O in bf16",
                             "max_abs_err": max_abs_err(got, want),
                             "share_of_scale": rel,
+                            "share_of_plain_in_dtype": rel_bf16,
                             "tol_share": FLASH_BWD_RTOL[torch.bfloat16]})
     del q, k, v, do, o, lse, got, want
     repair = bf16_grad_repair(flash_attention, ref)
@@ -1758,7 +1978,6 @@ def layer_routes(cfg, params, batch) -> dict:
             x_ref = out_ref
         return x_ref, x_free
 
-    tokens = batch["tokens"]
     forced, free = [], []
     enc_ref = enc_free = None
     with torch.no_grad():
@@ -1770,9 +1989,13 @@ def layer_routes(cfg, params, batch) -> dict:
                 rmsnorm(x, params["enc_norm"], cfg.norm_eps)
                 for x in run(cfg.encoder, params["encoder"], frames, aux,
                              aux, forced, free))
-        pos = default_positions(*tokens.shape, tokens.device)
-        run(cfg.stack, params["stack"],
-            embed_tokens(params["embed"], tokens, None, torch.float32),
+        if "tokens" in batch:
+            x = embed_tokens(params["embed"], batch["tokens"], None,
+                             torch.float32)
+        else:                   # a model fed embeddings (qwen2-vl)
+            x = batch["inputs"].float()
+        pos = default_positions(*x.shape[:2], x.device, cfg.mrope)
+        run(cfg.stack, params["stack"], x,
             {"positions": pos, "enc": enc_ref},
             {"positions": pos, "enc": enc_free}, forced, free)
     return {"teacher_forced": forced, "free_running": free,
@@ -1781,9 +2004,14 @@ def layer_routes(cfg, params, batch) -> dict:
 
 
 def serve_batch(cfg, rng, prompt: int, frames: int | None) -> dict:
-    """SERVE_BATCH prompts of ``prompt`` numpy tokens and, for an
+    """SERVE_BATCH prompts of ``prompt`` numpy tokens (or, for a model fed
+    embeddings, qwen2-vl, ``prompt`` patch embeddings) and, for an
     encoder-decoder, ``frames`` frame embeddings each (numpy normal draws,
     bf16), on the card."""
+    if not cfg.embed_inputs and cfg.encoder is None:
+        return {"inputs": torch.from_numpy(rng.standard_normal(
+            (SERVE_BATCH, prompt, cfg.d_model), dtype=np.float32)).cuda().to(
+                torch.bfloat16)}
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_BATCH, prompt))).cuda()}
     if cfg.encoder is not None:
@@ -1794,14 +2022,22 @@ def serve_batch(cfg, rng, prompt: int, frames: int | None) -> dict:
 
 
 def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
-                frames: int | None = None) -> dict:
-    """One model through the port's serve steps at full width and depth in
+                frames: int | None = None, groups: int | None = None,
+                check_batch: int = SERVE_BATCH) -> dict:
+    """One model through the port's serve steps at full width and depth
+    (or on ``groups`` of its layer groups, a cut the record lists) in
     bfloat16: warm-up (not counted), then the main path with the launch
-    counts set to 0 — prefill of SERVE_BATCH x ``prompt`` numpy tokens
-    (and, for an encoder-decoder, ``frames`` frame embeddings each), then
-    SERVE_GEN - 1 greedy decode steps — then the kernel route against the
-    plain route (see SERVE_LAYER_TOL), and one profiled prefill and decode
-    step.  Returns the phase's record."""
+    counts set to 0 — prefill of SERVE_BATCH x ``prompt`` numpy tokens or
+    patch embeddings (and, for an encoder-decoder, ``frames`` frame
+    embeddings each), then SERVE_GEN - 1 greedy decode steps — then the
+    kernel route against the plain route (see SERVE_LAYER_TOL) on the
+    first ``check_batch`` prompts, and one profiled prefill and decode
+    step.  A windowed model whose prompt outruns its window decodes
+    through ring caches: their positions are checked slot by slot after
+    prefill and after the last step, and the kernel route's ring after
+    prefill and one decode step against the plain route's (positions
+    equal, the first layer's keys and values bit for bit: they come from
+    the embedding alone).  Returns the phase's record."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
     from repro_torch.kernels import ops
@@ -1809,6 +2045,14 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     cfg = get_config(arch)
+    reduced = []
+    if groups is not None:
+        reduced.append(f"n_groups {cfg.stack.n_groups} -> {groups}")
+        cfg = dataclasses.replace(cfg, stack=dataclasses.replace(
+            cfg.stack, n_groups=groups))
+    window = cfg.stack.pattern[0].attn.window \
+        if cfg.stack.pattern[0].attn is not None else None
+    ring = window is not None and prompt + SERVE_GEN > window
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1844,6 +2088,11 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     prefill_logits, first_tok = logits, tok
     finite = bool(torch.isfinite(logits).all())
     generated = [tok]
+    ring_record = None
+    if ring:
+        ring_record = {"window": window,
+                       "after_prefill": ring_positions(cache, window,
+                                                       prompt - 1)}
     t0 = time.perf_counter()
     for i in range(SERVE_GEN - 1):
         logits, cache = decode(params, cache,
@@ -1854,6 +2103,9 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     decode_s = time.perf_counter() - t0
     launches = dict(ops.KERNEL_LAUNCHES)
     finite = finite and bool(torch.isfinite(logits).all())
+    if ring:
+        ring_record["after_decode"] = ring_positions(
+            cache, window, prompt + SERVE_GEN - 2)
     want_launches = kernel_calls(cfg)
     check(prefill_launches == {kernel: want_launches},
           f"{arch}: launched {prefill_launches} in prefill, want "
@@ -1866,43 +2118,48 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     peak = torch.cuda.max_memory_allocated()
 
     # --- the kernel route against the plain route ------------------------
-    routes = {"layers_f32": layer_routes(cfg, params, batch)}
+    few = {k: v[:check_batch] for k, v in batch.items()}
+    routes = {"layers_f32": layer_routes(cfg, params, few),
+              "batch": check_batch}
     worst = max(routes["layers_f32"]["teacher_forced"])
     check(worst <= SERVE_LAYER_TOL,
           f"{arch}: a layer's output, kernel route vs plain route from the "
           f"same input, differs by {worst} of its scale > {SERVE_LAYER_TOL}")
 
     def both_routes(pf, dc):
-        """(prefill logits, first decode logits) on the kernel and the
-        plain route."""
+        """(prefill logits, first decode logits, the cache after it) on the
+        kernel and the plain route."""
         out = []
         for kernels in (True, False):
             ops.use_kernels(kernels)
             try:
-                lg, c = pf(params, batch)
-                dl, _ = dc(params, c, {"tokens": first_tok, "pos": prompt})
+                lg, c = pf(params, few)
+                dl, c = dc(params, c, {"tokens": first_tok[:check_batch],
+                                       "pos": prompt})
             finally:
                 ops.use_kernels(True)
-            out.append((lg, dl))
-            del c
+            out.append((lg, dl, c))
         return out
 
     ops.use_kernels(False)
     try:
-        plain_bf16, _ = prefill(params, batch)
+        plain_bf16, _ = prefill(params, few)
     finally:
         ops.use_kernels(True)
-    routes["logits_bf16_prefill"] = share(prefill_logits, plain_bf16)
+    routes["logits_bf16_prefill"] = share(prefill_logits[:check_batch],
+                                          plain_bf16)
     del plain_bf16
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    (k_pre, k_dec), (p_pre, p_dec) = both_routes(
+    (k_pre, k_dec, k_cache), (p_pre, p_dec, p_cache) = both_routes(
         make_prefill_step(cfg32, max_len=prompt + SERVE_GEN),
         make_decode_step(cfg32))
     for name, got, want in (("logits_f32_prefill", k_pre, p_pre),
                             ("logits_f32_decode_1", k_dec, p_dec)):
         routes[name] = share(got, want)
         check(bool(torch.isfinite(got).all()), f"{arch}: {name} finite")
-    del k_pre, k_dec, p_pre, p_dec
+    if ring:
+        ring_record["routes"] = ring_routes(k_cache, p_cache, window, prompt)
+    del k_pre, k_dec, p_pre, p_dec, k_cache, p_cache
 
     profiles = {
         "prefill": profile_job(lambda: prefill(params, batch),
@@ -1913,6 +2170,7 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
         prof.pop("host_span_ms")
     record = {
         "arch": arch, "kernel": kernel, "layers": cfg.n_layers,
+        "reduced": reduced, "window": window, "ring": ring_record,
         "encoder_layers": 0 if cfg.encoder is None
         else cfg.encoder.n_layers, "frames": frames,
         "batch": SERVE_BATCH, "prompt": prompt, "generated":
@@ -1927,9 +2185,46 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
         "tokens_head": torch.stack(generated, 1)[0, :8].tolist(),
         "profile": profiles}
     emit("serve", **record)
-    del params, cache, logits, prefill_logits, batch
+    del params, cache, logits, prefill_logits, batch, few
     torch.cuda.empty_cache()
     return record
+
+
+def ring_positions(cache, window: int, last: int) -> dict:
+    """Every self-attention ring of ``cache`` (per layer and prompt) holds
+    exactly the last ``window`` positions up to ``last``, position p in
+    slot p % window."""
+    pos = cache["groups"]["p0"]["self"]["pos"]            # (G, B, W)
+    check(pos.shape[-1] == window, f"ring caches of {pos.shape[-1]} slots, "
+          f"want {window}")
+    live = torch.arange(last - window + 1, last + 1, device=pos.device)
+    want = torch.empty(window, dtype=pos.dtype, device=pos.device)
+    want[live % window] = live.to(pos.dtype)
+    check(bool((pos == want).all()), f"ring positions up to {last}: slot "
+          f"p % {window} holds p for the last {window} positions")
+    return {"slots": window, "last": last, "first": last - window + 1,
+            "layers_prompts": list(pos.shape[:2])}
+
+
+def ring_routes(k_cache, p_cache, window: int, prompt: int) -> dict:
+    """The kernel route's rings after prefill and one decode step against
+    the plain route's (float32 compute): positions equal; the first
+    layer's keys and values bit for bit (computed from the embedding,
+    before any attention); the later layers' as shares of their scale
+    (what the layers before carry of the kernels' summation order)."""
+    kc, pc = k_cache["groups"]["p0"]["self"], p_cache["groups"]["p0"]["self"]
+    check(torch.equal(kc["pos"], pc["pos"]),
+          "ring positions, kernel route == plain route")
+    ring_positions(k_cache, window, prompt)
+    for name in ("k", "v"):
+        check(torch.equal(kc[name][0], pc[name][0]),
+              f"the first layer's ring {name}, kernel route == plain route "
+              f"bit for bit")
+    return {name: [share(kc[name][g], pc[name][g])["share"]
+                   for g in range(kc[name].shape[0])] for name in ("k", "v")}
+
+
+
 
 
 def tree_leaves(tree, prefix: str = "") -> dict:
@@ -1948,11 +2243,11 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def layer_setup(arch: str, seq: int):
+def layer_setup(arch: str, seq: int, batch: int = TRAIN_BATCH):
     """One layer of ``arch`` at full width (its decoder layer, for an
     encoder-decoder): config, parameters (bf16 values held as float32
-    leaves), input x (TRAIN_BATCH, seq, D), upstream gradient and, for a
-    cross layer, the encoder's states (TRAIN_BATCH, WHISPER_FRAMES, D)."""
+    leaves), input x (batch, seq, D), upstream gradient and, for a cross
+    layer, the encoder's states (batch, WHISPER_FRAMES, D)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
     from repro_torch.models.stack import layer_specs
@@ -1962,9 +2257,9 @@ def layer_setup(arch: str, seq: int):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     params = tree_map(lambda t: t.float(), init_params(
         layer_specs(lc, cfg.d_model), gen, "cuda", dtype=torch.bfloat16))
-    x = torch.randn((TRAIN_BATCH, seq, cfg.d_model), generator=gen,
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen,
                     device="cuda")
-    enc = torch.randn((TRAIN_BATCH, WHISPER_FRAMES, cfg.d_model),
+    enc = torch.randn((batch, WHISPER_FRAMES, cfg.d_model),
                       generator=gen, device="cuda") if lc.attn is not None \
         and lc.attn.cross else None
     return cfg, lc, params, x, upstream_grad(x), enc
@@ -1983,7 +2278,8 @@ def layer_grads(cfg, lc, params, x, dout, enc, kernels: bool,
     ins = {"x": x.to(dtype).detach().requires_grad_(True)}
     if enc is not None:
         ins["enc"] = enc.to(dtype).detach().requires_grad_(True)
-    aux = {"positions": default_positions(x.shape[0], x.shape[1], "cuda"),
+    aux = {"positions": default_positions(x.shape[0], x.shape[1], "cuda",
+                                          cfg.mrope),
            "enc": ins.get("enc")}
     ops.use_kernels(kernels)
     try:
@@ -1997,7 +2293,8 @@ def layer_grads(cfg, lc, params, x, dout, enc, kernels: bool,
     return dict(zip(leaves, got))
 
 
-def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ) -> dict:
+def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ,
+                     batch: int = TRAIN_BATCH) -> dict:
     """One layer of ``arch`` at full width, float32 compute with bf16
     weights (bf16 values held as float32 leaves, so the gradients are
     float32), from one input and one upstream gradient: dx (and, for a
@@ -2009,7 +2306,7 @@ def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ) -> dict:
     mixer call (twice in a cross layer)."""
     from repro_torch.kernels import ops
 
-    cfg, lc, params, x, dout, enc = layer_setup(arch, seq)
+    cfg, lc, params, x, dout, enc = layer_setup(arch, seq, batch)
     clear_launches()
     on_kernels = layer_grads(cfg, lc, params, x, dout, enc, True)
     torch.cuda.synchronize()
@@ -2024,13 +2321,17 @@ def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ) -> dict:
     check(shares[worst] <= SERVE_LAYER_TOL,
           f"{arch} layer: gradient {worst}, kernel route vs plain route, "
           f"differs by {shares[worst]} of its scale > {SERVE_LAYER_TOL}")
-    return {"arch": arch, "shape": list(x.shape),
+    del on_kernels, plain, params, x, dout
+    torch.cuda.empty_cache()
+    return {"arch": arch, "shape": [batch, seq, cfg.d_model],
+            "window": lc.attn.window if lc.attn is not None else None,
             "enc_shape": None if enc is None else list(enc.shape),
             "launches": launches, "grad_share": shares, "worst": worst,
             "tol": SERVE_LAYER_TOL}
 
 
-def layer_grad_check_bf16(arch: str, seq: int) -> dict:
+def layer_grad_check_bf16(arch: str, seq: int,
+                          batch: int = TRAIN_BATCH) -> dict:
     """One attention layer of ``arch`` at full width in bf16 compute (see
     LAYER_BF16_EXCESS): (a) each attention call's dq, dk, dv from the
     kernels against the exact gradient of the q, k, v and upstream
@@ -2045,7 +2346,7 @@ def layer_grad_check_bf16(arch: str, seq: int) -> dict:
     here and ``bf16_grad_repair``'s."""
     from repro_torch.kernels import flash_attention, ops, ref
 
-    cfg, lc, params, x, dout, enc = layer_setup(arch, seq)
+    cfg, lc, params, x, dout, enc = layer_setup(arch, seq, batch)
     kernel_attention = ops.attention
     kernel_fwd, kernel_bwd = (flash_attention.flash_attention_fwd,
                               flash_attention.flash_attention_bwd)
@@ -2108,7 +2409,9 @@ def layer_grad_check_bf16(arch: str, seq: int) -> dict:
                 shares(plain_grads(torch.bfloat16)))
 
     o_dtypes = []
+    clear_launches()
     grads, calls = on_kernels(o_dtypes)
+    by_shape = shape_launches()
     n_calls = 2 if enc is not None else 1
     check(len(calls) == n_calls,
           f"{arch} bf16 layer: {len(calls)} attention calls")
@@ -2123,9 +2426,10 @@ def layer_grad_check_bf16(arch: str, seq: int) -> dict:
               f"dv {rel} of the exact gradient's scale > 2^-8")
         q, k = call["qkv"][:2]
         attn.append({"q": list(q.shape), "kv": list(k.shape),
-                     "causal": call["causal"], "share_of_scale": rel,
-                     "plain_bf16_share": plain_rel})
+                     "causal": call["causal"], "window": call["window"],
+                     "share_of_scale": rel, "plain_bf16_share": plain_rel})
     del calls
+    torch.cuda.empty_cache()
     plain = layer_grads(cfg, lc, params, x, dout, enc, False, torch.bfloat16)
     f32 = layer_grads(cfg, lc, params, x, dout, enc, False)
     excess = {}
@@ -2165,8 +2469,11 @@ def layer_grad_check_bf16(arch: str, seq: int) -> dict:
         > LAYER_BF16_EXCESS or max(control_layer.values()) > LAYER_BF16_CEIL,
         "fails_o_dtype": control_dtypes != [torch.float32] * n_calls}
     del grads, calls
-    return {"arch": arch, "shape": list(x.shape),
+    del f32, plain, params, x, dout
+    torch.cuda.empty_cache()
+    return {"arch": arch, "shape": [batch, seq, cfg.d_model],
             "enc_shape": None if enc is None else list(enc.shape),
+            "launches_by_shape": by_shape,
             "attention_calls": attn, "tol_share": 2 ** -8,
             "layer_vs_f32": excess, "worst": worst,
             "tol_excess": LAYER_BF16_EXCESS, "ceiling": LAYER_BF16_CEIL,
@@ -2266,15 +2573,16 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
 def phase_train(batch: dict) -> dict:
     """9. train: the per-layer gradient check (the kernel route against
     the plain route, one llama attention layer, one falcon-mamba Mamba1
-    layer and one whisper decoder layer at full width, in float32 compute;
-    the llama and whisper layers again in bf16 compute, see
-    LAYER_BF16_EXCESS); a whole llama3.2-1b step at full width and two
-    groups in float32 compute on both routes; llama3.2-1b trained at full
-    width and depth on HAIL-selected data (phase 6b's batch),
-    falcon-mamba-7b at full width cut to 8 of its 64 layers, and
-    whisper-medium at full width and depth on frame embeddings and
-    tokens; and a checkpoint round trip of a full-width two-group llama
-    train state."""
+    layer, one whisper decoder layer, one h2o-danube layer past its window
+    and one qwen2-vl layer at full width, in float32 compute; the
+    attention layers again in bf16 compute, see LAYER_BF16_EXCESS); a
+    whole llama3.2-1b step at full width and two groups in float32
+    compute on both routes; llama3.2-1b trained at full width and depth
+    on HAIL-selected data (phase 6b's batch), falcon-mamba-7b at full
+    width cut to 8 of its 64 layers, whisper-medium at full width and
+    depth on frame embeddings and tokens, and h2o-danube-1.8b at full
+    width and depth on 1 x 8,192 tokens; and a checkpoint round trip of a
+    full-width two-group llama train state."""
     import tempfile
 
     from repro_torch.ckpt import checkpoint as ck
@@ -2291,10 +2599,17 @@ def phase_train(batch: dict) -> dict:
                                for arch, kernel in SERVE]}
     record["layers"].append(layer_grad_check(WHISPER, "flash_attention",
                                              WHISPER_TRAIN_SEQ))
+    # h2o-danube's layer past its window (head dim 80), qwen2-vl's with
+    # M-RoPE positions (head dim 128)
+    record["layers"].append(layer_grad_check(
+        H2O, "flash_attention", H2O_LAYER_SEQ, H2O_CHECK_BATCH))
+    record["layers"].append(layer_grad_check(QWEN, "flash_attention"))
     torch.cuda.empty_cache()
     record["layers_bf16"] = [
         layer_grad_check_bf16("llama3.2-1b", TRAIN_SEQ),
-        layer_grad_check_bf16(WHISPER, WHISPER_TRAIN_SEQ)]
+        layer_grad_check_bf16(WHISPER, WHISPER_TRAIN_SEQ),
+        layer_grad_check_bf16(H2O, H2O_LAYER_SEQ, H2O_CHECK_BATCH),
+        layer_grad_check_bf16(QWEN, TRAIN_SEQ)]
     torch.cuda.empty_cache()
 
     # --- a whole step in float32 compute, kernel route vs plain route ----
@@ -2368,6 +2683,20 @@ def phase_train(batch: dict) -> dict:
                 "numpy normal frame embeddings (the stub frontend's "
                 "output), bf16"}
     del tok, frames
+    torch.cuda.empty_cache()
+    # h2o-danube-1.8b at full width and depth on one sequence of twice its
+    # window; qwen2-vl-72b is not trained here: at 16 B a parameter of
+    # float32 weights, gradients and AdamW moments, its two embedding
+    # tables alone would hold 40 GB
+    h2o = get_config(H2O)
+    tok = torch.from_numpy(rng.integers(0, h2o.vocab, (
+        H2O_TRAIN_BATCH, H2O_TRAIN_SEQ + 1)).astype(np.int32)).cuda()
+    record["h2o-danube-1.8b-train"] = {
+        **train_run(h2o, {"tokens": tok[:, :-1].contiguous(),
+                          "labels": tok[:, 1:].contiguous()},
+                    H2O_TRAIN_STEPS - 1, "flash_attention", opt),
+        "data": "numpy tokens below h2o-danube's vocabulary of 32,000"}
+    del tok
     torch.cuda.empty_cache()
 
     # --- checkpoint round trip -------------------------------------------
@@ -2456,7 +2785,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     emit("build", seconds=time.perf_counter() - t0,
-         library_seconds=_build.build_seconds)
+         library_seconds=_build.build_seconds,
+         ptxas_flash=ptxas_flash(_build.ptxas_log()))
 
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
@@ -2594,6 +2924,11 @@ def main() -> int:
     served = {kernel: phase_serve(arch, kernel, rng) for arch, kernel in SERVE}
     whisper = phase_serve(WHISPER, "flash_attention", rng,
                           prompt=WHISPER_PROMPT, frames=WHISPER_FRAMES)
+    # h2o-danube-1.8b through ring caches; qwen2-vl-72b on 16 layers
+    h2o_served = phase_serve(H2O, "flash_attention", rng, prompt=H2O_PROMPT,
+                             check_batch=H2O_CHECK_BATCH)
+    qwen_served = phase_serve(QWEN, "flash_attention", rng,
+                              groups=QWEN_GROUPS)
 
     # --- 8. times at main-path shapes ---------------------------------------
     # Each case: the kernel's own device time per call from the profiler
@@ -2661,10 +2996,10 @@ def main() -> int:
     # (filled in after phase 9 from the launches counted by shape)
     flash_keys = {}
 
-    def flash_key(name, kernel, what, q, k, causal):
+    def flash_key(name, kernel, what, q, k, causal, window=None):
         flash_keys[name] = (f"{kernel}: "
                             + flash_attention.launch_key(what, q, k, causal,
-                                                         None))
+                                                         window))
 
     q, k, v = attn_inputs(SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64,
                           torch.bfloat16)
@@ -2769,6 +3104,99 @@ def main() -> int:
                       "bwd from float32 O", q, k, False)
             del do, lse, o32, sdpa_out, do_t
         del q, k, v, qt, kt, vt
+    # head dims 80 and 128.  h2o-danube's windowed prefill (4 x 8,192 of
+    # window 4,096) and its training forward and backward (1 x 8,192); the
+    # plain versions there at one prompt (the forward) or at 8 of the 32
+    # heads (the training rows, H2O_PLAIN_HEADS): their float32 scores take
+    # 8.6 GB a copy a prompt at all 32.  SDPA takes the window as a boolean
+    # band attn_mask over K/V expanded to the query heads outside the timed
+    # call, and so also computes the masked pairs that the kernels skip.
+    # qwen2-vl's causal prefill (4 x 512, 64 heads over 8) and the backward
+    # at that shape, beside SDPA (is_causal, enable_gqa) and its backward.
+    b_, t_, s_, h_, kv_, d_, _, win, dt_ = H2O_PREFILL_ATTN
+    q, k, v = attn_inputs(b_, t_, s_, h_, kv_, d_, dt_)
+    band = ref._band(t_, s_, True, win, "cuda")
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(h_ // kv_, dim=2).transpose(1, 2)
+              for x in (k, v))
+    timed["flash_h2o_prefill"] = case(
+        "q (4,8192,32,80) k/v (4,8192,8,80) bf16 causal window 4096 "
+        "(plain: q (1,8192,32,80), one of the 4 prompts)",
+        lambda: flash_attention.flash_attention(q, k, v, window=win),
+        lambda: ref.attention(q[:1], k[:1], v[:1], window=win),
+        attn_bound(q, k, v, True, win), "flash_bf16_kernel",
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band), plain_iters=1)
+    flash_key("flash_h2o_prefill", "flash_attention", "fwd", q, k, True,
+              win)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    b_, t_, s_, h_, kv_, d_, _, win, dt_ = H2O_TRAIN_ATTN
+    q, k, v = attn_inputs(b_, t_, s_, h_, kv_, d_, dt_)
+    do = upstream_grad(q)
+    _, lse, o32 = flash_attention.flash_attention_fwd(q, k, v, window=win)
+    part = plain_parts(H2O_TRAIN_ATTN)[0]
+    few = [part_of(part, x) for x in (q, o32, do)]
+    kv2 = [part_of(part, x, True) for x in (k, v)]
+    timed["flash_fwd_h2o_train"] = case(
+        "q (1,8192,32,80) k/v (1,8192,8,80) bf16 causal window 4096, lse "
+        "and float32 O (plain: q (1,8192,8,80) k/v (1,8192,2,80))",
+        lambda: flash_attention.flash_attention_fwd(q, k, v, window=win),
+        lambda: ref.attention_lse(few[0], *kv2, window=win),
+        attn_lse_bound(q, k, v, True, win), "flash_bf16_kernel",
+        plain_iters=1)
+    flash_key("flash_fwd_h2o_train", "flash_attention", "fwd+lse", q, k,
+              True, win)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (
+        q, k.repeat_interleave(h_ // kv_, dim=2),
+        v.repeat_interleave(h_ // kv_, dim=2)))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band)
+    do_t = do.transpose(1, 2)
+    timed["flash_bwd_h2o_train"] = case(
+        "q/o/dO (1,8192,32,80) k/v (1,8192,8,80) bf16 causal window 4096 "
+        "(plain: q (1,8192,8,80) k/v (1,8192,2,80))",
+        lambda: flash_attention.flash_attention_bwd(q, k, v, o32, lse, do,
+                                                    window=win),
+        lambda: ref.attention_bwd(few[0], *kv2, few[1],
+                                  part_of(part, lse), few[2],
+                                  window=win),
+        flash_bwd_bound(q, k, v, True, win), "flash_bwd",
+        library=lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                            retain_graph=True),
+        plain_iters=1)
+    flash_key("flash_bwd_h2o_train", "flash_attention_bwd",
+              "bwd from float32 O", q, k, True, win)
+    del q, k, v, do, lse, o32, few, kv2, qt, kt, vt, sdpa_out, do_t
+    del band
+    torch.cuda.empty_cache()
+    b_, t_, s_, h_, kv_, d_, _, _, dt_ = QWEN_ATTN
+    q, k, v = attn_inputs(b_, t_, s_, h_, kv_, d_, dt_)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    timed["flash_qwen_prefill"] = case(
+        "q (4,512,64,128) k/v (4,512,8,128) bf16 causal",
+        lambda: flash_attention.flash_attention(q, k, v),
+        lambda: ref.attention(q, k, v), attn_bound(q, k, v, True, None),
+        "flash_bf16_kernel",
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    flash_key("flash_qwen_prefill", "flash_attention", "fwd", q, k, True)
+    do = upstream_grad(q)
+    _, lse, o32 = flash_attention.flash_attention_fwd(q, k, v)
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    timed["flash_bwd_qwen"] = case(
+        "q/o/dO (4,512,64,128) k/v (4,512,8,128) bf16 causal",
+        lambda: flash_attention.flash_attention_bwd(q, k, v, o32, lse, do),
+        lambda: ref.attention_bwd(q, k, v, o32, lse, do),
+        flash_bwd_bound(q, k, v, True, None), "flash_bwd",
+        library=lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                            retain_graph=True))
+    flash_key("flash_bwd_qwen", "flash_attention_bwd", "bwd from float32 O",
+              q, k, True)
+    del q, k, v, do, lse, o32, qt, kt, vt, sdpa_out, do_t
     torch.cuda.empty_cache()
     repair_cost = float32_o_cost(flash_attention)
     torch.cuda.empty_cache()
@@ -2814,16 +3242,26 @@ def main() -> int:
     trained = phase_train(train_batch)
     train_launches = collections.Counter()
     for name in ("llama3.2-1b-train", "falcon-mamba-7b-train-8L",
-                 "whisper-medium-train"):
+                 "whisper-medium-train", "h2o-danube-1.8b-train"):
         train_launches.update(trained[name]["launches"])
     # the flash rows' launches on the main paths, as counted by shape:
     # each serving prefill, and each training run's counted steps
+    # (qwen2-vl is not trained: its backward shape runs in phase 9's bf16
+    # gradient check of one of its layers)
+    qwen_layer = next(r for r in trained["layers_bf16"] if r["arch"] == QWEN)
     by_path = {"llama3.2-1b prefill":
                served["flash_attention"]["launches_prefill_by_shape"],
                "whisper-medium prefill": whisper["launches_prefill_by_shape"],
+               "h2o-danube-1.8b prefill":
+               h2o_served["launches_prefill_by_shape"],
+               f"qwen2-vl-72b prefill ({QWEN_GROUPS} layers)":
+               qwen_served["launches_prefill_by_shape"],
                **{f"{name} ({len(trained[name]['step_s'])} counted steps)":
                   trained[name]["launches_by_shape"]
-                  for name in ("llama3.2-1b-train", "whisper-medium-train")}}
+                  for name in ("llama3.2-1b-train", "whisper-medium-train",
+                               "h2o-danube-1.8b-train")},
+               "qwen2-vl-72b one layer's bf16 gradients (phase 9)":
+               qwen_layer["launches_by_shape"]}
     for name, key in flash_keys.items():
         timed[name]["launch_key"] = key
         timed[name]["launches_on_path"] = {
@@ -2894,9 +3332,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
-         "launches": served["flash_attention"]["launches"].get(
-             "flash_attention", 0) + whisper["launches"].get(
-             "flash_attention", 0) + train_launches["flash_attention"],
+         "launches": sum(r["launches"].get("flash_attention", 0) for r in (
+             served["flash_attention"], whisper, h2o_served, qwen_served))
+         + train_launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
@@ -2908,7 +3346,9 @@ def main() -> int:
                               "flash_whisper_encoder",
                               "flash_fwd_whisper_encoder",
                               "flash_whisper_cross",
-                              "flash_fwd_whisper_cross_train")},
+                              "flash_fwd_whisper_cross_train",
+                              "flash_h2o_prefill", "flash_fwd_h2o_train",
+                              "flash_qwen_prefill")},
          "float32_o_cost": repair_cost},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
@@ -2935,7 +3375,8 @@ def main() -> int:
          "launches_on_path": flash_bwd["launches_on_path"],
          "shapes": {k: {f: timed[k].get(f) for f in flash_fields}
                     for k in ("flash_bwd_whisper_encoder",
-                              "flash_bwd_whisper_cross_train")}},
+                              "flash_bwd_whisper_cross_train",
+                              "flash_bwd_h2o_train", "flash_bwd_qwen")}},
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",

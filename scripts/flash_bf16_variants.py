@@ -52,7 +52,7 @@ def variants(src: str) -> dict[str, str]:
     body = src.index("flash_bf16_kernel(")
     return {
         "as_built": src,
-        "3_ctas": sub(src, "__launch_bounds__(kThreads, 4)",
+        "3_ctas": sub(src, "__launch_bounds__(kThreads, kFwdCtas<D>)",
                       "__launch_bounds__(kThreads)"),
         "exp2f": src[:body] + sub(src[body:], "fast_exp2(", "exp2f(", 2),
         "no_prefetch": sub(src, LOADS, ""),

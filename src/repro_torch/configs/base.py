@@ -72,7 +72,7 @@ class StackCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelCfg:
     name: str
-    family: str                           # dense | ssm | audio
+    family: str                           # dense | ssm | audio | vlm
     d_model: int
     vocab: int
     stack: StackCfg
@@ -88,6 +88,13 @@ class ModelCfg:
     @property
     def n_layers(self) -> int:
         return self.stack.n_layers
+
+    @property
+    def mrope(self) -> bool:
+        """Whether an attention layer rotates by M-RoPE sections (qwen2-vl):
+        the model then runs on (3, B, T) positions."""
+        return any(lc.attn is not None and lc.attn.mrope_section
+                   for lc in self.stack.pattern + self.stack.tail)
 
 
 # ---------------------------------------------------------------------------

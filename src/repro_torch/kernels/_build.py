@@ -12,6 +12,10 @@ unchanged one loads at once.
 CUDA work — and nothing else: the plain versions never touch it.
 ``SHAPE_LAUNCHES`` counts the same launches by (kernel, the shape key its
 wrapper passes), for the wrappers that pass one.
+
+``ptxas -v`` reports each kernel's registers, shared memory and spills as
+it compiles; the build keeps what it printed beside the library
+(``ptxas.log``, read back by ``ptxas_log()``).
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-gencode", "arch=compute_90a,code=sm_90a")
+PTXAS_LOG = "ptxas.log"
 
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
@@ -68,11 +73,13 @@ def _compile(sources: list[Path], target: Path):
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        failed = []
+        failed, logs = [], []
         for src, _, proc in procs:
             out, _ = proc.communicate()
+            text = out.decode(errors="replace")
             if proc.returncode != 0:
-                failed.append(f"{src.name}:\n{out.decode(errors='replace')}")
+                failed.append(f"{src.name}:\n{text}")
+            logs.append(f"== {src.name}\n{text}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         lib = Path(tmp, target.name)
@@ -83,7 +90,16 @@ def _compile(sources: list[Path], target: Path):
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n"
                                + link.stdout.decode(errors="replace"))
+        Path(tmp, PTXAS_LOG).write_text("".join(logs))
+        os.replace(Path(tmp, PTXAS_LOG), target.with_name(PTXAS_LOG))
         os.replace(lib, target)
+
+
+def ptxas_log() -> str:
+    """What ``ptxas -v`` printed when the loaded library was built (its
+    compile of every kernel: registers, shared memory, spills)."""
+    path = Path(library()._name).with_name(PTXAS_LOG)
+    return path.read_text() if path.is_file() else ""
 
 
 def library() -> ctypes.CDLL:

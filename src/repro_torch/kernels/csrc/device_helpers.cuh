@@ -1,14 +1,65 @@
 // Device helpers shared by the tensor-core flash kernels
 // (flash_attention.cu, flash_attention_bwd.cu) and the scan backward
 // (selective_scan_bwd.cu): asynchronous copies into shared memory,
-// `ldmatrix`, `mma.sync.m16n8k16` bf16 -> float32, and 2^x on the
-// special-function unit.
+// `ldmatrix`, `mma.sync.m16n8k16` bf16 -> float32, 2^x on the
+// special-function unit, and a kernel's shared-memory stage, static up to
+// 48 KB and dynamic past it.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// A block may declare at most 48 KB of static shared memory; past that it
+// takes dynamic shared memory, which the launch sizes and, past 48 KB
+// too, must first allow with cudaFuncSetAttribute.
+constexpr int kStaticSmemBytes = 48 * 1024;
+
+// The kernel's shared-memory stage S: a static __shared__ object where S
+// fits in 48 KB, else the block's dynamic shared memory, which the launch
+// sizes with dynamic_smem_bytes<S>() after allow_dynamic_smem.
+template <typename S>
+__device__ __forceinline__ S& shared_stage() {
+  if constexpr (sizeof(S) <= kStaticSmemBytes) {
+    __shared__ __align__(128) S s;
+    return s;
+  } else {
+    extern __shared__ __align__(128) unsigned char dynamic_smem[];
+    return *reinterpret_cast<S*>(dynamic_smem);
+  }
+}
+
+template <typename S>
+constexpr int dynamic_smem_bytes() {
+  return sizeof(S) <= kStaticSmemBytes ? 0 : (int)sizeof(S);
+}
+
+// Let Kernel take Bytes of dynamic shared memory on the current device.
+// The attribute belongs to the device's context, so it is set once per
+// instantiation and device, and that call's cudaError_t kept and returned
+// at every later launch; none for 0 bytes.
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel, int Bytes>
+inline int allow_dynamic_smem() {
+  if constexpr (Bytes == 0) {
+    return 0;
+  } else {
+    static int set[kMaxDevices] = {};  // 0: not yet, else cudaError_t + 1
+    int dev = 0;
+    const int err = (int)cudaGetDevice(&dev);
+    if (err) return err;
+    if (dev >= kMaxDevices)
+      return (int)cudaFuncSetAttribute(
+          Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bytes);
+    if (!set[dev])
+      set[dev] = 1 + (int)cudaFuncSetAttribute(
+          Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bytes);
+    return set[dev] - 1;
+  }
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

@@ -51,7 +51,8 @@
 // - registers are capped at 128 a thread so 4 CTAs (16 warps) share an SM
 //   to hide the latency of each warp's dependent mma -> softmax -> mma
 //   chain, and 2^x runs as one `ex2.approx` (each faster at the llama
-//   shape, spills included: scripts/flash_bf16_variants.py);
+//   shape, spills included: scripts/flash_bf16_variants.py).  That holds
+//   up to D = 64; see "Head dims" below for 80 and 128;
 // - the output is staged through the q tile's shared memory and written
 //   16 bytes a lane.
 // `wgmma`, TMA and warp specialisation are later steps.
@@ -68,11 +69,24 @@
 // element written, beside the 2 of the bf16 output.  `flash_attention_launch`
 // passes no lse and no o32 pointer, and the serving path is unchanged.
 //
+// Head dims 16, 32, 64, 80 (h2o-danube) and 128 (qwen2-vl).  D = 80 is 5
+// k-steps of 16 and 10 n-tiles of 8 (the P V loop pairs n-tiles within
+// each 16 columns, so nothing needs D / 16 even); its padded rows of 88
+// bf16 (176 B) keep `ldmatrix` rows 16-byte aligned and their 8 addresses
+// in distinct bank groups, as 72 and 136 do.  Past D = 64 the stage (q
+// tile and double-buffered K/V) outgrows the 48 KB of static shared
+// memory: 55 KB at 80, 85 KB at 128, taken as dynamic shared memory
+// (`shared_stage`, device_helpers.cuh), and the O accumulator grows to
+// 40 and 64 floats a thread.  So each head dim has its own CTAs an SM
+// (`kFwdCtas`): 4 up to 64, 3 at 80 and 2 at 128, which lifts the
+// register cap from 128 to 170 and 255; an SM then runs 12 or 8 warps.
+//
 // float32 (`flash_f32_kernel`), what the per-layer route checks compute:
 // one CTA owns one (batch x head, 64-row q tile), one thread per query row,
 // and loops over 32-key tiles loaded coalesced into shared memory, read by
 // every thread as a broadcast.  The q row is held pre-scaled by 1/sqrt(D)
-// in registers with its float32 accumulator, max and denominator.  TF32
+// in registers with its float32 accumulator, max and denominator (read
+// from shared memory at D = 128, `kQInRegs`).  TF32
 // tensor cores would keep 10 bits of the mantissa, too few for the float32
 // checks, so this path stays on the CUDA cores.
 #include <cuda_bf16.h>
@@ -118,14 +132,29 @@ constexpr int kBQ = 64;  // query rows per CTA, one thread each
 constexpr int kBK = 32;  // keys per shared-memory tile
 
 template <int D>
+struct F32Smem {
+  float k[kBK][D];
+  float v[kBK][D];
+  float q[kBQ][D + 1];  // q in, o out; +1 avoids bank conflicts
+};
+
+// Up to D = 80 a thread holds its q row in registers beside its D-float
+// accumulator; at D = 128 the two would take 256 of the 255 registers a
+// thread may have, so the row is read from its (conflict-free) row of s_q
+// for each key, and the stage, 64 KB, takes dynamic shared memory.
+template <int D>
+constexpr bool kQInRegs = D <= 80;
+
+template <int D>
 __global__ void __launch_bounds__(kBQ)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
                  int window, float scale) {
-  __shared__ __align__(16) float s_k[kBK][D];
-  __shared__ __align__(16) float s_v[kBK][D];
-  __shared__ float s_q[kBQ][D + 1];  // q in, o out; +1 avoids bank conflicts
+  F32Smem<D>& sm = shared_stage<F32Smem<D>>();
+  auto& s_k = sm.k;
+  auto& s_v = sm.v;
+  auto& s_q = sm.q;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -144,12 +173,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     s_q[r][d] = r < rows ? q[q_off + r * q_row + d] * scale : 0.f;
   }
   __syncthreads();
-  float qr[D], acc[D];
+  float qr[kQInRegs<D> ? D : 1], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = s_q[tid][d];
+    if constexpr (kQInRegs<D>) qr[d] = s_q[tid][d];
     acc[d] = 0.f;
   }
+  auto qv = [&](int d) {
+    if constexpr (kQInRegs<D>) return qr[d];
+    else return s_q[tid][d];
+  };
   float m = kNegInf, l = 0.f;
   const int qpos = q0 + tid;
   const Band bd = band(q0, q0 + rows - 1, s_len, causal, window, kBK);
@@ -173,10 +206,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 kk = *reinterpret_cast<const float4*>(&s_k[j][d]);
-        dot = fmaf(qr[d], kk.x, dot);
-        dot = fmaf(qr[d + 1], kk.y, dot);
-        dot = fmaf(qr[d + 2], kk.z, dot);
-        dot = fmaf(qr[d + 3], kk.w, dot);
+        dot = fmaf(qv(d), kk.x, dot);
+        dot = fmaf(qv(d + 1), kk.y, dot);
+        dot = fmaf(qv(d + 2), kk.z, dot);
+        dot = fmaf(qv(d + 3), kk.w, dot);
       }
       const int kp = k0 + j;
       const bool keep = (!causal || kp <= qpos) &&
@@ -256,14 +289,31 @@ __device__ __forceinline__ void load_tile(bf16 (*dst)[D + kPad],
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 4)
+struct FwdSmem {
+  bf16 q[kTQ][D + kPad];  // q in, o out
+  bf16 k[2][kTK][D + kPad];
+  bf16 v[2][kTK][D + kPad];
+};
+
+// CTAs an SM each head dim is built for, which caps its registers: 4 up
+// to D = 64 (128 registers a thread, 45 KB of static shared memory a CTA);
+// 3 at D = 80 (170 registers: 40 accumulator floats and 20 q fragment
+// registers beside the 32 scores; 55 KB, dynamic); 2 at D = 128 (255
+// registers for 64 accumulator floats and 32 q fragment registers; 85 KB,
+// dynamic, of which the SM holds two).
+template <int D>
+constexpr int kFwdCtas = D <= 64 ? 4 : (D <= 80 ? 3 : 2);
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kFwdCtas<D>)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ o32, float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
                   int window, float scale) {
-  __shared__ __align__(128) bf16 s_q[kTQ][D + kPad];  // q in, o out
-  __shared__ __align__(128) bf16 s_k[2][kTK][D + kPad];
-  __shared__ __align__(128) bf16 s_v[2][kTK][D + kPad];
+  FwdSmem<D>& sm = shared_stage<FwdSmem<D>>();
+  auto& s_q = sm.q;
+  auto& s_k = sm.k;
+  auto& s_v = sm.v;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
@@ -469,12 +519,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* o32,
            cudaStream_t stream) {
   if (is_bf16) {
     const dim3 grid(batch * n_heads, (t_len + kTQ - 1) / kTQ);
-    flash_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
+    constexpr int smem = dynamic_smem_bytes<FwdSmem<D>>();
+    const int err = allow_dynamic_smem<flash_bf16_kernel<D>, smem>();
+    if (err) return err;
+    flash_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32, lse,
         t_len, s_len, n_heads, n_kv, causal, window, scale);
   } else {
     const dim3 grid(batch * n_heads, (t_len + kBQ - 1) / kBQ);
-    flash_f32_kernel<D><<<grid, kBQ, 0, stream>>>(
+    constexpr int smem = dynamic_smem_bytes<F32Smem<D>>();
+    const int err = allow_dynamic_smem<flash_f32_kernel<D>, smem>();
+    if (err) return err;
+    flash_f32_kernel<D><<<grid, kBQ, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
         t_len,
         s_len, n_heads, n_kv, causal, window, scale);
@@ -504,6 +560,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
                         n_heads, n_kv, causal, window, is_bf16, scale, st);
+    case 80:
+      return launch<80>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
+                        n_heads, n_kv, causal, window, is_bf16, scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
+                         n_heads, n_kv, causal, window, is_bf16, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -533,6 +595,12 @@ extern "C" int flash_attention_lse_launch(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
                         n_kv, causal, window, is_bf16, scale, st);
+    case 80:
+      return launch<80>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
+                        n_kv, causal, window, is_bf16, scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
+                         n_kv, causal, window, is_bf16, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

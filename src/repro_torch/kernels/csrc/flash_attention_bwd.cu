@@ -77,12 +77,23 @@
 // addresses; 2 CTAs (8 warps) share an SM.  A dQ warp holds a third less.
 // Shared memory: two 64-row tiles of two operands, 37 KB (dK/dV, with lse
 // and D) and 36 KB (dQ), under the 48 KB of static shared memory.
+// Head dims 80 (h2o-danube) and 128 (qwen2-vl): the accumulators grow to
+// 2 x 40 and 2 x 64 floats, so K and V (dK/dV) or Q and dO (dQ) stay in
+// their own shared-memory tiles and each k-step loads its A fragment by
+// `ldmatrix` (`kAInRegs`), and at D = 128 the dK/dV warp takes each 64-row
+// stage in two halves of 32 rows (`kSubB`), so S^T and dP^T are 2 x 16
+// floats.  The stages, 67 KB (80) and 103 KB (128), take dynamic shared
+// memory (`shared_stage`, device_helpers.cuh); 2 CTAs still share an SM.
+// Windowed attention (h2o-danube trains on T = 2 windows) walks only the
+// band: the dK/dV kernel's `visit` skips the q tiles with no kept pair and
+// no row without keys, the dQ kernel starts at the band's first key tile.
 //
 // float32 (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`), what the
 // per-layer and whole-step route checks compute: on the CUDA cores, the
 // products in full float32.
 // - dK/dV: one CTA per (batch, kv head, 64-key tile).  Each key is owned by
-//   D/16 neighbouring threads, 16 head dims each, holding its k and v
+//   D/16 neighbouring threads, 16 head dims each (4 of 20 at D = 80,
+//   `kSlice`), holding its k and v
 //   slices and its dK and dV accumulators in registers; the two dot
 //   products of a (query, key) pair are summed over those threads by
 //   `__shfl_xor_sync`.  The CTA loops over the group's H/KV query heads
@@ -107,9 +118,14 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;  // the forward's mask value
-constexpr int kSlice = 16;         // head dims a thread owns
 constexpr int kTile = 64;          // keys (dK/dV) or rows (dQ) a CTA owns
 constexpr int kStep = 32;          // rows (dK/dV) or keys (dQ) a stage holds
+
+// Head dims a thread owns: 16, so D/16 lanes share a key or row, except
+// at D = 80, where 5 lanes would straddle warps and their sums need
+// power-of-two butterflies: 4 lanes of 20 there.
+template <int D>
+constexpr int kSlice = D == 80 ? 20 : 16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -130,10 +146,11 @@ __device__ __forceinline__ bool row_empty(int r, int s_len, int causal,
   return k_max < k_min;
 }
 
-// 16 floats of shared memory, 16-byte aligned, as four wide loads
-__device__ __forceinline__ void load16(float (&r)[kSlice], const float* p) {
+// N floats of shared memory, 16-byte aligned, as N/4 wide loads
+template <int N>
+__device__ __forceinline__ void load_slice(float (&r)[N], const float* p) {
 #pragma unroll
-  for (int d = 0; d < kSlice; d += 4) {
+  for (int d = 0; d < N; d += 4) {
     const float4 x = *reinterpret_cast<const float4*>(p + d);
     r[d] = x.x, r[d + 1] = x.y, r[d + 2] = x.z, r[d + 3] = x.w;
   }
@@ -180,21 +197,22 @@ __global__ void flash_bwd_dot_kernel(const TO* __restrict__ o,
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kTile*(D / kSlice))
+__global__ void __launch_bounds__(kTile*(D / kSlice<D>))
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum, T* __restrict__ dk,
                       T* __restrict__ dv, int t_len, int s_len, int n_heads,
                       int n_kv, int causal, int window, float scale) {
-  constexpr int SPLIT = D / kSlice;
+  constexpr int SL = kSlice<D>;
+  constexpr int SPLIT = D / SL;
   constexpr int kThreads = kTile * SPLIT;
   __shared__ __align__(16) float s_q[kStep][D];   // q * scale
   __shared__ __align__(16) float s_do[kStep][D];
   __shared__ float s_lse[kStep], s_d[kStep];
 
   const int tid = threadIdx.x;
-  const int j = tid / SPLIT, d0 = (tid % SPLIT) * kSlice;
+  const int j = tid / SPLIT, d0 = (tid % SPLIT) * SL;
   const int b = blockIdx.x / n_kv, g = blockIdx.x % n_kv;
   const int rep = n_heads / n_kv;
   const int k0 = blockIdx.y * kTile;
@@ -205,9 +223,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_at = ((int64_t)b * s_len + (key_in ? kp : 0)) * kv_row +
                         (int64_t)g * D + d0;
 
-  float kr[kSlice], vr[kSlice], ak[kSlice], av[kSlice];
+  float kr[SL], vr[SL], ak[SL], av[SL];
 #pragma unroll
-  for (int d = 0; d < kSlice; ++d) {
+  for (int d = 0; d < SL; ++d) {
     kr[d] = key_in ? to_f(k[kv_at + d]) : 0.f;
     vr[d] = key_in ? to_f(v[kv_at + d]) : 0.f;
     ak[d] = av[d] = 0.f;
@@ -243,12 +261,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       const int rows = q_hi - q0 + 1;
       for (int rr = 0; rr < rows; ++rr) {
-        float qv[kSlice], ov[kSlice];
-        load16(qv, &s_q[rr][d0]);
-        load16(ov, &s_do[rr][d0]);
+        float qv[SL], ov[SL];
+        load_slice(qv, &s_q[rr][d0]);
+        load_slice(ov, &s_do[rr][d0]);
         float sp = 0.f, dp = 0.f;
 #pragma unroll
-        for (int d = 0; d < kSlice; ++d) {
+        for (int d = 0; d < SL; ++d) {
           sp = fmaf(qv[d], kr[d], sp);
           dp = fmaf(ov[d], vr[d], dp);
         }
@@ -262,7 +280,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               : (kept ? __expf(sp - l) : 0.f);
         const float ds = (kept && !empty) ? p * (dp - s_d[rr]) : 0.f;
 #pragma unroll
-        for (int d = 0; d < kSlice; ++d) {
+        for (int d = 0; d < SL; ++d) {
           av[d] = fmaf(p, ov[d], av[d]);
           ak[d] = fmaf(ds, qv[d], ak[d]);
         }
@@ -271,7 +289,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (key_in) {
 #pragma unroll
-    for (int d = 0; d < kSlice; ++d) {
+    for (int d = 0; d < SL; ++d) {
       dk[kv_at + d] = from_f<T>(ak[d]);
       dv[kv_at + d] = from_f<T>(av[d]);
     }
@@ -283,20 +301,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kTile*(D / kSlice))
+__global__ void __launch_bounds__(kTile*(D / kSlice<D>))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum, T* __restrict__ dq,
                     int t_len, int s_len, int n_heads, int n_kv, int causal,
                     int window, float scale) {
-  constexpr int SPLIT = D / kSlice;
+  constexpr int SL = kSlice<D>;
+  constexpr int SPLIT = D / SL;
   constexpr int kThreads = kTile * SPLIT;
   __shared__ __align__(16) float s_k[kStep][D];
   __shared__ __align__(16) float s_v[kStep][D];
 
   const int tid = threadIdx.x;
-  const int i = tid / SPLIT, d0 = (tid % SPLIT) * kSlice;
+  const int i = tid / SPLIT, d0 = (tid % SPLIT) * SL;
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int g = h / (n_heads / n_kv);
   const int q0 = blockIdx.y * kTile;
@@ -309,9 +328,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_off = (int64_t)b * s_len * kv_row + (int64_t)g * D;
   const int64_t lrow = ((int64_t)b * n_heads + h) * t_len;
 
-  float qr[kSlice], dor[kSlice], acc[kSlice];
+  float qr[SL], dor[SL], acc[SL];
 #pragma unroll
-  for (int d = 0; d < kSlice; ++d) {
+  for (int d = 0; d < SL; ++d) {
     qr[d] = row_in ? to_f(q[q_at + d]) * scale : 0.f;
     dor[d] = row_in ? to_f(dout[q_at + d]) : 0.f;
     acc[d] = 0.f;
@@ -336,12 +355,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     for (int jj = 0; jj < kStep; ++jj) {
-      float kv[kSlice], vv[kSlice];
-      load16(kv, &s_k[jj][d0]);
-      load16(vv, &s_v[jj][d0]);
+      float kv[SL], vv[SL];
+      load_slice(kv, &s_k[jj][d0]);
+      load_slice(vv, &s_v[jj][d0]);
       float sp = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < kSlice; ++d) {
+      for (int d = 0; d < SL; ++d) {
         sp = fmaf(qr[d], kv[d], sp);
         dp = fmaf(dor[d], vv[d], dp);
       }
@@ -351,12 +370,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool kept = live && kp < s_len && keep(qp, kp, causal, window);
       const float ds = kept ? __expf(sp - l) * (dp - dsr) : 0.f;
 #pragma unroll
-      for (int d = 0; d < kSlice; ++d) acc[d] = fmaf(ds, kv[d], acc[d]);
+      for (int d = 0; d < SL; ++d) acc[d] = fmaf(ds, kv[d], acc[d]);
     }
   }
   if (row_in) {
 #pragma unroll
-    for (int d = 0; d < kSlice; ++d) dq[q_at + d] = from_f<T>(acc[d] * scale);
+    for (int d = 0; d < SL; ++d) dq[q_at + d] = from_f<T>(acc[d] * scale);
   }
 }
 
@@ -369,6 +388,20 @@ constexpr int kStepB = 64;   // rows (dK/dV) or keys (dQ) a stage holds
 constexpr int kThreadsB = 128;  // 4 warps, 16 keys or rows each
 constexpr int kPad = 8;      // bf16 elements of padding a shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Up to D = 64 a warp holds its 16 keys' K and V (dK/dV) or its 16 rows'
+// Q and dO (dQ) in registers as A fragments, D/4 registers each.  Past 64
+// they stay in shared memory and each k-step loads its A fragment by
+// `ldmatrix`: beside the D/2-float dK and dV accumulators they would take
+// 256 registers at D = 128 (and spill at D = 80, where D = 64 already
+// takes 254).
+template <int D>
+constexpr bool kAInRegs = D <= 64;
+// The q rows a dK/dV warp's S^T and dP^T tiles span at once (within a
+// stage of kStepB): 64 up to D = 80; 32 at D = 128, where 2 x 16 floats of
+// S^T and dP^T sit beside 128 floats of dK and dV accumulators.
+template <int D>
+constexpr int kSubB = D <= 80 ? 64 : 32;
 
 // rows [row0, row0 + kStepB) of a (rows, D) slab with `stride` elements
 // between rows -> shared memory; rows >= n_rows are zero-filled.
@@ -406,23 +439,41 @@ __device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
     ldsm_x4(f[kc], &t[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
 }
 
-// acc (16 x kStepB) += A (16 x D, fragments) * t^T, t a staged (kStepB, D)
-// tile: the B fragments of rows as columns, by `ldmatrix`
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&acc)[kStepB / 8][4],
+// acc (16 x N) += A (16 x D) * t^T, t N staged rows of D: the B fragments
+// of rows as columns, by `ldmatrix`.  A: fragments in registers, or the
+// warp's 16 rows of the staged tile `ta`, loaded a k-step at a time.
+template <int D, int N>
+__device__ __forceinline__ void mma_kstep(float (&acc)[N / 8][4],
+                                          const uint32_t (&a)[4],
+                                          const bf16 (*t)[D + kPad], int kc,
+                                          int lane) {
+#pragma unroll
+  for (int jp = 0; jp < N / 16; ++jp) {
+    uint32_t b[4];  // n tiles 2jp and 2jp + 1
+    ldsm_x4(b, &t[jp * 16 + (lane & 7) + ((lane >> 4) << 3)]
+                 [kc * 16 + ((lane >> 3) & 1) * 8]);
+    mma_bf16(acc[2 * jp], a, b[0], b[1]);
+    mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+  }
+}
+template <int D, int N>
+__device__ __forceinline__ void mma_rows(float (&acc)[N / 8][4],
                                          const uint32_t (&a)[D / 16][4],
                                          const bf16 (*t)[D + kPad],
                                          int lane) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
+  for (int kc = 0; kc < D / 16; ++kc) mma_kstep<D, N>(acc, a[kc], t, kc, lane);
+}
+template <int D, int N>
+__device__ __forceinline__ void mma_rows(float (&acc)[N / 8][4],
+                                         const bf16 (*ta)[D + kPad],
+                                         const bf16 (*t)[D + kPad], int warp,
+                                         int lane) {
 #pragma unroll
-    for (int jp = 0; jp < kStepB / 16; ++jp) {
-      uint32_t b[4];  // n tiles 2jp and 2jp + 1
-      ldsm_x4(b, &t[jp * 16 + (lane & 7) + ((lane >> 4) << 3)]
-                   [kc * 16 + ((lane >> 3) & 1) * 8]);
-      mma_bf16(acc[2 * jp], a[kc], b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a[kc], b[2], b[3]);
-    }
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];
+    ldsm_x4(a, &ta[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
+    mma_kstep<D, N>(acc, a, t, kc, lane);
   }
 }
 
@@ -436,16 +487,16 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
-// acc (16 x D) += X (16 x kStepB, float32 accumulators split into two bf16
-// terms as A fragments) * t, t a staged (kStepB, D) tile read by
+// acc (16 x D) += X (16 x N, float32 accumulators split into two bf16
+// terms as A fragments) * t, t N staged rows of D read by
 // `ldmatrix.trans`: two products, hi then lo
-template <int D>
+template <int D, int N>
 __device__ __forceinline__ void mma_cols(float (&acc)[D / 8][4],
-                                         const float (&x)[kStepB / 8][4],
+                                         const float (&x)[N / 8][4],
                                          const bf16 (*t)[D + kPad],
                                          int lane) {
 #pragma unroll
-  for (int kc = 0; kc < kStepB / 16; ++kc) {
+  for (int kc = 0; kc < N / 16; ++kc) {
     uint32_t hi[4], lo[4];
     split_bf16(x[2 * kc][0], x[2 * kc][1], hi[0], lo[0]);
     split_bf16(x[2 * kc][2], x[2 * kc][3], hi[1], lo[1]);
@@ -502,6 +553,14 @@ struct DkdvStage {
   float lse[2][kStepB];
   float dsum[2][kStepB];
 };
+template <int D>
+struct DkdvStageKV : DkdvStage<D> {  // K and V kept staged (D > 64)
+  bf16 k[kTB][D + kPad];
+  bf16 v[kTB][D + kPad];
+};
+template <int D>
+using DkdvSmem =
+    typename std::conditional<kAInRegs<D>, DkdvStage<D>, DkdvStageKV<D>>::type;
 
 // dK, dV: one CTA per (b, kv head, 64-key tile), the first key tiles (the
 // heaviest under a causal band) first
@@ -516,7 +575,8 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            int t_len, int s_len, int n_heads, int n_kv,
                            int causal, int window, float scale) {
-  __shared__ __align__(128) DkdvStage<D> s;
+  constexpr int kSub = kSubB<D>;
+  DkdvSmem<D>& s = shared_stage<DkdvSmem<D>>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
   const int b = blockIdx.x / n_kv, g = blockIdx.x % n_kv;
@@ -551,17 +611,25 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     stage_floats(s.dsum[buf], dsum + lrow, q0, t_len);
   };
 
-  // K and V through buffer 1 into A fragments; the first q tile to buffer 0
-  stage_rows<D>(s.q[1], k + kv_off, k0, s_len, kv_row);
-  stage_rows<D>(s.dout[1], v + kv_off, k0, s_len, kv_row);
+  // K and V through buffer 1 into A fragments (or to their own tiles);
+  // the first q tile to buffer 0
+  if constexpr (kAInRegs<D>) {
+    stage_rows<D>(s.q[1], k + kv_off, k0, s_len, kv_row);
+    stage_rows<D>(s.dout[1], v + kv_off, k0, s_len, kv_row);
+  } else {
+    stage_rows<D>(s.k, k + kv_off, k0, s_len, kv_row);
+    stage_rows<D>(s.v, v + kv_off, k0, s_len, kv_row);
+  }
   if (qt_first < n_qt) stage(0, 0, qt_first);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, s.q[1], warp, lane);
-  load_a<D>(vf, s.dout[1], warp, lane);
-  __syncthreads();
+  uint32_t kf[kAInRegs<D> ? D / 16 : 1][4], vf[kAInRegs<D> ? D / 16 : 1][4];
+  if constexpr (kAInRegs<D>) {
+    load_a<D>(kf, s.q[1], warp, lane);
+    load_a<D>(vf, s.dout[1], warp, lane);
+    __syncthreads();
+  }
 
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -595,51 +663,66 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     const bool inside = (!causal || k0 + kTB - 1 <= q0) &&
                         (window <= 0 || k0 > q_hi - window);
 
-    // S^T = K Q^T (16 keys x 64 rows), then P^T in place
-    float st[kStepB / 8][4];
+    // kSub rows of the stage at a time
 #pragma unroll
-    for (int j = 0; j < kStepB / 8; ++j)
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-    mma_rows<D>(st, kf, tq, lane);
+    for (int sub = 0; sub < kStepB; sub += kSub) {
+      const bf16(*sq)[D + kPad] = tq + sub;
+      const bf16(*sdo)[D + kPad] = tdo + sub;
+      // S^T = K Q^T (16 keys x kSub rows), then P^T in place
+      float st[kSub / 8][4];
 #pragma unroll
-    for (int j = 0; j < kStepB / 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(&sl[j * 8 + tc * 2]);
+      for (int j = 0; j < kSub / 8; ++j)
+        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+      if constexpr (kAInRegs<D>)
+        mma_rows<D, kSub>(st, kf, sq, lane);
+      else
+        mma_rows<D, kSub>(st, s.k, sq, warp, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lv = (e & 1) ? l.y : l.x;
-        const float x = fast_exp2(fmaf(st[j][e], sl2, -lv * kLog2e));
-        if (inside) {
-          st[j][e] = x;
-        } else {
-          const int qp = q0 + j * 8 + tc * 2 + (e & 1);
-          const bool kept =
-              qp < t_len && keep(qp, kp[e >> 1], causal, window);
-          st[j][e] = kept ? x : (lv <= 0.5f * kNegInf ? inv_s : 0.f);
+      for (int j = 0; j < kSub / 8; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(&sl[sub + j * 8 + tc * 2]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lv = (e & 1) ? l.y : l.x;
+          const float x = fast_exp2(fmaf(st[j][e], sl2, -lv * kLog2e));
+          if (inside) {
+            st[j][e] = x;
+          } else {
+            const int qp = q0 + sub + j * 8 + tc * 2 + (e & 1);
+            const bool kept =
+                qp < t_len && keep(qp, kp[e >> 1], causal, window);
+            st[j][e] = kept ? x : (lv <= 0.5f * kNegInf ? inv_s : 0.f);
+          }
         }
       }
-    }
-    // dV += P^T dO
-    mma_cols<D>(dva, st, tdo, lane);
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in place (0 for a row
-    // with no key in its band)
-    float dpt[kStepB / 8][4];
+      // dV += P^T dO
+      mma_cols<D, kSub>(dva, st, sdo, lane);
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in place (0 for a row
+      // with no key in its band)
+      float dpt[kSub / 8][4];
 #pragma unroll
-    for (int j = 0; j < kStepB / 8; ++j)
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-    mma_rows<D>(dpt, vf, tdo, lane);
+      for (int j = 0; j < kSub / 8; ++j)
+        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+      if constexpr (kAInRegs<D>)
+        mma_rows<D, kSub>(dpt, vf, sdo, lane);
+      else
+        mma_rows<D, kSub>(dpt, s.v, sdo, warp, lane);
 #pragma unroll
-    for (int j = 0; j < kStepB / 8; ++j) {
-      const float2 dd = *reinterpret_cast<const float2*>(&sd[j * 8 + tc * 2]);
-      const float2 l = *reinterpret_cast<const float2*>(&sl[j * 8 + tc * 2]);
+      for (int j = 0; j < kSub / 8; ++j) {
+        const float2 dd =
+            *reinterpret_cast<const float2*>(&sd[sub + j * 8 + tc * 2]);
+        const float2 l =
+            *reinterpret_cast<const float2*>(&sl[sub + j * 8 + tc * 2]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float ds = st[j][e] * (dpt[j][e] - ((e & 1) ? dd.y : dd.x));
-        dpt[j][e] = (inside || ((e & 1) ? l.y : l.x) > 0.5f * kNegInf)
-                        ? ds : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const float ds = st[j][e] * (dpt[j][e] - ((e & 1) ? dd.y : dd.x));
+          dpt[j][e] = (inside || ((e & 1) ? l.y : l.x) > 0.5f * kNegInf)
+                          ? ds : 0.f;
+        }
       }
+      // dK += dS^T Q
+      mma_cols<D, kSub>(dka, dpt, sq, lane);
     }
-    // dK += dS^T Q
-    mma_cols<D>(dka, dpt, tq, lane);
     __syncthreads();  // this buffer is consumed before it is loaded again
     r = r_next, qt = qt_next, buf ^= 1;
   }
@@ -656,6 +739,14 @@ struct DqStage {
   bf16 k[2][kStepB][D + kPad];
   bf16 v[2][kStepB][D + kPad];
 };
+template <int D>
+struct DqStageQO : DqStage<D> {  // Q and dO kept staged (D > 64)
+  bf16 q[kTB][D + kPad];
+  bf16 dout[kTB][D + kPad];
+};
+template <int D>
+using DqSmem =
+    typename std::conditional<kAInRegs<D>, DqStage<D>, DqStageQO<D>>::type;
 
 // dQ: one CTA per (b, head, 64-row q tile), the last tiles (the heaviest
 // under a causal band) first
@@ -670,7 +761,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          bf16* __restrict__ dq, int t_len, int s_len,
                          int n_heads, int n_kv, int causal, int window,
                          float scale) {
-  __shared__ __align__(128) DqStage<D> s;
+  DqSmem<D>& s = shared_stage<DqSmem<D>>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
@@ -689,10 +780,15 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   if (window > 0) k_begin = max(q0 - window + 1, 0) / kStepB * kStepB;
   const int n_tiles = max(k_end - k_begin + kStepB - 1, 0) / kStepB;
 
-  // Q and dO through buffer 1 into A fragments; the first K/V tile to
-  // buffer 0
-  stage_rows<D>(s.k[1], q + q_off, q0, t_len, q_row);
-  stage_rows<D>(s.v[1], dout + q_off, q0, t_len, q_row);
+  // Q and dO through buffer 1 into A fragments (or to their own tiles);
+  // the first K/V tile to buffer 0
+  if constexpr (kAInRegs<D>) {
+    stage_rows<D>(s.k[1], q + q_off, q0, t_len, q_row);
+    stage_rows<D>(s.v[1], dout + q_off, q0, t_len, q_row);
+  } else {
+    stage_rows<D>(s.q, q + q_off, q0, t_len, q_row);
+    stage_rows<D>(s.dout, dout + q_off, q0, t_len, q_row);
+  }
   if (n_tiles > 0) {
     stage_rows<D>(s.k[0], k + kv_off, k_begin, s_len, kv_row);
     stage_rows<D>(s.v[0], v + kv_off, k_begin, s_len, kv_row);
@@ -700,10 +796,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a<D>(qf, s.k[1], warp, lane);
-  load_a<D>(dof, s.v[1], warp, lane);
-  __syncthreads();
+  uint32_t qf[kAInRegs<D> ? D / 16 : 1][4], dof[kAInRegs<D> ? D / 16 : 1][4];
+  if constexpr (kAInRegs<D>) {
+    load_a<D>(qf, s.k[1], warp, lane);
+    load_a<D>(dof, s.v[1], warp, lane);
+    __syncthreads();
+  }
 
   // this thread's two rows: lse (base 2), D, and whether a key is kept
   const int qp[2] = {q0 + warp * 16 + gr, q0 + warp * 16 + gr + 8};
@@ -741,8 +839,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     for (int j = 0; j < kStepB / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-    mma_rows<D>(sc, qf, s.k[buf], lane);
-    mma_rows<D>(dp, dof, s.v[buf], lane);
+    if constexpr (kAInRegs<D>) {
+      mma_rows<D, kStepB>(sc, qf, s.k[buf], lane);
+      mma_rows<D, kStepB>(dp, dof, s.v[buf], lane);
+    } else {
+      mma_rows<D, kStepB>(sc, s.q, s.k[buf], warp, lane);
+      mma_rows<D, kStepB>(dp, s.dout, s.v[buf], warp, lane);
+    }
     const bool inside = kb + kStepB <= s_len &&
                         (!causal || kb + kStepB - 1 <= q0) &&
                         (window <= 0 || kb > q_hi - window);
@@ -765,7 +868,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       }
     }
     // dQ += dS K
-    mma_cols<D>(dqa, sc, s.k[buf], lane);
+    mma_cols<D, kStepB>(dqa, sc, s.k[buf], lane);
     __syncthreads();  // this buffer is consumed before it is loaded again
   }
 
@@ -792,20 +895,26 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err) return err;
   if constexpr (std::is_same<T, bf16>::value) {
     const dim3 g_kv(batch * n_kv, (s_len + kTB - 1) / kTB);
-    flash_bwd_dkdv_bf16_kernel<D><<<g_kv, kThreadsB, 0, stream>>>(
+    constexpr int smem_kv = dynamic_smem_bytes<DkdvSmem<D>>();
+    err = allow_dynamic_smem<flash_bwd_dkdv_bf16_kernel<D>, smem_kv>();
+    if (err) return err;
+    flash_bwd_dkdv_bf16_kernel<D><<<g_kv, kThreadsB, smem_kv, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
         (const float*)lse, dsum, (bf16*)dk, (bf16*)dv, t_len, s_len,
         n_heads, n_kv, causal, window, scale);
     err = (int)cudaGetLastError();
     if (err) return err;
     const dim3 g_q(batch * n_heads, (t_len + kTB - 1) / kTB);
-    flash_bwd_dq_bf16_kernel<D><<<g_q, kThreadsB, 0, stream>>>(
+    constexpr int smem_q = dynamic_smem_bytes<DqSmem<D>>();
+    err = allow_dynamic_smem<flash_bwd_dq_bf16_kernel<D>, smem_q>();
+    if (err) return err;
+    flash_bwd_dq_bf16_kernel<D><<<g_q, kThreadsB, smem_q, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
         (const float*)lse, dsum, (bf16*)dq, t_len, s_len, n_heads, n_kv,
         causal, window, scale);
     return (int)cudaGetLastError();
   } else {
-    constexpr int kThreads = kTile * (D / kSlice);
+    constexpr int kThreads = kTile * (D / kSlice<D>);
     const dim3 g_kv(batch * n_kv, (s_len + kTile - 1) / kTile);
     flash_bwd_dkdv_kernel<D, T><<<g_kv, kThreads, 0, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
@@ -866,6 +975,14 @@ extern "C" int flash_attention_bwd_launch(
       return launch_dtype<64>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
                               dv, ds, batch, t_len, s_len, n_heads, n_kv,
                               causal, window, scale, st);
+    case 80:
+      return launch_dtype<80>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
+                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
+                              causal, window, scale, st);
+    case 128:
+      return launch_dtype<128>(is_bf16, q, k, v, o, o_f32, lse, dout, dq,
+                               dk, dv, ds, batch, t_len, s_len, n_heads,
+                               n_kv, causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -46,7 +46,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64)          # the kernel's compiled head dims
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernels' compiled head dims
 
 flash_attention_plain = ref.attention
 

@@ -8,9 +8,12 @@ The port of the JAX package's ``launch/serve.py``, with ``--device``
 falls back) and ``--seed`` (parameters from a seeded ``torch.Generator`` on
 the device, prompt tokens from numpy).  Parameters are bfloat16, as in the
 JAX launcher.  The batch is the JAX launcher's: prompt tokens, or
-embeddings for a model fed by a stub frontend, and for an
-encoder-decoder (whisper) also ``prompt_len`` frame embeddings for the
-encoder, normal draws from numpy in bfloat16.  Prints the prefill and
+embeddings for a model fed by a stub frontend (qwen2-vl's patch
+embeddings, (B, T, D); its decode steps embed the generated tokens), and
+for an encoder-decoder (whisper) also ``prompt_len`` frame embeddings for
+the encoder, normal draws from numpy in bfloat16.  A sliding-window model
+(h2o-danube) whose prompt and generation outrun the window decodes
+through ring caches of the window's length.  Prints the prefill and
 decode walls and tokens per second.
 """
 from __future__ import annotations

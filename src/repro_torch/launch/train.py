@@ -18,8 +18,8 @@ seeded per step from (``--seed``, step), so a resumed run sees the batches
 an uninterrupted one would; their numbers differ from ``jax.random``'s, so
 a run does not reproduce the JAX launcher's batches.  The batches are
 tokens only, as the JAX launcher's: a model that takes encoder inputs or
-embeddings (whisper) is refused before any step, where the JAX launcher
-fails inside its first.
+embeddings (whisper, qwen2-vl) is refused before any step, where the JAX
+launcher fails inside its first.
 """
 from __future__ import annotations
 

@@ -1,22 +1,36 @@
-"""GQA self-attention with full-length KV caches, and cross-attention.
+"""GQA self-attention with full-length and ring KV caches, and
+cross-attention.
 
 The port of the JAX package's ``models/attention.py`` for self-attention
 and for the encoder-decoder's cross-attention (whisper).  Cache layout per
 layer: {"k": (B, S, KV, Dh), "v": (B, S, KV, Dh), "pos": (B, S) int32
-absolute positions (-1 = empty)}.  Keys are stored post-RoPE (absolute
-rotary), the standard serving convention.
+absolute positions (-1 = empty)}.  A *ring* cache is the same structure
+with S = window; slot = pos % window.  Keys are stored post-RoPE (absolute
+rotary), the standard serving convention.  Positions are (B, T), or
+(3, B, T) for M-RoPE (qwen2-vl), whose temporal stream ``positions[0]``
+does the masking and the cache bookkeeping, as in the JAX package.
 
 * **Prefill and train** call ``ops.attention(q, k, v, causal=cfg.causal,
   window=cfg.window)``: the flash kernel on the card, ``ref.attention`` on
-  the CPU.  This computes what the JAX package's ``_sdpa_full`` and
-  ``_sdpa_chunked`` compute over the prompt: prefill positions are always
-  ``default_positions`` (the model's ``forward`` takes no others outside
-  decode), so query and key position ``i`` is index ``i``, and the kernel's
-  masks by index (``k <= q`` causal, ``k > q - window``) equal ``_mask``
-  over those positions, with no empty slots among the prompt's keys.
-* **Decode** (T = 1 against the padded cache, empty slots pos = -1) stays a
-  plain product over the whole cache (``_sdpa_full``), as in the JAX
-  package, which computes it outside any Pallas kernel.
+  the CPU.  This computes what the JAX package's ``_sdpa_full``,
+  ``_sdpa_chunked`` and ``_sdpa_banded`` compute over the prompt: prefill
+  positions are always the default ones (the model's ``forward`` takes no
+  others whose temporal stream is not the index), so query and key
+  position ``i`` is index ``i``, and the kernel's masks by index
+  (``k <= q`` causal, ``k > q - window``) equal ``_mask`` over those
+  positions, with no empty slots among the prompt's keys.  The kernel
+  skips the key tiles outside a window's band, as ``_sdpa_banded`` skips
+  its chunks.
+* **Prefill's cache** (``_prefill_cache``), the JAX package's rule: with
+  ``clen = cache_len_for(cfg, max(cache_len, T))`` below T (a window
+  shorter than the prompt), the last ``clen`` positions, rolled so that
+  slot = pos % clen (``_ring_tail``); else the prompt padded to ``clen``
+  slots, which for a window shorter than ``cache_len`` is a ring that
+  decode wraps.
+* **Decode** (T = 1 against the padded or ring cache, empty slots pos =
+  -1) stays a plain product over the whole cache (``_sdpa_full``), as in
+  the JAX package, which computes it outside any Pallas kernel; the new
+  key lands in slot pos % S, which wraps a ring.
 * **The cache is written in place at decode**: ``_write_slot`` stores the
   new key, value and position into the caller's cache tensors, where the
   JAX package donates the cache to the decode step and gets a new one.
@@ -29,9 +43,8 @@ rotary), the standard serving convention.
   (``cross_cache_specs``).  Decode reads that cache through ``_sdpa_full``
   and never writes it.
 
-Softcap, qk-norm, M-RoPE and ring caches for windows shorter than the
-sequence wait for the families that need them; such a config raises
-``NotImplementedError``.
+Softcap and qk-norm wait for the family that needs them (gemma3); such a
+config raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,8 +68,7 @@ NEG_INF = -1e30
 
 
 def _supported(cfg: AttnCfg):
-    for name, on in (("softcap", cfg.softcap), ("qk_norm", cfg.qk_norm),
-                     ("M-RoPE", cfg.mrope_section)):
+    for name, on in (("softcap", cfg.softcap), ("qk_norm", cfg.qk_norm)):
         if on:
             raise NotImplementedError(
                 f"attention: {name} waits for the family that needs it")
@@ -155,10 +167,12 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
     """Returns (out (B,T,D), new_cache).
 
     mode='train'   : no cache.
-    mode='prefill' : builds the cache with capacity ``cache_len`` (>= T;
-                     empty slots pos=-1) so decode steps append.
+    mode='prefill' : builds the cache (a ring of the last ``window``
+                     positions when the window is shorter than the
+                     prompt) with capacity ``cache_len`` (>= T; empty
+                     slots pos=-1) so decode steps append.
     mode='decode'  : T == 1; writes the cache IN PLACE at ``positions``
-                     (B,1) and returns it.
+                     (B,1) or (3,B,1), slot pos % S, and returns it.
     Cross-attention (cfg.cross): keys/values come from ``enc_kv``, the
     encoder's hidden states (B, S_enc, D), cached wholesale at prefill and
     read, not written, at decode.
@@ -169,37 +183,50 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
                                 mode=mode)
     b, t, _ = x.shape
     q, k, v = _project(params, x, cfg, positions)
+    # masking and cache bookkeeping use the temporal stream for M-RoPE
+    mask_pos = positions[0] if positions.dim() == 3 else positions
 
     if mode == "decode":
         if cache is None or t != 1:
             raise ValueError("attention: decode takes T == 1 and a cache")
-        slot = positions[:, 0].long() % cache["k"].shape[1]
+        slot = mask_pos[:, 0].long() % cache["k"].shape[1]   # ring or full
         _write_slot(cache["k"], k[:, 0], slot)
         _write_slot(cache["v"], v[:, 0], slot)
-        _write_slot(cache["pos"], positions[:, 0], slot)
+        _write_slot(cache["pos"], mask_pos[:, 0], slot)
         new_cache = cache
-        out = _sdpa_full(q, cache["k"], cache["v"], positions, cache["pos"],
+        out = _sdpa_full(q, cache["k"], cache["v"], mask_pos, cache["pos"],
                          cfg)
     else:
         new_cache = None
         if mode == "prefill":
-            want = max(cache_len or t, t)
-            clen = cache_len_for(cfg, want)
-            if clen < want:
-                raise NotImplementedError(
-                    "attention: ring caches (window shorter than the "
-                    "sequence) wait for the family that needs them")
-            pad = clen - t
-            new_cache = {
-                "k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
-                "pos": F.pad(positions.to(torch.int32), (0, pad), value=-1),
-            }
+            new_cache = _prefill_cache(
+                k, v, mask_pos, cache_len_for(cfg, max(cache_len or t, t)))
         out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window)
 
     wo = params["wo"]
     out = out.reshape(b, t, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
     return out, new_cache
+
+
+def _prefill_cache(k, v, pos, clen: int) -> dict:
+    """The cache prefill leaves, of ``clen`` slots: a ring of the last
+    ``clen`` positions where the prompt is longer, else the prompt padded
+    (empty slots pos = -1)."""
+    t = k.shape[1]
+    if clen < t:
+        return {"k": _ring_tail(k, clen), "v": _ring_tail(v, clen),
+                "pos": _ring_tail(pos.to(torch.int32), clen)}
+    pad = clen - t
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+            "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+            "pos": F.pad(pos.to(torch.int32), (0, pad), value=-1)}
+
+
+def _ring_tail(arr, clen: int):
+    """The last ``clen`` positions of (B, T, ...), laid out so that
+    absolute position p sits at slot p % clen (contiguous)."""
+    t = arr.shape[1]
+    return torch.roll(arr[:, t - clen:], shifts=(t - clen) % clen, dims=1)
 
 
 def _write_slot(buf, val, slot):

@@ -1,7 +1,6 @@
-"""Shared model components: RMSNorm, RoPE, embedding specs.
+"""Shared model components: RMSNorm, RoPE (with M-RoPE), embedding specs.
 
-The port of the JAX package's ``models/common.py``; M-RoPE waits for the
-family that needs it."""
+The port of the JAX package's ``models/common.py``."""
 from __future__ import annotations
 
 import torch
@@ -45,12 +44,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                mrope_section: tuple[int, ...] | None = None) -> torch.Tensor:
     """Rotate pairs (x[..., :half], x[..., half:]).
 
-    x: (B, T, H, D). positions: (B, T)."""
-    if mrope_section is not None:
-        raise NotImplementedError("M-RoPE waits for the family that needs it")
+    x: (B, T, H, D). positions: (B, T) — or (3, B, T) for M-RoPE, where the
+    head-dim half is split into ``mrope_section`` chunks rotated by the
+    t/h/w position streams respectively (Qwen2-VL)."""
     d = x.shape[-1]
     half = d // 2
-    ang = _rope_angles(positions, d, theta)               # (B, T, half)
+    if mrope_section is None:
+        ang = _rope_angles(positions, d, theta)           # (B, T, half)
+    else:
+        if positions.dim() != 3 or positions.shape[0] != len(mrope_section):
+            raise ValueError(f"apply_rope: M-RoPE takes ({len(mrope_section)}"
+                             f", B, T) positions, got "
+                             f"{tuple(positions.shape)}")
+        ang = torch.cat([
+            _mrope_part(positions[i], sec, d, theta, sum(mrope_section[:i]))
+            for i, sec in enumerate(mrope_section)], dim=-1)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
@@ -58,9 +66,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def default_positions(batch: int, seq: int, device=None) -> torch.Tensor:
-    return torch.arange(seq, dtype=torch.int32,
-                        device=device)[None].expand(batch, seq)
+def _mrope_part(pos: torch.Tensor, sec: int, d: int, theta: float,
+                offset: int) -> torch.Tensor:
+    """Frequencies for an M-RoPE section use the *global* frequency ladder
+    (indices offset..offset+sec of the d//2 ladder), per Qwen2-VL."""
+    half = d // 2
+    idx = torch.arange(offset, offset + sec, dtype=torch.float32,
+                       device=pos.device)
+    freqs = theta ** (-idx / half)
+    return pos[..., None].float() * freqs
+
+
+def default_positions(batch: int, seq: int, device=None,
+                      mrope: bool = False) -> torch.Tensor:
+    """(B, T) int32 indices, or the same for each of the three M-RoPE
+    streams, (3, B, T), with ``mrope``."""
+    p = torch.arange(seq, dtype=torch.int32, device=device)[None].expand(
+        batch, seq)
+    return p[None].expand(3, batch, seq) if mrope else p
 
 
 # ---------------------------------------------------------------------------

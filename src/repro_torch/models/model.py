@@ -14,8 +14,11 @@ An encoder-decoder (``cfg.encoder``, whisper) runs its encoder stack over
 frame embeddings (B, S_enc, D) in train mode at default positions,
 non-causal, then the decoder with cross-attention over the result;
 ``forward`` also takes embeddings (B, T, D) as its inputs, for the models
-fed by a stub frontend (``cfg.embed_inputs`` False).  M-RoPE positions
-wait for the family that needs them.
+fed by a stub frontend (``cfg.embed_inputs`` False: qwen2-vl's patch
+embeddings).  An M-RoPE model (qwen2-vl, ``cfg.mrope``) runs on (3, B, T)
+positions, one stream each for time, height and width: the defaults
+repeat the index in all three, and train and prefill also take streams
+of the caller's whose temporal stream is the index.
 
 ``LM`` is the same model as an ``nn.Module`` that owns the tree as
 parameters under the tree's paths.  ``params_from_numpy`` carries a JAX
@@ -95,8 +98,11 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
     counterpart: logits are always float32.)
 
     Train and prefill run at ``default_positions`` (the attention kernel
-    masks by index), so they take no ``positions``; decode takes (B,1)
-    positions (``decode_positions``) and updates ``cache`` in place."""
+    masks by index): they take no ``positions``, except (3,B,T) M-RoPE
+    streams whose temporal stream ``positions[0]`` is the index (the
+    height and width streams only rotate q and k); any other positions
+    raise ``ValueError``.  Decode takes (B,1) positions, (3,B,1) for
+    M-RoPE (``decode_positions``), and updates ``cache`` in place."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward: unknown mode {mode!r}")
     dt = cfg.compute_dtype
@@ -110,14 +116,19 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
                                  device=x.device)
     b, t = x.shape[:2]
 
+    mrope = cfg.mrope
     if mode == "decode":
         if positions is None:
-            raise ValueError("forward: decode needs (B,1) positions")
-    elif positions is not None:
+            raise ValueError("forward: decode needs (B,1) positions "
+                             "((3,B,1) for M-RoPE)")
+    elif positions is None:
+        positions = default_positions(b, t, x.device, mrope)
+    elif not (mrope and tuple(positions.shape) == (3, b, t) and torch.equal(
+            positions[0].to(torch.int32),
+            default_positions(b, t, positions.device))):
         raise ValueError("forward: train and prefill run at default "
-                         "positions")
-    else:
-        positions = default_positions(b, t, x.device)
+                         "positions (for M-RoPE, any (3,B,T) streams whose "
+                         "temporal stream is the index)")
 
     enc = None
     if cfg.encoder is not None and mode != "decode":
@@ -139,9 +150,12 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
     return logits, new_cache
 
 
-def decode_positions(pos, batch: int, device=None) -> torch.Tensor:
-    """pos: scalar int -> (B,1) int32 positions."""
-    return torch.full((batch, 1), int(pos), dtype=torch.int32, device=device)
+def decode_positions(pos, batch: int, device=None,
+                     mrope: bool = False) -> torch.Tensor:
+    """pos: scalar int -> (B,1) int32 positions, or (3,B,1) for M-RoPE
+    (text tokens: the same position in every stream)."""
+    p = torch.full((batch, 1), int(pos), dtype=torch.int32, device=device)
+    return p[None].expand(3, batch, 1) if mrope else p
 
 
 # ---------------------------------------------------------------------------

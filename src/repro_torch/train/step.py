@@ -14,7 +14,9 @@ the jitted step.
 Batches as the JAX package's: "tokens" (B,T), or "inputs" (B,T,D)
 embeddings for a model with ``embed_inputs=False``; an encoder-decoder
 (whisper) takes "tokens" and "enc_inputs" (B,S_enc,D) frame embeddings in
-train and prefill, and decode runs no encoder.
+train and prefill, and decode runs no encoder.  Decode embeds its tokens
+through the table for every model, and an M-RoPE model (qwen2-vl) decodes
+at (3,B,1) positions.
 """
 from __future__ import annotations
 
@@ -132,6 +134,13 @@ def loss_and_grads(cfg: ModelCfg, step_cfg: StepCfg, params, batch):
     inputs, kw = _inputs(cfg, batch)
     flat = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     live = tree_rebuild(params, flat)
+    # the one leaf the loss does not reach by construction: the embedding
+    # table of an untied model fed embeddings (qwen2-vl), which gets a zero
+    # gradient as jax.value_and_grad gives it; any other leaf left
+    # unreached is a fault, and autograd raises for it
+    unreached = (live["embed"] if not cfg.embed_inputs
+                 and not cfg.tie_embeddings else None)
+    reached = [x for x in flat if x is not unreached]
     with torch.enable_grad():
         if step_cfg.loss == "chunked":
             hidden = forward(live, cfg, inputs, mode="train",
@@ -144,8 +153,10 @@ def loss_and_grads(cfg: ModelCfg, step_cfg: StepCfg, params, batch):
                              remat=step_cfg.remat, **kw)
             loss = xent(logits, batch["labels"])
             del logits
-        grads = torch.autograd.grad(loss, flat)
-    return loss.detach(), tree_rebuild(params, list(grads))
+        grads = iter(torch.autograd.grad(loss, reached))
+    return loss.detach(), tree_rebuild(params, [
+        torch.zeros_like(x) if x is unreached else next(grads)
+        for x in flat])
 
 
 def make_train_step(cfg: ModelCfg, opt: OptCfg, step_cfg: StepCfg = StepCfg(),
@@ -186,7 +197,7 @@ def make_decode_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg()):
         with torch.no_grad():
             tokens = batch["tokens"][:, None]                 # (B,1)
             pos = decode_positions(batch["pos"], tokens.shape[0],
-                                   tokens.device)
+                                   tokens.device, cfg.mrope)
             logits, cache = forward(params, cfg, tokens, mode="decode",
                                     cache=cache, positions=pos)
             return logits[:, 0], cache

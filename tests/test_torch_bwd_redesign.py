@@ -3,8 +3,10 @@ the PyTorch port, held against the JAX package on the CPU.
 
 ``csrc/flash_attention_bwd.cu`` runs bfloat16 on the tensor cores: a dK/dV
 kernel over 64-key tiles that walks the group's q heads and the band's
-64-row q tiles, and a dQ kernel over 64-row q tiles that walks the band's
-64-key tiles.  ``_flash_bwd_bf16_model`` repeats that in torch: products of
+64-row q tiles (at D = 128 each staged tile in two halves of 32 rows,
+``kSubB``), and a dQ kernel over 64-row q tiles that walks the band's
+64-key tiles, at head dims 16 to 128 (h2o-danube's 80, qwen2-vl's 128)
+and under windows shorter than T.  ``_flash_bwd_bf16_model`` repeats that in torch: products of
 bf16 values accumulated in float32, P = 2^(S scale log2(e) - lse log2(e)),
 P and dS ROUNDED TO TWO bf16 TERMS each before their products (hi =
 bf16(x), lo = bf16(x - hi), one product each), the scale applied to dK and
@@ -42,6 +44,16 @@ FLASH_BWD_RTOL = 2 ** -8    # chip_smoke.py, bf16 gradients
 SCAN_BWD_RTOL = 1e-4        # chip_smoke.py, the scan's gradients
 LOG2E = 1.4426950408889634
 TILE = 64           # keys (dK/dV) or rows (dQ) a CTA owns, and the step
+FLASH_BWD_SRC = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+
+
+def _sub_rows(d):
+    """The q rows a dK/dV warp's S^T and dP^T span at once at head dim
+    ``d``: the kernel's ``kSubB`` rule, read from the source."""
+    lim, small, large = map(int, re.search(
+        r"constexpr int kSubB = D <= (\d+) \? (\d+) : (\d+);",
+        FLASH_BWD_SRC).groups())
+    return small if d <= lim else large
 
 
 def _share(got, want):
@@ -123,6 +135,7 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
     dk = torch.zeros((b, kvh, s, d))
     dv = torch.zeros((b, kvh, s, d))
     n_qt = -(-t // TILE)
+    sub = _sub_rows(d)
     for k0 in range(0, s, TILE):
         k_hi = min(k0 + TILE, s) - 1
         keys = torch.arange(k0, k0 + TILE)
@@ -148,10 +161,12 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
                 st = kt @ qt_.transpose(-1, -2)                 # (keys, rows)
                 p = torch.exp2(st * sl2 - lt)
                 p = torch.where(kept, p, torch.where(et, 1.0 / s, 0.0))
-                _mma(dva, p, dot, terms)
                 dpt = vt @ dot.transpose(-1, -2)
                 ds = torch.where(et, 0.0, p * (dpt - dt))
-                _mma(dka, ds, qt_, terms)
+                for r0 in range(0, TILE, sub):      # the kernel's sub-steps
+                    part = slice(r0, r0 + sub)
+                    _mma(dva, p[..., part], dot[..., part, :], terms)
+                    _mma(dka, ds[..., part], qt_[..., part, :], terms)
         n = min(TILE, s - k0)
         dk[:, :, k0:k0 + n] = (dka * scale)[:, :, :n]
         dv[:, :, k0:k0 + n] = dva[:, :, :n]
@@ -191,6 +206,10 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
     (100, 100, 4, 2, 16, True, None),     # the reduced llama, ragged T
     (100, 77, 4, 2, 32, False, 24),       # ragged S, non-causal window
     (200, 50, 2, 1, 64, True, 16),        # rows with no key in the band
+    (200, 200, 4, 1, 80, True, 72),       # h2o-danube's head dim, a window
+                                          # shorter than T, GQA 4:1
+    (130, 130, 8, 1, 128, True, None),    # qwen2-vl's head dim, GQA 8:1
+    (150, 90, 2, 1, 128, False, 40),      # T != S, windowed, D = 128
 ])
 def test_flash_bwd_bf16_design_is_inside_the_bf16_tolerance(t, s, h, kv, d,
                                                             causal, window):
@@ -242,7 +261,34 @@ def test_flash_bwd_bf16_design_is_inside_the_bf16_tolerance(t, s, h, kv, d,
 
 @pytest.mark.parametrize("t,s,causal,window", [
     (512, 512, True, None), (300, 300, True, 128), (100, 77, False, 24),
-    (200, 50, True, 16), (70, 130, False, None), (257, 129, True, 1)])
+    (200, 50, True, 16), (70, 130, False, None), (257, 129, True, 1),
+    (1024, 1024, True, 512), (1000, 1000, True, 300)])
+def test_dkdv_walk_covers_every_kept_pair(t, s, causal, window):
+    """The dK/dV kernel's walk (``visit``) reaches exactly the q tiles that
+    hold a kept pair of its key tile or a row with no key in its band, so
+    under a window shorter than T it skips the tiles outside the band
+    (h2o-danube trains on T = 2 windows)."""
+    band = ref._band(t, s, causal, window, "cpu").numpy()
+    skipped = 0
+    for k0 in range(0, s, TILE):
+        k_hi = min(k0 + TILE, s) - 1
+        for q0 in range(0, t, TILE):
+            q_hi = min(q0 + TILE, t) - 1
+            pairs = (not causal or k0 <= q_hi) and \
+                (not window or k_hi > q0 - window)
+            visit = pairs or _row_empty(q_hi, s, causal, window)
+            needed = band[q0:q_hi + 1, k0:k_hi + 1].any() or \
+                not band[q0:q_hi + 1].any(1).all()
+            assert visit == needed, (k0, q0)
+            skipped += not visit
+    if causal and window and t == s and t >= 2 * window:
+        assert skipped > 0          # the tiles before the band
+
+
+@pytest.mark.parametrize("t,s,causal,window", [
+    (512, 512, True, None), (300, 300, True, 128), (100, 77, False, 24),
+    (200, 50, True, 16), (70, 130, False, None), (257, 129, True, 1),
+    (1024, 1024, True, 512), (1000, 1000, True, 300)])
 def test_dq_walk_covers_every_kept_pair(t, s, causal, window):
     """The dQ kernel's band of key tiles holds every kept pair of each q
     tile (rows with no key in their band get dQ = 0 and need none)."""
@@ -446,3 +492,12 @@ def test_flash_bwd_tiles_match_the_kernel():
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert int(re.search(r"constexpr int kTB = (\d+);", src)[1]) == TILE
     assert int(re.search(r"constexpr int kStepB = (\d+);", src)[1]) == TILE
+    # the head dims the wrappers take, each with its sub-step: the whole
+    # stage up to D = 64 (the design as it was), halves of it at 128
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert HEAD_DIMS == (16, 32, 64, 80, 128)
+    subs = {d: _sub_rows(d) for d in HEAD_DIMS}
+    assert subs == {16: 64, 32: 64, 64: 64, 80: 64, 128: 32}
+    assert all(TILE % sub == 0 and sub % 16 == 0 for sub in subs.values())
+    for d in HEAD_DIMS:
+        assert f"case {d}:" in src

@@ -285,17 +285,24 @@ def test_mamba1_layer_prefill_and_decode_match_jax():
 
 
 def test_unported_features_raise():
-    cfg = attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attention.attn_specs(cfg, 32)
+    """Softcap and qk-norm wait for gemma3; ring caches (a window shorter
+    than the cache) are ported: a 6-token prefill under a window of 8 with
+    capacity 12 leaves 8 slots, the last two empty, for decode to wrap."""
+    for name, cfg in (("softcap", attention.AttnCfg(
+            n_heads=2, n_kv=1, head_dim=16, softcap=30.0)),
+            ("qk_norm", attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16,
+                                          qk_norm=True))):
+        with pytest.raises(NotImplementedError, match=name):
+            attention.attn_specs(cfg, 32)
     windowed = attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16, window=8)
     params = {k: torch.zeros(s.shape)
               for k, s in attention.attn_specs(windowed, 32).items()}
     x = torch.zeros((1, 6, 32))
-    with pytest.raises(NotImplementedError, match="ring caches"):
-        attention.attention(params, x, windowed,
-                            positions=common.default_positions(1, 6),
-                            mode="prefill", cache=None, cache_len=12)
+    _, cache = attention.attention(params, x, windowed,
+                                   positions=common.default_positions(1, 6),
+                                   mode="prefill", cache=None, cache_len=12)
+    assert cache["k"].shape == (1, 8, 1, 16)
+    assert cache["pos"].tolist() == [[0, 1, 2, 3, 4, 5, -1, -1]]
 
 
 # ---------------------------------------------------------------------------
