@@ -17,14 +17,18 @@ whisper-medium, the encoder-decoder, at full width and depth: 4 clips of
 greedy decode steps; h2o-danube-1.8b at full width and depth (head dim
 80, a sliding window of 4,096): 4 prompts of 8,192 tokens, twice the
 window, into ring caches of 4,096 slots that the 31 decode steps wrap;
-and qwen2-vl-72b at full width on 16 of its 80 layers (head dim 128,
+qwen2-vl-72b at full width on 16 of its 80 layers (head dim 128,
 M-RoPE): 4 prompts of 512 patch embeddings, then 31 decode steps at
-(3, B, 1) positions.  Training runs llama3.2-1b at full width and depth
-and falcon-mamba-7b at full width on 8 of its 64 layers, with float32
-parameters and AdamW state, on batches of 4 x 512 tokens,
-whisper-medium at full width and depth on 4 x 1,500 frames and 4 x 448
-tokens, and h2o-danube-1.8b at full width and depth on 1 x 8,192
-tokens.
+(3, B, 1) positions; and gemma3-4b and gemma3-12b at full width and depth
+(head dim 256, qk-norm, five local layers of window 1,024 to one global
+layer): 4 prompts of 4,096 tokens into rings of 1,024 slots at the local
+layers and full caches at the global ones, then 31 decode steps.
+Training runs llama3.2-1b at full width and depth and falcon-mamba-7b at
+full width on 8 of its 64 layers, with float32 parameters and AdamW
+state, on batches of 4 x 512 tokens, whisper-medium at full width and
+depth on 4 x 1,500 frames and 4 x 448 tokens, h2o-danube-1.8b at full
+width and depth on 1 x 8,192 tokens, and gemma3-4b at full width on 16
+of its 34 layers (2 of 5 groups and its tail) on 1 x 4,096 tokens.
 
 1. device   the card, its count, its power limit and the float32 matmul
             settings (TF32 off for matmuls and cuDNN);
@@ -49,8 +53,11 @@ tokens.
             prefill shape and at h2o-danube's T of 8,192 and window of
             4,096; the bf16 backward from the bf16 and from the float32
             output against the exact gradient, at h2o-danube's and
-            qwen2-vl's shapes too), and the HAIL slice at the test shape
-            on the card against the CPU;
+            qwen2-vl's shapes too; flash forward and backward at head dim
+            256 in bf16 and float32, causal, non-causal and windowed,
+            T != S, ragged, with a softcap at head dims 64 and 256, and at
+            gemma3's prefill and training shapes), and the HAIL slice at
+            the test shape on the card against the CPU;
 4. eager    HAIL upload + indexed query through the fused reader, against
             the same query over a plain HDFS upload; then the same query
             read by the two standalone primitives (``ops.index_search`` on
@@ -88,14 +95,16 @@ tokens.
             (doc ids and tokens bit-equal to the generated corpus), and
             the first (4, 512) batch, which phase 9 trains on;
 7. serve    each model: prefill + decode through the serve steps, with
-            one flash-attention (llama, 16; h2o-danube, 24; qwen2-vl, 16)
-            or scan (falcon-mamba, 64) launch per layer in prefill
-            (whisper: 72, one a layer of its encoder, two a decoder layer)
-            and none in decode; every layer's output on the kernel route
-            against the plain route from the same input, and the logits of
-            both routes (for h2o-danube on the first prompt); h2o-danube's
-            ring caches slot by slot after prefill and after the last
-            decode step, and against the plain route's; walls, tokens/s,
+            one flash-attention (llama, 16; h2o-danube, 24; qwen2-vl, 16;
+            gemma3-4b, 34; gemma3-12b, 48) or scan (falcon-mamba, 64)
+            launch per layer in prefill (whisper: 72, one a layer of its
+            encoder, two a decoder layer) and none in decode; every layer's
+            output on the kernel route against the plain route from the
+            same input, and the logits of both routes (for h2o-danube and
+            gemma3 on the first prompt); the ring caches of h2o-danube and
+            of gemma3's local layers slot by slot after prefill and after
+            the last decode step, gemma3's full caches at its global
+            layers too, and against the plain route's; walls, tokens/s,
             parameter bytes, peak memory, and one profiled prefill and
             decode step (with the kernel's share of the device time);
 8. times    each kernel's own device time (from the CUDA profiler) against
@@ -108,12 +117,14 @@ tokens.
             and at 64; the two backward kernels at the train shapes, flash
             beside SDPA's backward; flash forward and backward at whisper's
             encoder and cross shapes, at h2o-danube's prefill and training
-            shapes and at qwen2-vl's prefill shape, beside SDPA and its
-            backward);
+            shapes, at qwen2-vl's prefill shape and at gemma3's prefill
+            (4b and 12b) and training (4b) shapes, global and local, beside
+            SDPA and its backward);
 9. train    gradients through the kernels: one llama attention layer,
             one falcon-mamba Mamba1 layer, one whisper decoder layer, one
-            h2o-danube layer on 6,144 tokens (past its window) and one
-            qwen2-vl layer at full width, dx and every parameter gradient
+            h2o-danube layer on 6,144 tokens (past its window), one
+            qwen2-vl layer and a local and a global gemma3-4b layer on
+            2,048 tokens at full width, dx and every parameter gradient
             on the kernel route against the plain route (one forward and
             one backward launch a mixer call); the attention layers again
             in bf16 compute (each attention call's gradients against the
@@ -132,7 +143,9 @@ tokens.
             repeated batch of 4 x 1,500 frames and 4 x 448 tokens (a
             warm-up and 3 counted steps, 72 + 72 flash launches a step),
             h2o-danube-1.8b the same at full width and depth on a repeated
-            1 x 8,192 tokens (24 + 24 a step, windowed);
+            1 x 8,192 tokens (24 + 24 a step, windowed), gemma3-4b on 16
+            of its 34 layers on 1 x 4,096 tokens (16 + 16 a step, 14
+            windowed);
             and a checkpoint round trip of a full-width two-group
             llama train state (bit for bit onto the card, the same loss
             from the restored state, a corrupted leaf falling back to the
@@ -154,6 +167,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -209,6 +223,56 @@ H2O_TRAIN_ATTN = (H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, H2O_TRAIN_SEQ, 32, 8, 80,
                   True, H2O_WINDOW, torch.bfloat16)
 QWEN_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8, 128, True, None,
              torch.bfloat16)
+# gemma3-4b and gemma3-12b (hf:google/gemma-3-*-pt: 34 and 48 layers,
+# widths 2,560 and 3,840, 8 and 16 heads over 4 and 8 KV heads of 256,
+# qk-norm, five local layers of window 1,024 and one global layer a
+# group): 4 prompts of 4,096 tokens, four windows, so the local layers
+# prefill into rings of 1,024 slots that the 31 decode steps wrap while
+# the global layers fill full caches; gemma3-4b trained at full width on
+# 2 of its 5 groups and its 4-layer tail (16 of 34 layers: float32 AdamW
+# state for all 3.88 B parameters is 62 GB) on one sequence of 4,096.
+GEMMA4, GEMMA12 = "gemma3-4b", "gemma3-12b"
+GEMMA_WINDOW = 1024
+GEMMA_PROMPT = 4 * GEMMA_WINDOW
+GEMMA_CHECK_BATCH = 1
+GEMMA_TRAIN_GROUPS, GEMMA_TRAIN_SEQ = 2, 4 * GEMMA_WINDOW
+GEMMA_TRAIN_STEPS = 4           # one of them the warm-up
+GEMMA_LAYER_SEQ = 2 * GEMMA_WINDOW
+GEMMA_LOCAL, GEMMA_GLOBAL = 0, 5    # pattern positions
+# their attention shapes in bf16: each model's prefill at a global
+# (causal) and a local (window 1,024) layer, and the training shape
+GEMMA4_PREFILL_ATTN = (SERVE_BATCH, GEMMA_PROMPT, GEMMA_PROMPT, 8, 4, 256,
+                       True, None, torch.bfloat16)
+GEMMA4_PREFILL_LOCAL_ATTN = GEMMA4_PREFILL_ATTN[:7] + (GEMMA_WINDOW,
+                                                       torch.bfloat16)
+GEMMA12_PREFILL_ATTN = (SERVE_BATCH, GEMMA_PROMPT, GEMMA_PROMPT, 16, 8, 256,
+                        True, None, torch.bfloat16)
+GEMMA12_PREFILL_LOCAL_ATTN = GEMMA12_PREFILL_ATTN[:7] + (GEMMA_WINDOW,
+                                                         torch.bfloat16)
+GEMMA4_TRAIN_ATTN = (1, GEMMA_TRAIN_SEQ, GEMMA_TRAIN_SEQ, 8, 4, 256, True,
+                     None, torch.bfloat16)
+GEMMA4_TRAIN_LOCAL_ATTN = GEMMA4_TRAIN_ATTN[:7] + (GEMMA_WINDOW,
+                                                   torch.bfloat16)
+# Softcap (gemma3's option, which no config sets): phase 3 holds the
+# kernels to the plain versions at this cap on scores of N(0, 1) data at
+# D = 64 and 256, where c tanh(s / c) bends them (a 10th element of a
+# case)
+FLASH_SOFTCAP = 2.0
+GEMMA_D256_CASES = [
+    (2, 100, 100, 8, 4, 256, True, None, torch.bfloat16),
+    (2, 100, 77, 4, 2, 256, False, 24, torch.bfloat16),
+    (1, 300, 300, 8, 4, 256, True, 128, torch.bfloat16),
+    (1, 70, 130, 8, 4, 256, False, None, torch.bfloat16),
+    (2, 97, 161, 8, 4, 256, True, None, torch.bfloat16),
+    (1, 200, 50, 2, 1, 256, True, 16, torch.bfloat16),
+    (2, 100, 77, 4, 2, 256, False, 24, torch.float32),
+    (1, 300, 300, 8, 4, 256, True, 128, torch.float32),
+    (2, 97, 161, 8, 4, 256, True, None, torch.float32),
+    (1, 200, 50, 2, 1, 256, True, 16, torch.float32),
+    (2, 100, 100, 4, 2, 64, True, None, torch.bfloat16, FLASH_SOFTCAP),
+    (2, 100, 77, 4, 2, 64, False, 24, torch.float32, FLASH_SOFTCAP),
+    (1, 300, 300, 8, 4, 256, True, 128, torch.bfloat16, FLASH_SOFTCAP),
+    (2, 97, 161, 8, 4, 256, True, None, torch.float32, FLASH_SOFTCAP)]
 # The plain versions at h2o's T of 8,192 hold the (T, T) float32 scores of
 # every head several times over (34 GB a copy for the prefill's 4 prompts;
 # the backward about 6 copies, reckoned ~52 GB at 32 heads).  So phase 3
@@ -349,9 +413,10 @@ def shape_launches() -> dict:
 
 def ptxas_flash(log: str) -> list:
     """Registers, spills and static shared memory of every flash kernel
-    instantiation (one a head dim) as ``ptxas -v`` reported them in the
-    build: [{"kernel", "head_dim", "registers", "spill_stores",
-    "spill_loads", "static_smem_bytes"}]."""
+    instantiation (one a head dim; the bf16 kernels' with and without the
+    softcap, the dK/dV kernel's passes) as ``ptxas -v`` reported them in
+    the build: [{"kernel", "head_dim", ("pass", "softcap",) "registers",
+    "spill_stores", "spill_loads", "static_smem_bytes"}]."""
     import re
 
     rows, cur = [], None
@@ -359,10 +424,15 @@ def ptxas_flash(log: str) -> list:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = re.search(r"(flash_(?:bf16|f32|bwd_dq|bwd_dkdv|bwd_dq_bf16|"
-                             r"bwd_dkdv_bf16)_kernel)ILi(\d+)E", entry[1])
+                             r"bwd_dkdv_bf16)_kernel)ILi(\d+)E(?:Li(\d)E)?"
+                             r"(?:Lb(\d)E)?", entry[1])
             cur = None
             if name:
                 cur = {"kernel": name[1], "head_dim": int(name[2])}
+                if name[3] is not None:     # the dK/dV kernel's DkdvPass
+                    cur["pass"] = ("dK and dV", "dV", "dK")[int(name[3])]
+                if name[4] is not None:     # the bf16 kernels' kCap
+                    cur["softcap"] = name[4] == "1"
                 rows.append(cur)
             continue
         if cur is None:
@@ -376,7 +446,9 @@ def ptxas_flash(log: str) -> list:
             cur["registers"] = int(used[1])
             smem = re.search(r"(\d+) bytes smem", line)
             cur["static_smem_bytes"] = int(smem[1]) if smem else 0
-    return sorted(rows, key=lambda r: (r["kernel"], r["head_dim"]))
+    return sorted(rows, key=lambda r: (r["kernel"], r["head_dim"],
+                                       r.get("pass", ""),
+                                       r.get("softcap", False)))
 
 
 def nvidia_smi() -> str:
@@ -732,7 +804,7 @@ def float32_o_cost(flash_attention) -> dict:
             code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          bare_o.data_ptr(), None, bare_lse.data_ptr(), b, t,
                          s, h, kv, d, int(causal), -1, 1, 1.0 / math.sqrt(d),
-                         stream)
+                         0.0, stream)
             check(code == 0, f"flash_attention_lse_launch without o32: "
                   f"error {code}")
 
@@ -1044,21 +1116,30 @@ def phase_kernels(rng):
             (1, 300, 300, 32, 8, 80, True, 128, torch.float32),
             (2, 97, 161, 64, 8, 128, True, None, torch.float32),
             (1, 200, 50, 2, 1, 128, True, 16, torch.float32),
-            QWEN_ATTN, H2O_PREFILL_ATTN]:
-        b, t, s, h, kv, d, causal, window, dtype = shape
+            QWEN_ATTN, H2O_PREFILL_ATTN,
+            # head dim 256 (gemma3) in bf16 and float32: causal, windowed
+            # with a window shorter than T, non-causal, T != S, ragged,
+            # GQA 2:1, rows with no key in their band; softcap at D = 64
+            # and 256; then gemma3's prefill shapes, global and local
+            *GEMMA_D256_CASES,
+            GEMMA4_PREFILL_ATTN, GEMMA4_PREFILL_LOCAL_ATTN,
+            GEMMA12_PREFILL_ATTN, GEMMA12_PREFILL_LOCAL_ATTN]:
+        b, t, s, h, kv, d, causal, window, dtype, *cap = shape
+        cap = cap[0] if cap else None
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         got = flash_attention.flash_attention(q, k, v, causal=causal,
-                                              window=window)
+                                              window=window, softcap=cap)
         err = 0.0
         for part in plain_parts(shape):
             want = ref.attention(part_of(part, q), part_of(part, k, True),
                                  part_of(part, v, True), causal=causal,
-                                 window=window)
+                                 window=window, softcap=cap)
             err = max(err, max_abs_err([part_of(part, got)], [want]))
             del want
         torch.cuda.synchronize()
         case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
-               f"causal={causal} window={window}"
+               f"causal={causal} window={window}" \
+               + (f" softcap={cap}" if cap else "")
         if len(plain_parts(shape)) > 1:
             case += " (plain on its first and last prompt)"
         check(err <= FLASH_TOL[dtype], f"flash_attention kernel == plain "
@@ -1122,17 +1203,20 @@ def phase_kernels(rng):
             (1, 300, 300, 32, 8, 80, True, 128, torch.float32),
             (2, 97, 161, 64, 8, 128, True, None, torch.float32),
             (1, 200, 50, 2, 1, 128, True, 16, torch.float32),
-            QWEN_ATTN, H2O_TRAIN_ATTN]:
-        b, t, s, h, kv, d, causal, window, dtype = shape
+            QWEN_ATTN, H2O_TRAIN_ATTN,
+            # head dim 256 as the forward's, and gemma3's training shapes
+            *GEMMA_D256_CASES, GEMMA4_TRAIN_ATTN, GEMMA4_TRAIN_LOCAL_ATTN]:
+        b, t, s, h, kv, d, causal, window, dtype, *cap = shape
+        cap = cap[0] if cap else None
+        mask = dict(causal=causal, window=window, softcap=cap)
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
         do = upstream_grad(q)
-        o, lse, o32 = flash_attention.flash_attention_fwd(
-            q, k, v, causal=causal, window=window)
+        o, lse, o32 = flash_attention.flash_attention_fwd(q, k, v, **mask)
         got = flash_attention.flash_attention_bwd(q, k, v, o32, lse, do,
-                                                  causal=causal,
-                                                  window=window)
+                                                  **mask)
         case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
-               f"causal={causal} window={window}"
+               f"causal={causal} window={window}" \
+               + (f" softcap={cap}" if cap else "")
         if len(plain_parts(shape)) > 1:
             case += " (plain on its first and last 8 heads)"
         check(o32.dtype == torch.float32 and torch.equal(o32.to(dtype), o),
@@ -1145,8 +1229,7 @@ def phase_kernels(rng):
                           part_of(part, v, True))
             o32p, lsep, dop = (part_of(part, o32), part_of(part, lse),
                                part_of(part, do))
-            out_plain, lse_plain, _ = ref.attention_lse(
-                qp, kp, vp, causal=causal, window=window)
+            out_plain, lse_plain, _ = ref.attention_lse(qp, kp, vp, **mask)
             out_err = max(out_err, max_abs_err([part_of(part, o)],
                                                [out_plain]))
             lse_err = max(lse_err, float(
@@ -1158,13 +1241,11 @@ def phase_kernels(rng):
             # its gradient in q's dtype is reported beside it, unchecked:
             # two roundings may land a whole bf16 step apart
             want = ref.attention_bwd(qp.float(), kp.float(), vp.float(),
-                                     o32p, lsep, dop.float(), causal=causal,
-                                     window=window)
+                                     o32p, lsep, dop.float(), **mask)
             rel = list(map(max, rel, grad_shares(gotp, want)))
             abs_err = max(abs_err, max_abs_err(gotp, want))
             del want
-            want = ref.attention_bwd(qp, kp, vp, o32p, lsep, dop,
-                                     causal=causal, window=window)
+            want = ref.attention_bwd(qp, kp, vp, o32p, lsep, dop, **mask)
             rel_bf16 = list(map(max, rel_bf16, grad_shares(gotp, want)))
             del want
             del qp, kp, vp, o32p, lsep, dop, gotp
@@ -1928,21 +2009,36 @@ def share(got, want) -> dict:
     return {"max_abs_err": err, "scale": scale, "share": err / scale}
 
 
-def kernel_calls(cfg) -> int:
-    """Mixer kernel launches in one forward of ``cfg``: one a layer, two a
-    cross layer (its self- and cross-attention), and one an encoder
-    layer."""
-    n = sum((2 if lc.attn is not None and lc.attn.cross else 1)
-            * cfg.stack.n_groups for lc in cfg.stack.pattern)
+def kernel_calls(cfg, tail: bool = True) -> int:
+    """Mixer kernel launches in one forward of ``cfg``: one a layer (the
+    groups' and, with ``tail``, the tail's), two a cross layer (its self-
+    and cross-attention), and one an encoder layer."""
+    def calls(lc):
+        return 2 if lc.attn is not None and lc.attn.cross else 1
+
+    n = sum(calls(lc) * cfg.stack.n_groups for lc in cfg.stack.pattern)
+    if tail:
+        n += sum(calls(lc) for lc in cfg.stack.tail)
     return n + (cfg.encoder.n_layers if cfg.encoder is not None else 0)
 
 
+def stack_layers(sc) -> list:
+    """(layer config, group or None, key) of every layer of a stack, in the
+    order ``apply_stack`` runs them: each group's pattern, then the
+    tail."""
+    return ([(lc, g, f"p{i}") for g in range(sc.n_groups)
+             for i, lc in enumerate(sc.pattern)]
+            + [(lc, None, f"t{i}") for i, lc in enumerate(sc.tail)])
+
+
 def layer_routes(cfg, params, batch) -> dict:
-    """Prefill layer by layer in float32 compute, the encoder's layers
-    (if any) first.  Per layer: its output on the kernel route and on the
-    plain route from the same (plain-route) input ("teacher_forced", the
-    check), and the kernel route run freely from the embedding against the
-    plain route ("free_running", how far the model carries a difference),
+    """Prefill layer by layer in float32 compute (the embedding scaled as
+    the model scales it), the encoder's layers (if any) first, then every
+    layer of the stack in order, its tail's too.  Per layer: its output on
+    the kernel route and on the plain route from the same (plain-route)
+    input ("teacher_forced", the check), and the kernel route run freely
+    from the embedding against the plain route ("free_running", how far
+    the model carries a difference),
     each as a share of the plain output's largest magnitude.  A decoder
     layer's cross-attention reads the plain route's encoder output when
     teacher-forced and the kernel route's when running freely."""
@@ -1956,24 +2052,22 @@ def layer_routes(cfg, params, batch) -> dict:
                 for k, v in tree.items()}
 
     def run(sc, stack_params, x_ref, aux_ref, aux_free, forced, free):
-        (lc,) = sc.pattern
-        check(not sc.tail, "single-pattern stack")
-
-        def layer(x, g, kernels, aux):
+        def layer(x, lc, g, key, kernels, aux):
+            p = (view(stack_params["groups"][key], g) if g is not None
+                 else stack_params["tail"][key])
             ops.use_kernels(kernels)
             try:
-                return apply_layer(lc, view(stack_params["groups"]["p0"], g),
-                                   x, mode="train", cache=None, aux=aux,
-                                   eps=cfg.norm_eps)[0]
+                return apply_layer(lc, p, x, mode="train", cache=None,
+                                   aux=aux, eps=cfg.norm_eps)[0]
             finally:
                 ops.use_kernels(True)
 
         x_free = x_ref
-        for g in range(sc.n_groups):
-            out_ref = layer(x_ref, g, False, aux_ref)
-            forced.append(share(layer(x_ref, g, True, aux_ref),
+        for lc, g, key in stack_layers(sc):
+            out_ref = layer(x_ref, lc, g, key, False, aux_ref)
+            forced.append(share(layer(x_ref, lc, g, key, True, aux_ref),
                                 out_ref)["share"])
-            x_free = layer(x_free, g, True, aux_free)
+            x_free = layer(x_free, lc, g, key, True, aux_free)
             free.append(share(x_free, out_ref)["share"])
             x_ref = out_ref
         return x_ref, x_free
@@ -1989,11 +2083,14 @@ def layer_routes(cfg, params, batch) -> dict:
                 rmsnorm(x, params["enc_norm"], cfg.norm_eps)
                 for x in run(cfg.encoder, params["encoder"], frames, aux,
                              aux, forced, free))
+        scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
         if "tokens" in batch:
-            x = embed_tokens(params["embed"], batch["tokens"], None,
+            x = embed_tokens(params["embed"], batch["tokens"], scale,
                              torch.float32)
         else:                   # a model fed embeddings (qwen2-vl)
             x = batch["inputs"].float()
+            if scale is not None:
+                x = x * scale
         pos = default_positions(*x.shape[:2], x.device, cfg.mrope)
         run(cfg.stack, params["stack"], x,
             {"positions": pos, "enc": enc_ref},
@@ -2034,10 +2131,11 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     first ``check_batch`` prompts, and one profiled prefill and decode
     step.  A windowed model whose prompt outruns its window decodes
     through ring caches: their positions are checked slot by slot after
-    prefill and after the last step, and the kernel route's ring after
-    prefill and one decode step against the plain route's (positions
-    equal, the first layer's keys and values bit for bit: they come from
-    the embedding alone).  Returns the phase's record."""
+    prefill and after the last step, and so are those of the full caches
+    of any global layer beside them (gemma3), and the kernel route's
+    caches after prefill and one decode step against the plain route's
+    (positions equal, the first layer's keys and values bit for bit: they
+    come from the embedding alone).  Returns the phase's record."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
     from repro_torch.kernels import ops
@@ -2050,9 +2148,11 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
         reduced.append(f"n_groups {cfg.stack.n_groups} -> {groups}")
         cfg = dataclasses.replace(cfg, stack=dataclasses.replace(
             cfg.stack, n_groups=groups))
-    window = cfg.stack.pattern[0].attn.window \
-        if cfg.stack.pattern[0].attn is not None else None
-    ring = window is not None and prompt + SERVE_GEN > window
+    capacity = prompt + SERVE_GEN
+    windows = sorted({lc.attn.window for lc in cfg.stack.pattern
+                      + cfg.stack.tail if lc.attn is not None
+                      and lc.attn.window is not None})
+    ring = any(w < capacity for w in windows)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2090,9 +2190,9 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     generated = [tok]
     ring_record = None
     if ring:
-        ring_record = {"window": window,
-                       "after_prefill": ring_positions(cache, window,
-                                                       prompt - 1)}
+        ring_record = {"windows": windows,
+                       "after_prefill": ring_positions(cfg, cache, prompt - 1,
+                                                       capacity)}
     t0 = time.perf_counter()
     for i in range(SERVE_GEN - 1):
         logits, cache = decode(params, cache,
@@ -2105,7 +2205,7 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     finite = finite and bool(torch.isfinite(logits).all())
     if ring:
         ring_record["after_decode"] = ring_positions(
-            cache, window, prompt + SERVE_GEN - 2)
+            cfg, cache, prompt + SERVE_GEN - 2, capacity)
     want_launches = kernel_calls(cfg)
     check(prefill_launches == {kernel: want_launches},
           f"{arch}: launched {prefill_launches} in prefill, want "
@@ -2158,7 +2258,8 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
         routes[name] = share(got, want)
         check(bool(torch.isfinite(got).all()), f"{arch}: {name} finite")
     if ring:
-        ring_record["routes"] = ring_routes(k_cache, p_cache, window, prompt)
+        ring_record["routes"] = ring_routes(cfg, k_cache, p_cache, prompt,
+                                            capacity)
     del k_pre, k_dec, p_pre, p_dec, k_cache, p_cache
 
     profiles = {
@@ -2170,7 +2271,7 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
         prof.pop("host_span_ms")
     record = {
         "arch": arch, "kernel": kernel, "layers": cfg.n_layers,
-        "reduced": reduced, "window": window, "ring": ring_record,
+        "reduced": reduced, "windows": windows, "ring": ring_record,
         "encoder_layers": 0 if cfg.encoder is None
         else cfg.encoder.n_layers, "frames": frames,
         "batch": SERVE_BATCH, "prompt": prompt, "generated":
@@ -2190,38 +2291,76 @@ def phase_serve(arch: str, kernel: str, rng, prompt: int = SERVE_PROMPT,
     return record
 
 
-def ring_positions(cache, window: int, last: int) -> dict:
-    """Every self-attention ring of ``cache`` (per layer and prompt) holds
-    exactly the last ``window`` positions up to ``last``, position p in
-    slot p % window."""
-    pos = cache["groups"]["p0"]["self"]["pos"]            # (G, B, W)
-    check(pos.shape[-1] == window, f"ring caches of {pos.shape[-1]} slots, "
-          f"want {window}")
-    live = torch.arange(last - window + 1, last + 1, device=pos.device)
-    want = torch.empty(window, dtype=pos.dtype, device=pos.device)
-    want[live % window] = live.to(pos.dtype)
-    check(bool((pos == want).all()), f"ring positions up to {last}: slot "
-          f"p % {window} holds p for the last {window} positions")
-    return {"slots": window, "last": last, "first": last - window + 1,
-            "layers_prompts": list(pos.shape[:2])}
+def self_caches(cfg, cache) -> list:
+    """(key, window, cache) of every self-attention cache of a model's
+    stack: each pattern position's (its leaves (G, B, S, ...), one a
+    group) and each tail layer's (given a leading axis of 1)."""
+    out = [(f"p{i}", lc.attn.window, cache["groups"][f"p{i}"]["self"])
+           for i, lc in enumerate(cfg.stack.pattern) if lc.attn is not None]
+    return out + [(f"t{i}", lc.attn.window,
+                   {k: v[None] for k, v in
+                    cache["tail"][f"t{i}"]["self"].items()})
+                  for i, lc in enumerate(cfg.stack.tail)
+                  if lc.attn is not None]
 
 
-def ring_routes(k_cache, p_cache, window: int, prompt: int) -> dict:
-    """The kernel route's rings after prefill and one decode step against
-    the plain route's (float32 compute): positions equal; the first
-    layer's keys and values bit for bit (computed from the embedding,
-    before any attention); the later layers' as shares of their scale
-    (what the layers before carry of the kernels' summation order)."""
-    kc, pc = k_cache["groups"]["p0"]["self"], p_cache["groups"]["p0"]["self"]
-    check(torch.equal(kc["pos"], pc["pos"]),
-          "ring positions, kernel route == plain route")
-    ring_positions(k_cache, window, prompt)
+def ring_positions(cfg, cache, last: int, capacity: int) -> dict:
+    """Every self-attention cache of ``cache`` (per layer and prompt): a
+    ring (a window shorter than the ``capacity`` of the prefill's cache)
+    holds exactly the last ``window`` positions up to ``last``, position p
+    in slot p % window; a full cache holds positions 0 to ``last`` in its
+    first slots and -1 (empty) in the rest."""
+    rings, full = {}, {}
+    for key, window, c in self_caches(cfg, cache):
+        pos = c["pos"]                                    # (G, B, S)
+        is_ring = window is not None and window < capacity
+        slots = window if is_ring else capacity
+        check(pos.shape[-1] == slots, f"{key}: caches of {pos.shape[-1]} "
+              f"slots, want {slots}")
+        want = torch.full((slots,), -1, dtype=pos.dtype, device=pos.device)
+        if is_ring:
+            live = torch.arange(last - window + 1, last + 1,
+                                device=pos.device)
+            want[live % window] = live.to(pos.dtype)
+        else:
+            want[:last + 1] = torch.arange(last + 1, device=pos.device)
+        check(bool((pos == want).all()),
+              f"{key}: positions up to {last}: " + (
+                  f"slot p % {window} holds p for the last {window} "
+                  f"positions" if is_ring else
+                  f"slots 0-{last} hold their positions, the rest -1"))
+        (rings if is_ring else full)[key] = {"slots": slots,
+                                             "layers_prompts":
+                                             list(pos.shape[:2])}
+    first = {w: last - w + 1 for _, w, _ in self_caches(cfg, cache)
+             if w is not None and w < capacity}
+    return {"last": last, "first_in_ring": first, "rings": rings,
+            "full": full}
+
+
+def ring_routes(cfg, k_cache, p_cache, prompt: int, capacity: int) -> dict:
+    """The kernel route's caches after prefill and one decode step against
+    the plain route's (float32 compute): positions equal at every layer;
+    the first layer's keys and values bit for bit (computed from the
+    embedding, before any attention); each layer's as shares of their
+    scale (what the layers before carry of the kernels' summation
+    order)."""
+    ring_positions(cfg, k_cache, prompt, capacity)
+    out = {}
+    for (key, _, kc), (_, _, pc) in zip(self_caches(cfg, k_cache),
+                                        self_caches(cfg, p_cache)):
+        check(torch.equal(kc["pos"], pc["pos"]),
+              f"{key}: cache positions, kernel route == plain route")
+        out[key] = {name: [share(kc[name][g], pc[name][g])["share"]
+                           for g in range(kc[name].shape[0])]
+                    for name in ("k", "v")}
+    kc = self_caches(cfg, k_cache)[0][2]
+    pc = self_caches(cfg, p_cache)[0][2]
     for name in ("k", "v"):
         check(torch.equal(kc[name][0], pc[name][0]),
-              f"the first layer's ring {name}, kernel route == plain route "
-              f"bit for bit")
-    return {name: [share(kc[name][g], pc[name][g])["share"]
-                   for g in range(kc[name].shape[0])] for name in ("k", "v")}
+              f"the first layer's cache {name}, kernel route == plain "
+              f"route bit for bit")
+    return out
 
 
 
@@ -2243,17 +2382,19 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def layer_setup(arch: str, seq: int, batch: int = TRAIN_BATCH):
+def layer_setup(arch: str, seq: int, batch: int = TRAIN_BATCH,
+                position: int = 0):
     """One layer of ``arch`` at full width (its decoder layer, for an
-    encoder-decoder): config, parameters (bf16 values held as float32
-    leaves), input x (batch, seq, D), upstream gradient and, for a cross
-    layer, the encoder's states (batch, WHISPER_FRAMES, D)."""
+    encoder-decoder; the one at ``position`` of its stack's pattern):
+    config, parameters (bf16 values held as float32 leaves), input x
+    (batch, seq, D), upstream gradient and, for a cross layer, the
+    encoder's states (batch, WHISPER_FRAMES, D)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
     from repro_torch.models.stack import layer_specs
 
     cfg = get_config(arch)
-    (lc,) = cfg.stack.pattern
+    lc = cfg.stack.pattern[position]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     params = tree_map(lambda t: t.float(), init_params(
         layer_specs(lc, cfg.d_model), gen, "cuda", dtype=torch.bfloat16))
@@ -2294,7 +2435,7 @@ def layer_grads(cfg, lc, params, x, dout, enc, kernels: bool,
 
 
 def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ,
-                     batch: int = TRAIN_BATCH) -> dict:
+                     batch: int = TRAIN_BATCH, position: int = 0) -> dict:
     """One layer of ``arch`` at full width, float32 compute with bf16
     weights (bf16 values held as float32 leaves, so the gradients are
     float32), from one input and one upstream gradient: dx (and, for a
@@ -2306,7 +2447,7 @@ def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ,
     mixer call (twice in a cross layer)."""
     from repro_torch.kernels import ops
 
-    cfg, lc, params, x, dout, enc = layer_setup(arch, seq, batch)
+    cfg, lc, params, x, dout, enc = layer_setup(arch, seq, batch, position)
     clear_launches()
     on_kernels = layer_grads(cfg, lc, params, x, dout, enc, True)
     torch.cuda.synchronize()
@@ -2323,15 +2464,16 @@ def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ,
           f"differs by {shares[worst]} of its scale > {SERVE_LAYER_TOL}")
     del on_kernels, plain, params, x, dout
     torch.cuda.empty_cache()
-    return {"arch": arch, "shape": [batch, seq, cfg.d_model],
+    return {"arch": arch, "position": position,
+            "shape": [batch, seq, cfg.d_model],
             "window": lc.attn.window if lc.attn is not None else None,
             "enc_shape": None if enc is None else list(enc.shape),
             "launches": launches, "grad_share": shares, "worst": worst,
             "tol": SERVE_LAYER_TOL}
 
 
-def layer_grad_check_bf16(arch: str, seq: int,
-                          batch: int = TRAIN_BATCH) -> dict:
+def layer_grad_check_bf16(arch: str, seq: int, batch: int = TRAIN_BATCH,
+                          position: int = 0) -> dict:
     """One attention layer of ``arch`` at full width in bf16 compute (see
     LAYER_BF16_EXCESS): (a) each attention call's dq, dk, dv from the
     kernels against the exact gradient of the q, k, v and upstream
@@ -2346,7 +2488,7 @@ def layer_grad_check_bf16(arch: str, seq: int,
     here and ``bf16_grad_repair``'s."""
     from repro_torch.kernels import flash_attention, ops, ref
 
-    cfg, lc, params, x, dout, enc = layer_setup(arch, seq, batch)
+    cfg, lc, params, x, dout, enc = layer_setup(arch, seq, batch, position)
     kernel_attention = ops.attention
     kernel_fwd, kernel_bwd = (flash_attention.flash_attention_fwd,
                               flash_attention.flash_attention_bwd)
@@ -2358,10 +2500,11 @@ def layer_grad_check_bf16(arch: str, seq: int,
         with ``bf16_o`` the backward reads the bf16 output."""
         calls = []
 
-        def recorded(q, k, v, *, causal=True, window=None):
-            out = kernel_attention(q, k, v, causal=causal, window=window)
+        def recorded(q, k, v, *, causal=True, window=None, softcap=None):
+            out = kernel_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
             call = {"qkv": (q, k, v), "causal": causal, "window": window,
-                    "grads": {}}
+                    "softcap": softcap, "grads": {}}
             for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
                 t.register_hook(lambda g, n=name, c=call:
                                 c["grads"].__setitem__(n, g))
@@ -2396,7 +2539,8 @@ def layer_grad_check_bf16(arch: str, seq: int,
                        for t in call["qkv"])
             return torch.autograd.grad(
                 ref.attention(q, k, v, causal=call["causal"],
-                              window=call["window"]), (q, k, v),
+                              window=call["window"],
+                              softcap=call["softcap"]), (q, k, v),
                 call["grads"]["o"].to(dtype))
 
         exact = plain_grads(torch.float32)
@@ -2471,7 +2615,8 @@ def layer_grad_check_bf16(arch: str, seq: int,
     del grads, calls
     del f32, plain, params, x, dout
     torch.cuda.empty_cache()
-    return {"arch": arch, "shape": [batch, seq, cfg.d_model],
+    return {"arch": arch, "position": position,
+            "shape": [batch, seq, cfg.d_model],
             "enc_shape": None if enc is None else list(enc.shape),
             "launches_by_shape": by_shape,
             "attention_calls": attn, "tol_share": 2 ** -8,
@@ -2480,12 +2625,15 @@ def layer_grad_check_bf16(arch: str, seq: int,
             "control_bf16_o": control}
 
 
-def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
+def train_run(cfg, batch, steps: int, kernel: str, opt,
+              loss: str = "plain") -> dict:
     """``steps`` train steps of ``cfg`` (float32 params and AdamW state)
     on one repeated batch, after a warm-up step: walls, tokens/s, losses,
     launches, peak memory, one profiled step, and one step each under
     remat="full" and "dots" with the loss of a remat="none" step from the
-    same state.  The main path's counts are those of the timed steps."""
+    same state; every step with the train step's ``loss`` ("plain" or
+    "chunked": the logits a sequence chunk at a time).  The main path's
+    counts are those of the timed steps."""
     from repro_torch.kernels import ops
     from repro_torch.train.step import (StepCfg, init_train_state,
                                         make_train_step)
@@ -2503,7 +2651,7 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
     state_bytes = sum(v.numel() * v.element_size()
                       for part in ("params", "m", "v")
                       for v in tree_leaves(state[part]).values())
-    step = make_train_step(cfg, opt, StepCfg(remat="none"))
+    step = make_train_step(cfg, opt, StepCfg(remat="none", loss=loss))
     t0 = time.perf_counter()
     state, metrics = step(state, batch)                    # warm-up
     losses = [float(metrics["loss"])]
@@ -2537,20 +2685,23 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
     for name in ("full", "dots"):
         clear_launches()
         t0 = time.perf_counter()
-        loss = float(make_train_step(cfg, opt, StepCfg(remat=name))(
-            state, batch)[1]["loss"])
+        got_loss = float(make_train_step(cfg, opt, StepCfg(
+            remat=name, loss=loss))(state, batch)[1]["loss"])
         wall = time.perf_counter() - t0
         got = dict(ops.KERNEL_LAUNCHES)
         # the first checkpoint call of a process imports torch._dynamo, and
         # that import keeps the calling frames (with this step's old and
         # new state) alive until a collection: collect, or they hold ~20 GB
         gc.collect()
-        check(got == {kernel: 2 * n_calls, f"{kernel}_bwd": n_calls},
+        # remat re-runs the groups' forward in the backward, not the tail's
+        n_fwd = n_calls + kernel_calls(cfg, tail=False)
+        check(got == {kernel: n_fwd, f"{kernel}_bwd": n_calls},
               f"{cfg.name}: remat={name!r} launches {got}, want "
-              f"{2 * n_calls} {kernel} and {n_calls} {kernel}_bwd")
-        check(loss == none_loss, f"{cfg.name}: remat={name!r} loss {loss} "
-              f"!= remat='none' loss {none_loss} from the same state")
-        remat[name] = {"step_s": wall, "loss": loss, "launches": got}
+              f"{n_fwd} {kernel} and {n_calls} {kernel}_bwd")
+        check(got_loss == none_loss, f"{cfg.name}: remat={name!r} loss "
+              f"{got_loss} != remat='none' loss {none_loss} from the same "
+              f"state")
+        remat[name] = {"step_s": wall, "loss": got_loss, "launches": got}
     tokens = batch["tokens"].numel()
     del state, metrics
     torch.cuda.empty_cache()
@@ -2560,7 +2711,8 @@ def train_run(cfg, batch, steps: int, kernel: str, opt) -> dict:
             "enc_inputs": list(batch["enc_inputs"].shape)
             if "enc_inputs" in batch else None, "params": n_params,
             "state_bytes": state_bytes, "batch": list(batch["tokens"].shape),
-            "compute_dtype": str(cfg.compute_dtype), "lr": opt.lr,
+            "compute_dtype": str(cfg.compute_dtype), "loss": loss,
+            "lr": opt.lr,
             "init_s": init_s, "warmup_step_s": warm_s, "step_s": walls,
             "tokens_per_s": tokens * steps / sum(walls), "losses": losses,
             "grad_norms": norms, "launches": launches,
@@ -2581,8 +2733,10 @@ def phase_train(batch: dict) -> dict:
     on HAIL-selected data (phase 6b's batch), falcon-mamba-7b at full
     width cut to 8 of its 64 layers, whisper-medium at full width and
     depth on frame embeddings and tokens, and h2o-danube-1.8b at full
-    width and depth on 1 x 8,192 tokens; and a checkpoint round trip of a
-    full-width two-group llama train state."""
+    width and depth on 1 x 8,192 tokens, and gemma3-4b at full width on 2
+    of its 5 groups and its tail (16 layers) on 1 x 4,096 tokens (a local
+    and a global layer of it also in the per-layer checks); and a
+    checkpoint round trip of a full-width two-group llama train state."""
     import tempfile
 
     from repro_torch.ckpt import checkpoint as ck
@@ -2604,12 +2758,19 @@ def phase_train(batch: dict) -> dict:
     record["layers"].append(layer_grad_check(
         H2O, "flash_attention", H2O_LAYER_SEQ, H2O_CHECK_BATCH))
     record["layers"].append(layer_grad_check(QWEN, "flash_attention"))
+    # gemma3-4b's local layer past its window and its global layer (head
+    # dim 256, qk-norm, theta 10^4 and 10^6)
+    for position in (GEMMA_LOCAL, GEMMA_GLOBAL):
+        record["layers"].append(layer_grad_check(
+            GEMMA4, "flash_attention", GEMMA_LAYER_SEQ, 1, position))
     torch.cuda.empty_cache()
     record["layers_bf16"] = [
         layer_grad_check_bf16("llama3.2-1b", TRAIN_SEQ),
         layer_grad_check_bf16(WHISPER, WHISPER_TRAIN_SEQ),
         layer_grad_check_bf16(H2O, H2O_LAYER_SEQ, H2O_CHECK_BATCH),
-        layer_grad_check_bf16(QWEN, TRAIN_SEQ)]
+        layer_grad_check_bf16(QWEN, TRAIN_SEQ),
+        *(layer_grad_check_bf16(GEMMA4, GEMMA_LAYER_SEQ, 1, position)
+          for position in (GEMMA_LOCAL, GEMMA_GLOBAL))]
     torch.cuda.empty_cache()
 
     # --- a whole step in float32 compute, kernel route vs plain route ----
@@ -2696,6 +2857,33 @@ def phase_train(batch: dict) -> dict:
                           "labels": tok[:, 1:].contiguous()},
                     H2O_TRAIN_STEPS - 1, "flash_attention", opt),
         "data": "numpy tokens below h2o-danube's vocabulary of 32,000"}
+    del tok
+    torch.cuda.empty_cache()
+    # gemma3-4b at full width on 2 of its 5 groups and its tail, on one
+    # sequence of four windows: the local layers' windowed backward at T >
+    # window, the global layers' causal one at T = 4,096
+    gemma = get_config(GEMMA4)
+    gemma16 = dataclasses.replace(gemma, stack=dataclasses.replace(
+        gemma.stack, n_groups=GEMMA_TRAIN_GROUPS))
+    tok = torch.from_numpy(rng.integers(0, gemma.vocab, (
+        1, GEMMA_TRAIN_SEQ + 1)).astype(np.int32)).cuda()
+    record["gemma3-4b-train-16L"] = {
+        **train_run(gemma16, {"tokens": tok[:, :-1].contiguous(),
+                              "labels": tok[:, 1:].contiguous()},
+                    GEMMA_TRAIN_STEPS - 1, "flash_attention", opt,
+                    loss="chunked"),
+        "reduced": [f"n_groups {gemma.stack.n_groups} -> "
+                    f"{GEMMA_TRAIN_GROUPS} ({gemma16.n_layers} of "
+                    f"{gemma.n_layers} layers, the 4-layer tail kept): "
+                    f"float32 parameters, gradients and AdamW moments for "
+                    f"all 3.88 B parameters are 62 GB, past the card's 80 "
+                    f"GB with the activations and the 262,144-wide "
+                    f"logits"],
+        "loss_note": "the chunked loss (the train step's own option, 8 "
+                     "chunks of 512 tokens): the plain loss's float32 "
+                     "logits and their gradient (2 x 4.3 GB at 4,096 x "
+                     "262,144) ran the card out of memory at 16 layers",
+        "data": "numpy tokens below gemma3's vocabulary of 262,144"}
     del tok
     torch.cuda.empty_cache()
 
@@ -2929,6 +3117,14 @@ def main() -> int:
                              check_batch=H2O_CHECK_BATCH)
     qwen_served = phase_serve(QWEN, "flash_attention", rng,
                               groups=QWEN_GROUPS)
+    # gemma3-4b and gemma3-12b: rings at the local layers, full caches at
+    # the global ones
+    gemma4_served = phase_serve(GEMMA4, "flash_attention", rng,
+                                prompt=GEMMA_PROMPT,
+                                check_batch=GEMMA_CHECK_BATCH)
+    gemma12_served = phase_serve(GEMMA12, "flash_attention", rng,
+                                 prompt=GEMMA_PROMPT,
+                                 check_batch=GEMMA_CHECK_BATCH)
 
     # --- 8. times at main-path shapes ---------------------------------------
     # Each case: the kernel's own device time per call from the profiler
@@ -3198,6 +3394,75 @@ def main() -> int:
               q, k, True)
     del q, k, v, do, lse, o32, qt, kt, vt, sdpa_out, do_t
     torch.cuda.empty_cache()
+    # head dim 256: gemma3's prefill at a global (causal) and a local
+    # (window 1,024) layer of the 4b and the 12b, and the 4b's training
+    # forward (lse and float32 O) and backward at both, the plain versions
+    # whole.  SDPA: causal with GQA at the global layers; at the local ones
+    # a boolean band attn_mask over K/V expanded to the query heads (it
+    # then computes the masked pairs too), as h2o-danube's rows.
+    for name, shape in (
+            ("flash_gemma4_prefill_global", GEMMA4_PREFILL_ATTN),
+            ("flash_gemma4_prefill_local", GEMMA4_PREFILL_LOCAL_ATTN),
+            ("flash_gemma12_prefill_global", GEMMA12_PREFILL_ATTN),
+            ("flash_gemma12_prefill_local", GEMMA12_PREFILL_LOCAL_ATTN),
+            ("gemma4_train_global", GEMMA4_TRAIN_ATTN),
+            ("gemma4_train_local", GEMMA4_TRAIN_LOCAL_ATTN)):
+        b_, t_, s_, h_, kv_, d_, _, win, dt_ = shape
+        q, k, v = attn_inputs(b_, t_, s_, h_, kv_, d_, dt_)
+        desc = (f"q ({b_},{t_},{h_},{d_}) k/v ({b_},{s_},{kv_},{d_}) bf16 "
+                f"causal" + ("" if win is None else f" window {win}"))
+        if win is None:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            sdpa_kw = dict(is_causal=True, enable_gqa=True)
+        else:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k.repeat_interleave(h_ // kv_, dim=2),
+                                    v.repeat_interleave(h_ // kv_, dim=2)))
+            sdpa_kw = dict(attn_mask=ref._band(t_, s_, True, win, "cuda"))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, **sdpa_kw)
+
+        if name.startswith("flash_"):
+            timed[name] = case(
+                desc, lambda: flash_attention.flash_attention(q, k, v,
+                                                              window=win),
+                lambda: ref.attention(q, k, v, window=win),
+                attn_bound(q, k, v, True, win), "flash_bf16_kernel",
+                library=sdpa, plain_iters=1)
+            flash_key(name, "flash_attention", "fwd", q, k, True, win)
+        else:
+            timed[f"flash_fwd_{name}"] = case(
+                desc + ", lse and float32 O",
+                lambda: flash_attention.flash_attention_fwd(q, k, v,
+                                                            window=win),
+                lambda: ref.attention_lse(q, k, v, window=win),
+                attn_lse_bound(q, k, v, True, win), "flash_bf16_kernel",
+                library=sdpa, plain_iters=1)
+            flash_key(f"flash_fwd_{name}", "flash_attention", "fwd+lse", q,
+                      k, True, win)
+            do = upstream_grad(q)
+            _, lse, o32 = flash_attention.flash_attention_fwd(q, k, v,
+                                                              window=win)
+            sdpa_out = sdpa()
+            do_t = do.transpose(1, 2)
+            timed[f"flash_bwd_{name}"] = case(
+                desc.replace("q (", "q/o/dO ("),
+                lambda: flash_attention.flash_attention_bwd(
+                    q, k, v, o32, lse, do, window=win),
+                lambda: ref.attention_bwd(q, k, v, o32, lse, do,
+                                          window=win),
+                flash_bwd_bound(q, k, v, True, win), "flash_bwd",
+                library=lambda: torch.autograd.grad(
+                    sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
+                plain_iters=1)
+            flash_key(f"flash_bwd_{name}", "flash_attention_bwd",
+                      "bwd from float32 O", q, k, True, win)
+            del do, lse, o32, sdpa_out, do_t
+        del q, k, v, qt, kt, vt, sdpa_kw
+        torch.cuda.empty_cache()
     repair_cost = float32_o_cost(flash_attention)
     torch.cuda.empty_cache()
     inputs = scan_inputs(TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
@@ -3242,7 +3507,8 @@ def main() -> int:
     trained = phase_train(train_batch)
     train_launches = collections.Counter()
     for name in ("llama3.2-1b-train", "falcon-mamba-7b-train-8L",
-                 "whisper-medium-train", "h2o-danube-1.8b-train"):
+                 "whisper-medium-train", "h2o-danube-1.8b-train",
+                 "gemma3-4b-train-16L"):
         train_launches.update(trained[name]["launches"])
     # the flash rows' launches on the main paths, as counted by shape:
     # each serving prefill, and each training run's counted steps
@@ -3256,10 +3522,14 @@ def main() -> int:
                h2o_served["launches_prefill_by_shape"],
                f"qwen2-vl-72b prefill ({QWEN_GROUPS} layers)":
                qwen_served["launches_prefill_by_shape"],
+               "gemma3-4b prefill": gemma4_served["launches_prefill_by_shape"],
+               "gemma3-12b prefill":
+               gemma12_served["launches_prefill_by_shape"],
                **{f"{name} ({len(trained[name]['step_s'])} counted steps)":
                   trained[name]["launches_by_shape"]
                   for name in ("llama3.2-1b-train", "whisper-medium-train",
-                               "h2o-danube-1.8b-train")},
+                               "h2o-danube-1.8b-train",
+                               "gemma3-4b-train-16L")},
                "qwen2-vl-72b one layer's bf16 gradients (phase 9)":
                qwen_layer["launches_by_shape"]}
     for name, key in flash_keys.items():
@@ -3333,7 +3603,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": sum(r["launches"].get("flash_attention", 0) for r in (
-             served["flash_attention"], whisper, h2o_served, qwen_served))
+             served["flash_attention"], whisper, h2o_served, qwen_served,
+             gemma4_served, gemma12_served))
          + train_launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
@@ -3348,7 +3619,13 @@ def main() -> int:
                               "flash_whisper_cross",
                               "flash_fwd_whisper_cross_train",
                               "flash_h2o_prefill", "flash_fwd_h2o_train",
-                              "flash_qwen_prefill")},
+                              "flash_qwen_prefill",
+                              "flash_gemma4_prefill_global",
+                              "flash_gemma4_prefill_local",
+                              "flash_gemma12_prefill_global",
+                              "flash_gemma12_prefill_local",
+                              "flash_fwd_gemma4_train_global",
+                              "flash_fwd_gemma4_train_local")},
          "float32_o_cost": repair_cost},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
@@ -3376,7 +3653,9 @@ def main() -> int:
          "shapes": {k: {f: timed[k].get(f) for f in flash_fields}
                     for k in ("flash_bwd_whisper_encoder",
                               "flash_bwd_whisper_cross_train",
-                              "flash_bwd_h2o_train", "flash_bwd_qwen")}},
+                              "flash_bwd_h2o_train", "flash_bwd_qwen",
+                              "flash_bwd_gemma4_train_global",
+                              "flash_bwd_gemma4_train_local")}},
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",

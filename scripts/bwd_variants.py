@@ -102,6 +102,12 @@ def scan_geometry(src: str) -> tuple[int, int]:
     return int(ch[1]), int(st[1])
 
 
+def has_softcap(src: str) -> bool:
+    """Whether a flash backward source's entry point takes a softcap."""
+    entry = re.search(rf"{FLASH_ENTRY}\((.*?)\)", src, re.S)
+    return entry is not None and "float softcap" in entry[1]
+
+
 def build(sources: dict[str, tuple[str, str]], bf16_o: set[str]) -> dict:
     """One library a variant, built with the port's nvcc flags; the flash
     sources named in ``bf16_o`` have the entry point without ``o_f32``."""
@@ -127,8 +133,10 @@ def build(sources: dict[str, tuple[str, str]], bf16_o: set[str]) -> dict:
         entry = sources[name][0]
         fn = getattr(ctypes.CDLL(str(OUT / f"lib{name}.so")), entry)
         n_int = 9 if name in bf16_o else 10
+        # sources since the softcap take it after the scale
+        n_float = 2 if has_softcap(sources[name][1]) else 1
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p]
                        if entry == FLASH_ENTRY else
                        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
@@ -178,7 +186,9 @@ def main() -> int:
                                                    o32 if f32_o else o, lse,
                                                    do, *fl_out)),
                          b, t, t, h, 8, d, 1, -1, 1, *((1,) if f32_o else ()),
-                         1.0 / math.sqrt(d), stream)
+                         1.0 / math.sqrt(d),
+                         *((0.0,) if has_softcap(sources[name][1]) else ()),
+                         stream)
         if code:
             raise RuntimeError(f"{name}: launch failed ({code})")
         return [x.clone() for x in fl_out[:3]]

@@ -16,15 +16,23 @@ beside ``scaled_dot_product_attention``:
 * ``no_prefetch`` without the K/V tile loads in the loop (its results are
   wrong: it times everything but those loads).
 
-The first three are held to the plain version within 2e-2.  Prints one
+With ``--baseline OLD.cu`` (repeatable) it also builds and times other
+sources of the same entry point as they are (earlier versions, e.g.
+from ``git show``; those from before the softcap argument are called
+without it), under their file names.
+
+The first three and the baselines are held to the plain version within
+2e-2.  Prints one
 JSON line per round and, before the last line, the card's name and power
 limit; the last line is the median time of each variant.  Needs one card
 and ``nvcc``; exits 1 without a card.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -39,8 +47,8 @@ B, T, H, KV, D = 4, 512, 32, 8, 64
 ITERS = 100
 TOL = 2e-2                       # FLASH_TOL[bfloat16] in chip_smoke.py
 
-LOADS = ("      load_tile<D>(s_k[buf ^ 1], kb, k0 + kTK, s_len, kv_row);\n"
-         "      load_tile<D>(s_v[buf ^ 1], vb, k0 + kTK, s_len, kv_row);\n")
+LOADS = ("      load_tile<D, TK>(s_k[buf ^ 1], kb, k0 + TK, s_len, kv_row);\n"
+         "      load_tile<D, TK>(s_v[buf ^ 1], vb, k0 + TK, s_len, kv_row);\n")
 
 
 def variants(src: str) -> dict[str, str]:
@@ -57,6 +65,12 @@ def variants(src: str) -> dict[str, str]:
         "exp2f": src[:body] + sub(src[body:], "fast_exp2(", "exp2f(", 2),
         "no_prefetch": sub(src, LOADS, ""),
     }
+
+
+def has_softcap(src: str) -> bool:
+    """Whether a source's ``flash_attention_launch`` takes a softcap."""
+    entry = re.search(r"flash_attention_launch\((.*?)\)", src, re.S)
+    return entry is not None and "float softcap" in entry[1]
 
 
 def build(sources: dict[str, str]) -> dict[str, ctypes._CFuncPtr]:
@@ -80,8 +94,9 @@ def build(sources: dict[str, str]) -> dict[str, ctypes._CFuncPtr]:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         fn = ctypes.CDLL(str(OUT / f"lib{name}.so")).flash_attention_launch
+        n_float = 2 if has_softcap(sources[name]) else 1
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -105,10 +120,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_bf16_variants: no CUDA device", file=sys.stderr)
         return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", action="append", default=[])
+    args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import ref
 
-    fns = build(variants((CSRC / "flash_attention.cu").read_text()))
+    sources = variants((CSRC / "flash_attention.cu").read_text())
+    for path in map(Path, args.baseline):
+        sources[path.stem] = path.read_text()
+    caps = {name: has_softcap(text) for name, text in sources.items()}
+    fns = build(sources)
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device="cuda")
                .to(torch.bfloat16)
@@ -120,7 +142,7 @@ def main() -> int:
     def launch(name):
         code = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), B, T, T, H, KV, D, 1, -1, 1,
-                         D ** -0.5, stream)
+                         D ** -0.5, *((0.0,) if caps[name] else ()), stream)
         if code:
             raise RuntimeError(f"{name}: launch failed ({code})")
 

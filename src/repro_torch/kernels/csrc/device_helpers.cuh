@@ -2,8 +2,8 @@
 // (flash_attention.cu, flash_attention_bwd.cu) and the scan backward
 // (selective_scan_bwd.cu): asynchronous copies into shared memory,
 // `ldmatrix`, `mma.sync.m16n8k16` bf16 -> float32, 2^x on the
-// special-function unit, and a kernel's shared-memory stage, static up to
-// 48 KB and dynamic past it.
+// special-function unit, sums across lanes, and a kernel's shared-memory
+// stage, static up to 48 KB and dynamic past it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -119,6 +119,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Sum over the SPLIT neighbouring lanes that share one row or key (the
+// float32 flash kernels' split head dims), by butterflies.
+template <int SPLIT>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int m = 1; m < SPLIT; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
 }
 
 // two floats -> bf16x2, the first in the low half (the lower column)

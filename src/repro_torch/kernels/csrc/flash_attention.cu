@@ -81,12 +81,37 @@
 // (`kFwdCtas`): 4 up to 64, 3 at 80 and 2 at 128, which lifts the
 // register cap from 128 to 170 and 255; an SM then runs 12 or 8 warps.
 //
+// Head dim 256 (gemma3).  bf16: O's accumulator alone is 128 floats a
+// thread (16 rows x 256 / 32 lanes), so q's A fragments (64 registers
+// more) no longer stay in registers: each k-step reads its fragment from
+// the staged q tile by `ldmatrix` (`kQFrags`), as the backward kernels do
+// past D = 64, and the K/V tiles hold 32 keys (`kTK`), so S is 16 floats
+// a thread.  The stage is 64 x 264 + 2 x 2 x 32 x 264 bf16, 99 KB of
+// dynamic shared memory, and 2 CTAs share an SM (64-key tiles would take
+// 165 KB and leave one).  float32: one thread cannot hold a 256-float
+// accumulator, so 4 threads share a q row (`kFSplit`), each owning every
+// 4th float4 of the head dim (neighbouring 16-byte words of a key, no bank
+// conflict), their partial dot products summed by `__shfl_xor_sync`; a
+// CTA is 256 threads and its stage 128 KB, dynamic.
+//
+// Softcap (gemma3's option; 0 = off): each scaled score s becomes
+// c tanh(s / c) in float32 (`tanhf`) before the mask, as in the JAX
+// package's plain attention; the bf16 kernel then multiplies by log2(e)
+// for its base-2 softmax, and lse is the natural-log lse of the capped
+// scores.  The bf16 kernel takes it as a template flag (`kCap`), each head
+// dim built with and without: a runtime branch there cost the uncapped
+// kernel 11% at the llama shape on an H100 (q (4,512,32,64), the tanhf
+// code's registers spilled at the D = 64 cap of 128; timed against the
+// source before the cap by scripts/flash_bf16_variants.py --baseline),
+// and uncapped it is the
+// kernel as it was.  The float32 kernel takes it at run time.
+//
 // float32 (`flash_f32_kernel`), what the per-layer route checks compute:
-// one CTA owns one (batch x head, 64-row q tile), one thread per query row,
-// and loops over 32-key tiles loaded coalesced into shared memory, read by
-// every thread as a broadcast.  The q row is held pre-scaled by 1/sqrt(D)
-// in registers with its float32 accumulator, max and denominator (read
-// from shared memory at D = 128, `kQInRegs`).  TF32
+// one CTA owns one (batch x head, 64-row q tile), one thread per query row
+// (up to D = 128), and loops over 32-key tiles loaded coalesced into
+// shared memory, read by every thread as a broadcast.  The q row is held
+// pre-scaled by 1/sqrt(D) in registers with its float32 accumulator, max
+// and denominator (read from shared memory at D = 128, `kQInRegs`).  TF32
 // tensor cores would keep 10 bits of the mantissa, too few for the float32
 // checks, so this path stays on the CUDA cores.
 #include <cuda_bf16.h>
@@ -138,25 +163,41 @@ struct F32Smem {
   float q[kBQ][D + 1];  // q in, o out; +1 avoids bank conflicts
 };
 
-// Up to D = 80 a thread holds its q row in registers beside its D-float
-// accumulator; at D = 128 the two would take 256 of the 255 registers a
-// thread may have, so the row is read from its (conflict-free) row of s_q
-// for each key, and the stage, 64 KB, takes dynamic shared memory.
+// Threads a q row: 1 up to D = 128, 4 at D = 256 (see "Head dim 256").
+// Thread `part` of a row owns the float4s part, part + SPLIT, ... of the
+// head dim: its e-th value is dim f32_dim<SPLIT>(e, part).
 template <int D>
-constexpr bool kQInRegs = D <= 80;
+constexpr int kFSplit = D == 256 ? 4 : 1;
+
+template <int SPLIT>
+__device__ __forceinline__ int f32_dim(int e, int part) {
+  return ((e >> 2) * SPLIT + part) * 4 + (e & 3);
+}
+
+// Up to 80 head dims a thread (D = 256: 64 a thread) holds its q values in
+// registers beside its accumulator; at D = 128 the two would take 256 of
+// the 255 registers a thread may have, so the row is read from its
+// (conflict-free) row of s_q for each key, and the stage, 64 KB, takes
+// dynamic shared memory.
+template <int D>
+constexpr bool kQInRegs = D / kFSplit<D> <= 80;
 
 template <int D>
-__global__ void __launch_bounds__(kBQ)
+__global__ void __launch_bounds__(kBQ * kFSplit<D>)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
-                 int window, float scale) {
+                 int window, float scale, float softcap) {
+  constexpr int SPLIT = kFSplit<D>;
+  constexpr int DS = D / SPLIT;            // head dims a thread owns
+  constexpr int kThreadsF = kBQ * SPLIT;
   F32Smem<D>& sm = shared_stage<F32Smem<D>>();
   auto& s_k = sm.k;
   auto& s_v = sm.v;
   auto& s_q = sm.q;
 
   const int tid = threadIdx.x;
+  const int row = tid / SPLIT, part = tid % SPLIT;
   const int bh = blockIdx.x;
   const int b = bh / n_heads;
   const int h = bh % n_heads;
@@ -168,28 +209,29 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t q_off = ((int64_t)b * t_len + q0) * q_row + (int64_t)h * D;
   const int64_t kv_off = (int64_t)b * s_len * kv_row + (int64_t)g * D;
 
-  for (int i = tid; i < kBQ * D; i += kBQ) {
+  for (int i = tid; i < kBQ * D; i += kThreadsF) {
     const int r = i / D, d = i % D;
     s_q[r][d] = r < rows ? q[q_off + r * q_row + d] * scale : 0.f;
   }
   __syncthreads();
-  float qr[kQInRegs<D> ? D : 1], acc[D];
+  float qr[kQInRegs<D> ? DS : 1], acc[DS];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    if constexpr (kQInRegs<D>) qr[d] = s_q[tid][d];
-    acc[d] = 0.f;
+  for (int e = 0; e < DS; ++e) {
+    if constexpr (kQInRegs<D>) qr[e] = s_q[row][f32_dim<SPLIT>(e, part)];
+    acc[e] = 0.f;
   }
-  auto qv = [&](int d) {
-    if constexpr (kQInRegs<D>) return qr[d];
-    else return s_q[tid][d];
+  auto qv = [&](int e) {
+    if constexpr (kQInRegs<D>) return qr[e];
+    else return s_q[row][f32_dim<SPLIT>(e, part)];
   };
   float m = kNegInf, l = 0.f;
-  const int qpos = q0 + tid;
+  const int qpos = q0 + row;
   const Band bd = band(q0, q0 + rows - 1, s_len, causal, window, kBK);
+  const float cap_in = softcap > 0.f ? 1.f / softcap : 0.f;
 
   for (int k0 = bd.k_begin; k0 < bd.k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kBK * D; i += kBQ) {
+    for (int i = tid; i < kBK * D; i += kThreadsF) {
       const int r = i / D, d = i % D;
       const int kp = k0 + r;
       const bool in = kp < s_len;
@@ -204,13 +246,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&s_k[j][d]);
-        dot = fmaf(qv(d), kk.x, dot);
-        dot = fmaf(qv(d + 1), kk.y, dot);
-        dot = fmaf(qv(d + 2), kk.z, dot);
-        dot = fmaf(qv(d + 3), kk.w, dot);
+      for (int e = 0; e < DS; e += 4) {
+        const float4 kk = *reinterpret_cast<const float4*>(
+            &s_k[j][f32_dim<SPLIT>(e, part)]);
+        dot = fmaf(qv(e), kk.x, dot);
+        dot = fmaf(qv(e + 1), kk.y, dot);
+        dot = fmaf(qv(e + 2), kk.z, dot);
+        dot = fmaf(qv(e + 3), kk.w, dot);
       }
+      dot = lanes_sum<SPLIT>(dot);
+      if (softcap > 0.f) dot = softcap * tanhf(dot * cap_in);
       const int kp = k0 + j;
       const bool keep = (!causal || kp <= qpos) &&
                         (window <= 0 || kp > qpos - window);
@@ -228,31 +273,32 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = l * alpha + p_sum;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int e = 0; e < DS; ++e) acc[e] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
       const float p = sc[j];
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&s_v[j][d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+      for (int e = 0; e < DS; e += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            &s_v[j][f32_dim<SPLIT>(e, part)]);
+        acc[e] = fmaf(p, vv.x, acc[e]);
+        acc[e + 1] = fmaf(p, vv.y, acc[e + 1]);
+        acc[e + 2] = fmaf(p, vv.z, acc[e + 2]);
+        acc[e + 3] = fmaf(p, vv.w, acc[e + 3]);
       }
     }
     m = m_new;
   }
 
   const float den = fmaxf(l, 1e-30f);
-  if (lse != nullptr && tid < rows)  // (B,H,T); m is -1e30 iff no key kept
-    lse[((int64_t)b * n_heads + h) * t_len + q0 + tid] =
+  if (lse != nullptr && part == 0 && row < rows)  // (B,H,T); m is -1e30
+    lse[((int64_t)b * n_heads + h) * t_len + q0 + row] =  // iff no key kept
         m <= kNegInf ? kNegInf : m + logf(l);
   __syncthreads();
 #pragma unroll
-  for (int d = 0; d < D; ++d) s_q[tid][d] = acc[d] / den;
+  for (int e = 0; e < DS; ++e) s_q[row][f32_dim<SPLIT>(e, part)] = acc[e] / den;
   __syncthreads();
-  for (int i = tid; i < rows * D; i += kBQ) {
+  for (int i = tid; i < rows * D; i += kThreadsF) {
     const int r = i / D, d = i % D;
     o[q_off + r * q_row + d] = s_q[r][d];
   }
@@ -265,23 +311,30 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTQ = 64;     // query rows per CTA
-constexpr int kTK = 64;     // keys per K/V tile
 constexpr int kWarps = 4;   // 16 query rows a warp
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;     // bf16 elements of padding a shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 64 rows [row0, row0 + 64) of a (rows, D) slab with `stride` elements
-// between rows -> shared memory; rows >= n_rows are zero-filled.
+// Keys a K/V tile: 64, or 32 at D = 256 (see "Head dim 256").
 template <int D>
+constexpr int kTK = D <= 128 ? 64 : 32;
+// q's A fragments held in registers for the whole kernel (up to D = 128),
+// or read from the staged q tile by `ldmatrix` at each k-step (D = 256).
+template <int D>
+constexpr bool kQFrags = D <= 128;
+
+// ROWS rows [row0, row0 + ROWS) of a (rows, D) slab with `stride` elements
+// between rows -> shared memory; rows >= n_rows are zero-filled.
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16 (*dst)[D + kPad],
                                           const bf16* __restrict__ src,
                                           int row0, int n_rows,
                                           int64_t stride) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool in = row0 + r < n_rows;
     cp_async16(&dst[r][c], src + (in ? row0 + r : 0) * stride + c, in);
@@ -291,8 +344,8 @@ __device__ __forceinline__ void load_tile(bf16 (*dst)[D + kPad],
 template <int D>
 struct FwdSmem {
   bf16 q[kTQ][D + kPad];  // q in, o out
-  bf16 k[2][kTK][D + kPad];
-  bf16 v[2][kTK][D + kPad];
+  bf16 k[2][kTK<D>][D + kPad];
+  bf16 v[2][kTK<D>][D + kPad];
 };
 
 // CTAs an SM each head dim is built for, which caps its registers: 4 up
@@ -300,16 +353,18 @@ struct FwdSmem {
 // 3 at D = 80 (170 registers: 40 accumulator floats and 20 q fragment
 // registers beside the 32 scores; 55 KB, dynamic); 2 at D = 128 (255
 // registers for 64 accumulator floats and 32 q fragment registers; 85 KB,
-// dynamic, of which the SM holds two).
+// dynamic, of which the SM holds two) and at D = 256 (128 accumulator
+// floats and 16 scores; 99 KB, dynamic).
 template <int D>
 constexpr int kFwdCtas = D <= 64 ? 4 : (D <= 80 ? 3 : 2);
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, kFwdCtas<D>)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ o32, float* __restrict__ lse, int t_len, int s_len, int n_heads, int n_kv, int causal,
-                  int window, float scale) {
+                  int window, float scale, float softcap) {
+  constexpr int TK = kTK<D>;
   FwdSmem<D>& sm = shared_stage<FwdSmem<D>>();
   auto& s_q = sm.q;
   auto& s_k = sm.k;
@@ -329,15 +384,16 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + kv_off;
   const bf16* vb = v + kv_off;
 
-  const Band bd = band(q0, q_hi, s_len, causal, window, kTK);
-  const int n_tiles = (bd.k_end - bd.k_begin + kTK - 1) / kTK;
+  const Band bd = band(q0, q_hi, s_len, causal, window, TK);
+  const int n_tiles = (bd.k_end - bd.k_begin + TK - 1) / TK;
 
-  load_tile<D>(s_q, q + q_off, q0, t_len, q_row);
-  load_tile<D>(s_k[0], kb, bd.k_begin, s_len, kv_row);
-  load_tile<D>(s_v[0], vb, bd.k_begin, s_len, kv_row);
+  load_tile<D, kTQ>(s_q, q + q_off, q0, t_len, q_row);
+  load_tile<D, TK>(s_k[0], kb, bd.k_begin, s_len, kv_row);
+  load_tile<D, TK>(s_v[0], vb, bd.k_begin, s_len, kv_row);
   cp_async_commit();
 
-  uint32_t qf[D / 16][4];   // this warp's 16 q rows as A fragments
+  // this warp's 16 q rows as A fragments (kQFrags)
+  uint32_t qf[kQFrags<D> ? D / 16 : 1][4];
   float acc[D / 8][4];      // O, 16 rows x D
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -346,50 +402,68 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l_run[2] = {0.f, 0.f};          // this thread's share of the sums
   const int qp[2] = {q0 + warp * 16 + gr, q0 + warp * 16 + gr + 8};
   const float sl2 = scale * kLog2e;
+  // softcap (kCap): x = c log2(e) tanh(s scale / c)
+  const float cap_in = kCap ? scale / softcap : 0.f;
+  const float cap_l2 = kCap ? softcap * kLog2e : 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = bd.k_begin + it * kTK;
+    const int k0 = bd.k_begin + it * TK;
     const int buf = it & 1;
     if (it + 1 < n_tiles) {  // the next tile loads while this one computes
-      load_tile<D>(s_k[buf ^ 1], kb, k0 + kTK, s_len, kv_row);
-      load_tile<D>(s_v[buf ^ 1], vb, k0 + kTK, s_len, kv_row);
+      load_tile<D, TK>(s_k[buf ^ 1], kb, k0 + TK, s_len, kv_row);
+      load_tile<D, TK>(s_v[buf ^ 1], vb, k0 + TK, s_len, kv_row);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (kQFrags<D>) {
+      if (it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        ldsm_x4(qf[kc],
-                &s_q[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
-    }
-
-    // S = Q K^T: 16 rows x 64 keys, as 8 tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t kf[4];  // B fragments of key tiles 2jp and 2jp + 1
-        ldsm_x4(kf, &s_k[buf][jp * 16 + (lane & 7) + ((lane >> 4) << 3)]
-                         [kc * 16 + ((lane >> 3) & 1) * 8]);
-        mma_bf16(s[2 * jp], qf[kc], kf[0], kf[1]);
-        mma_bf16(s[2 * jp + 1], qf[kc], kf[2], kf[3]);
+        for (int kc = 0; kc < D / 16; ++kc)
+          ldsm_x4(qf[kc],
+                  &s_q[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
       }
     }
 
-    // scale to base 2; mask only where the band's edge or S crosses the tile
-    const bool inside = k0 + kTK <= s_len && (!causal || k0 + kTK - 1 <= q0) &&
+    // S = Q K^T: 16 rows x TK keys, as TK / 8 tiles of 8 keys
+    float s[TK / 8][4];
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j)
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t qa[4];
+      if constexpr (kQFrags<D>) {
+        qa[0] = qf[kc][0], qa[1] = qf[kc][1], qa[2] = qf[kc][2],
+        qa[3] = qf[kc][3];
+      } else {
+        ldsm_x4(qa, &s_q[warp * 16 + (lane & 15)][kc * 16 + (lane >> 4) * 8]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < TK / 16; ++jp) {
+        uint32_t kf[4];  // B fragments of key tiles 2jp and 2jp + 1
+        ldsm_x4(kf, &s_k[buf][jp * 16 + (lane & 7) + ((lane >> 4) << 3)]
+                         [kc * 16 + ((lane >> 3) & 1) * 8]);
+        mma_bf16(s[2 * jp], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * jp + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // scale to base 2 (capped first with a softcap); mask only where the
+    // band's edge or S crosses the tile
+    const bool inside = k0 + TK <= s_len && (!causal || k0 + TK - 1 <= q0) &&
                         (window <= 0 || k0 > q_hi - window);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < TK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * sl2;
+        float x;
+        if constexpr (kCap)
+          x = cap_l2 * tanhf(s[j][e] * cap_in);
+        else
+          x = s[j][e] * sl2;
         if (!inside) {
           const int kp = k0 + j * 8 + tc * 2 + (e & 1);
           const int row = qp[e >> 1];
@@ -404,7 +478,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // online softmax: row max across the quad, rescale, P = 2^(S - max)
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < TK / 8; ++j) {
       mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
@@ -420,7 +494,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_run[r] = mx[r];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < TK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = fast_exp2(s[j][e] - mx[e >> 1]);
@@ -439,7 +513,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // O += P V, 16 keys a step; P in bf16 as the A operand
 #pragma unroll
-    for (int kc = 0; kc < kTK / 16; ++kc) {
+    for (int kc = 0; kc < TK / 16; ++kc) {
       uint32_t pa[4];
       pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
       pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
@@ -515,60 +589,72 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* o32,
            float* lse, int batch, int t_len, int s_len, int n_heads, int n_kv,
-           int causal, int window, int is_bf16, float scale,
+           int causal, int window, int is_bf16, float scale, float softcap,
            cudaStream_t stream) {
   if (is_bf16) {
     const dim3 grid(batch * n_heads, (t_len + kTQ - 1) / kTQ);
     constexpr int smem = dynamic_smem_bytes<FwdSmem<D>>();
-    const int err = allow_dynamic_smem<flash_bf16_kernel<D>, smem>();
-    if (err) return err;
-    flash_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32, lse,
-        t_len, s_len, n_heads, n_kv, causal, window, scale);
+    int err;
+    if (softcap > 0.f) {
+      err = allow_dynamic_smem<flash_bf16_kernel<D, true>, smem>();
+      if (err) return err;
+      flash_bf16_kernel<D, true><<<grid, kThreads, smem, stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32,
+          lse, t_len, s_len, n_heads, n_kv, causal, window, scale, softcap);
+    } else {
+      err = allow_dynamic_smem<flash_bf16_kernel<D, false>, smem>();
+      if (err) return err;
+      flash_bf16_kernel<D, false><<<grid, kThreads, smem, stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32,
+          lse, t_len, s_len, n_heads, n_kv, causal, window, scale, softcap);
+    }
   } else {
     const dim3 grid(batch * n_heads, (t_len + kBQ - 1) / kBQ);
     constexpr int smem = dynamic_smem_bytes<F32Smem<D>>();
     const int err = allow_dynamic_smem<flash_f32_kernel<D>, smem>();
     if (err) return err;
-    flash_f32_kernel<D><<<grid, kBQ, smem, stream>>>(
+    flash_f32_kernel<D><<<grid, kBQ * kFSplit<D>, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
-        t_len,
-        s_len, n_heads, n_kv, causal, window, scale);
+        t_len, s_len, n_heads, n_kv, causal, window, scale, softcap);
   }
   return (int)cudaGetLastError();
+}
+
+// launch<head_dim>(args...), for the compiled head dims
+template <typename... A>
+int launch_dim(int head_dim, A... args) {
+  switch (head_dim) {
+    case 16:
+      return launch<16>(args...);
+    case 32:
+      return launch<32>(args...);
+    case 64:
+      return launch<64>(args...);
+    case 80:
+      return launch<80>(args...);
+    case 128:
+      return launch<128>(args...);
+    case 256:
+      return launch<256>(args...);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q (B,T,H,D), k/v (B,S,KV,D), o (B,T,H,D), all contiguous and of one dtype
-// (is_bf16 ? bfloat16, 16-byte aligned : float32).  window <= 0 means none.
-// Returns the cudaGetLastError() of the launch.
+// (is_bf16 ? bfloat16, 16-byte aligned : float32).  window <= 0 means none;
+// softcap <= 0 means none.  Returns the cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int batch,
                                       int t_len, int s_len, int n_heads,
                                       int n_kv, int head_dim, int causal,
                                       int window, int is_bf16, float scale,
-                                      void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (head_dim) {
-    case 16:
-      return launch<16>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
-                        n_heads, n_kv, causal, window, is_bf16, scale, st);
-    case 32:
-      return launch<32>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
-                        n_heads, n_kv, causal, window, is_bf16, scale, st);
-    case 64:
-      return launch<64>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
-                        n_heads, n_kv, causal, window, is_bf16, scale, st);
-    case 80:
-      return launch<80>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
-                        n_heads, n_kv, causal, window, is_bf16, scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, nullptr, nullptr, batch, t_len, s_len,
-                         n_heads, n_kv, causal, window, is_bf16, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                      float softcap, void* stream) {
+  return launch_dim(head_dim, q, k, v, o, (float*)nullptr, (float*)nullptr,
+                    batch, t_len, s_len, n_heads, n_kv, causal, window,
+                    is_bf16, scale, softcap, (cudaStream_t)stream);
 }
 
 // The same launch, also writing lse (B,H,T) float32 (contiguous): the
@@ -581,27 +667,8 @@ extern "C" int flash_attention_lse_launch(const void* q, const void* k,
                                           int s_len, int n_heads, int n_kv,
                                           int head_dim, int causal, int window,
                                           int is_bf16, float scale,
-                                          void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* l = (float*)lse;
-  float* o32f = (float*)o32;
-  switch (head_dim) {
-    case 16:
-      return launch<16>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
-                        n_kv, causal, window, is_bf16, scale, st);
-    case 32:
-      return launch<32>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
-                        n_kv, causal, window, is_bf16, scale, st);
-    case 64:
-      return launch<64>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
-                        n_kv, causal, window, is_bf16, scale, st);
-    case 80:
-      return launch<80>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
-                        n_kv, causal, window, is_bf16, scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, o32f, l, batch, t_len, s_len, n_heads,
-                         n_kv, causal, window, is_bf16, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                          float softcap, void* stream) {
+  return launch_dim(head_dim, q, k, v, o, (float*)o32, (float*)lse, batch,
+                    t_len, s_len, n_heads, n_kv, causal, window, is_bf16,
+                    scale, softcap, (cudaStream_t)stream);
 }

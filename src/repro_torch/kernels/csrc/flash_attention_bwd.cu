@@ -87,22 +87,47 @@
 // Windowed attention (h2o-danube trains on T = 2 windows) walks only the
 // band: the dK/dV kernel's `visit` skips the q tiles with no kept pair and
 // no row without keys, the dQ kernel starts at the band's first key tile.
+// Head dim 256 (gemma3): a warp's dK and dV accumulators alone would be
+// 2 x 128 floats a thread, past the 255 registers.  So the dK/dV kernel
+// runs as two launches, a dV pass and a dK pass (`DkdvPass`), each holding
+// one 128-float accumulator and recomputing S^T (16 flops a head dim and
+// pair in all, against 14): deterministic, no atomics, each output written
+// once.  Both take 32-row halves of a stage (`kSubB`), and the dQ kernel
+// takes each 64-key stage in 32-key halves (`kSubQ`), so S and dP (or S^T
+// and dP^T) are 2 x 16 floats beside the 128.  The stages are 199 KB
+// (dK/dV, K and V staged) and 198 KB (dQ, Q and dO staged) of dynamic
+// shared memory, one CTA an SM.
+//
+// Softcap (gemma3's option, 0 = off): S is recomputed capped,
+// c tanh(s / c) with s the scaled score (`tanhf`), P from it, and
+// dS = P (dP - D) (1 - tanh^2) takes the cap's derivative.  The bf16
+// kernels take it as a template flag (`kCap`), each built with and
+// without, so the uncapped kernels are the kernels as they were (a
+// runtime branch cost the llama shape's backward 14% on an H100, by
+// scripts/bwd_variants.py --baseline); capped, the dK/dV
+// kernel computes dP^T before the P^T products, while S^T still holds the
+// raw scores.  The float32 kernels take it at run time.
 //
 // float32 (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`), what the
 // per-layer and whole-step route checks compute: on the CUDA cores, the
 // products in full float32.
-// - dK/dV: one CTA per (batch, kv head, 64-key tile).  Each key is owned by
+// - dK/dV: one CTA per (batch, kv head, 64-key tile; 16 at D = 256,
+//   `kTile`).  Each key is owned by
 //   D/16 neighbouring threads, 16 head dims each (4 of 20 at D = 80,
 //   `kSlice`), holding its k and v
 //   slices and its dK and dV accumulators in registers; the two dot
 //   products of a (query, key) pair are summed over those threads by
 //   `__shfl_xor_sync`.  The CTA loops over the group's H/KV query heads
-//   (GQA is summed inside the CTA) and over the 32-row q tiles that the
-//   causal/window band reaches (or that hold a row with no key in its
-//   band), staging q (pre-scaled), dO, lse and D in shared memory, read by
-//   every thread as broadcasts.
-// - dQ: one CTA per (batch, head, 64-row q tile), the same layout with rows
-//   in place of keys, looping over the 32-key tiles of the band.
+//   (GQA is summed inside the CTA) and over the 32-row (16 at D = 256,
+//   `kStep`) q tiles that the causal/window band reaches (or that hold a
+//   row with no key in its band), staging q (pre-scaled), dO, lse and D in
+//   shared memory, read by every thread as broadcasts.
+// - dQ: one CTA per (batch, head, 64-row q tile; 16 at D = 256), the same
+//   layout with rows in place of keys, looping over the 32-key (16) tiles
+//   of the band.
+//   At D = 256, 64 keys of 16 lanes would be 1,024 threads of at most 64
+//   registers, and 32-row stages 64 KB of static shared memory: hence the
+//   16-key (16-row) CTAs of 256 threads and the 16-row (16-key) stages.
 // - D = rowsum(dO * O): one warp a row (both types).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,8 +143,12 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;  // the forward's mask value
-constexpr int kTile = 64;          // keys (dK/dV) or rows (dQ) a CTA owns
-constexpr int kStep = 32;          // rows (dK/dV) or keys (dQ) a stage holds
+// float32 kernels: keys (dK/dV) or rows (dQ) a CTA owns, and rows (dK/dV)
+// or keys (dQ) a stage holds
+template <int D>
+constexpr int kTile = D == 256 ? 16 : 64;
+template <int D>
+constexpr int kStep = D == 256 ? 16 : 32;
 
 // Head dims a thread owns: 16, so D/16 lanes share a key or row, except
 // at D = 80, where 5 lanes would straddle warps and their sums need
@@ -156,14 +185,6 @@ __device__ __forceinline__ void load_slice(float (&r)[N], const float* p) {
   }
 }
 
-// Sum over the SPLIT neighbouring lanes that own one row or key.
-template <int SPLIT>
-__device__ __forceinline__ float lanes_sum(float v) {
-#pragma unroll
-  for (int m = 1; m < SPLIT; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
 // ---------------------------------------------------------------------------
 // D = rowsum(dO * O), one warp a (b, t, h) row; written as (B,H,T).  O in
 // dO's dtype or in float32.
@@ -197,26 +218,28 @@ __global__ void flash_bwd_dot_kernel(const TO* __restrict__ o,
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kTile*(D / kSlice<D>))
+__global__ void __launch_bounds__(kTile<D>*(D / kSlice<D>))
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum, T* __restrict__ dk,
                       T* __restrict__ dv, int t_len, int s_len, int n_heads,
-                      int n_kv, int causal, int window, float scale) {
+                      int n_kv, int causal, int window, float scale,
+                      float softcap) {
   constexpr int SL = kSlice<D>;
   constexpr int SPLIT = D / SL;
-  constexpr int kThreads = kTile * SPLIT;
-  __shared__ __align__(16) float s_q[kStep][D];   // q * scale
-  __shared__ __align__(16) float s_do[kStep][D];
-  __shared__ float s_lse[kStep], s_d[kStep];
+  constexpr int kTileF = kTile<D>, kStepF = kStep<D>;
+  constexpr int kThreads = kTileF * SPLIT;
+  __shared__ __align__(16) float s_q[kStepF][D];   // q * scale
+  __shared__ __align__(16) float s_do[kStepF][D];
+  __shared__ float s_lse[kStepF], s_d[kStepF];
 
   const int tid = threadIdx.x;
   const int j = tid / SPLIT, d0 = (tid % SPLIT) * SL;
   const int b = blockIdx.x / n_kv, g = blockIdx.x % n_kv;
   const int rep = n_heads / n_kv;
-  const int k0 = blockIdx.y * kTile;
-  const int k_hi = min(k0 + kTile, s_len) - 1;
+  const int k0 = blockIdx.y * kTileF;
+  const int k_hi = min(k0 + kTileF, s_len) - 1;
   const int kp = k0 + j;
   const bool key_in = kp < s_len;
   const int64_t q_row = (int64_t)n_heads * D, kv_row = (int64_t)n_kv * D;
@@ -231,21 +254,22 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ak[d] = av[d] = 0.f;
   }
   const float inv_s = 1.f / (float)s_len;
-  const int n_qt = (t_len + kStep - 1) / kStep;
+  const float cap_in = softcap > 0.f ? 1.f / softcap : 0.f;
+  const int n_qt = (t_len + kStepF - 1) / kStepF;
 
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
     const int64_t lrow = ((int64_t)b * n_heads + h) * t_len;
     for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * kStep;
-      const int q_hi = min(q0 + kStep, t_len) - 1;
+      const int q0 = qt * kStepF;
+      const int q_hi = min(q0 + kStepF, t_len) - 1;
       // the tile matters if some (row, key) pair is kept, or if a row keeps
       // no key (the last row decides: emptiness only grows with the row)
       const bool pairs = (!causal || k0 <= q_hi) &&
                          (window <= 0 || k_hi > q0 - window);
       if (!pairs && !row_empty(q_hi, s_len, causal, window)) continue;
       __syncthreads();  // the previous stage is consumed
-      for (int i = tid; i < kStep * D; i += kThreads) {
+      for (int i = tid; i < kStepF * D; i += kThreads) {
         const int rr = i / D, d = i % D;
         const bool in = q0 + rr < t_len;
         const int64_t at = ((int64_t)b * t_len + q0 + rr) * q_row +
@@ -253,7 +277,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s_q[rr][d] = in ? to_f(q[at]) * scale : 0.f;
         s_do[rr][d] = in ? to_f(dout[at]) : 0.f;
       }
-      for (int rr = tid; rr < kStep; rr += kThreads) {
+      for (int rr = tid; rr < kStepF; rr += kThreads) {
         const bool in = q0 + rr < t_len;
         s_lse[rr] = in ? lse[lrow + q0 + rr] : 0.f;
         s_d[rr] = in ? dsum[lrow + q0 + rr] : 0.f;
@@ -272,13 +296,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         sp = lanes_sum<SPLIT>(sp);
         dp = lanes_sum<SPLIT>(dp);
+        float dcap = 1.f;  // the softcap's derivative
+        if (softcap > 0.f) {
+          const float th = tanhf(sp * cap_in);
+          sp = softcap * th;
+          dcap = 1.f - th * th;
+        }
         const int qp = q0 + rr;
         const float l = s_lse[rr];
         const bool empty = l <= 0.5f * kNegInf;
         const bool kept = key_in && keep(qp, kp, causal, window);
         const float p = empty ? (key_in ? inv_s : 0.f)
                               : (kept ? __expf(sp - l) : 0.f);
-        const float ds = (kept && !empty) ? p * (dp - s_d[rr]) : 0.f;
+        const float ds =
+            (kept && !empty) ? p * (dp - s_d[rr]) * dcap : 0.f;
 #pragma unroll
         for (int d = 0; d < SL; ++d) {
           av[d] = fmaf(p, ov[d], av[d]);
@@ -301,25 +332,26 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kTile*(D / kSlice<D>))
+__global__ void __launch_bounds__(kTile<D>*(D / kSlice<D>))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum, T* __restrict__ dq,
                     int t_len, int s_len, int n_heads, int n_kv, int causal,
-                    int window, float scale) {
+                    int window, float scale, float softcap) {
   constexpr int SL = kSlice<D>;
   constexpr int SPLIT = D / SL;
-  constexpr int kThreads = kTile * SPLIT;
-  __shared__ __align__(16) float s_k[kStep][D];
-  __shared__ __align__(16) float s_v[kStep][D];
+  constexpr int kTileF = kTile<D>, kStepF = kStep<D>;
+  constexpr int kThreads = kTileF * SPLIT;
+  __shared__ __align__(16) float s_k[kStepF][D];
+  __shared__ __align__(16) float s_v[kStepF][D];
 
   const int tid = threadIdx.x;
   const int i = tid / SPLIT, d0 = (tid % SPLIT) * SL;
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int g = h / (n_heads / n_kv);
-  const int q0 = blockIdx.y * kTile;
-  const int q_hi = min(q0 + kTile, t_len) - 1;
+  const int q0 = blockIdx.y * kTileF;
+  const int q_hi = min(q0 + kTileF, t_len) - 1;
   const int qp = q0 + i;
   const bool row_in = qp < t_len;
   const int64_t q_row = (int64_t)n_heads * D, kv_row = (int64_t)n_kv * D;
@@ -338,15 +370,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float l = row_in ? lse[lrow + qp] : 0.f;
   const float dsr = row_in ? dsum[lrow + qp] : 0.f;
   const bool live = row_in && l > 0.5f * kNegInf;  // an empty row gets 0
+  const float cap_in = softcap > 0.f ? 1.f / softcap : 0.f;
 
   // keys [k_begin, k_end) that some row of the tile keeps
   int k_begin = 0, k_end = s_len;
   if (causal) k_end = min(s_len, q_hi + 1);
-  if (window > 0) k_begin = max(q0 - window + 1, 0) / kStep * kStep;
+  if (window > 0) k_begin = max(q0 - window + 1, 0) / kStepF * kStepF;
 
-  for (int kb = k_begin; kb < k_end; kb += kStep) {
+  for (int kb = k_begin; kb < k_end; kb += kStepF) {
     __syncthreads();
-    for (int e = tid; e < kStep * D; e += kThreads) {
+    for (int e = tid; e < kStepF * D; e += kThreads) {
       const int jj = e / D, d = e % D;
       const bool in = kb + jj < s_len;
       const int64_t at = kv_off + (int64_t)(in ? kb + jj : 0) * kv_row + d;
@@ -354,7 +387,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s_v[jj][d] = in ? to_f(v[at]) : 0.f;
     }
     __syncthreads();
-    for (int jj = 0; jj < kStep; ++jj) {
+    for (int jj = 0; jj < kStepF; ++jj) {
       float kv[SL], vv[SL];
       load_slice(kv, &s_k[jj][d0]);
       load_slice(vv, &s_v[jj][d0]);
@@ -366,9 +399,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       sp = lanes_sum<SPLIT>(sp);
       dp = lanes_sum<SPLIT>(dp);
+      float dcap = 1.f;  // the softcap's derivative
+      if (softcap > 0.f) {
+        const float th = tanhf(sp * cap_in);
+        sp = softcap * th;
+        dcap = 1.f - th * th;
+      }
       const int kp = kb + jj;
       const bool kept = live && kp < s_len && keep(qp, kp, causal, window);
-      const float ds = kept ? __expf(sp - l) * (dp - dsr) : 0.f;
+      const float ds = kept ? __expf(sp - l) * (dp - dsr) * dcap : 0.f;
 #pragma unroll
       for (int d = 0; d < SL; ++d) acc[d] = fmaf(ds, kv[d], acc[d]);
     }
@@ -402,6 +441,13 @@ constexpr bool kAInRegs = D <= 64;
 // S^T and dP^T sit beside 128 floats of dK and dV accumulators.
 template <int D>
 constexpr int kSubB = D <= 80 ? 64 : 32;
+// The keys a dQ warp's S and dP tiles span at once (within a stage of
+// kStepB): 64 up to D = 128; 32 at D = 256, beside 128 floats of dQ.
+template <int D>
+constexpr int kSubQ = D <= 128 ? 64 : 32;
+// What a dK/dV launch accumulates: both up to D = 128; at D = 256 the
+// kernel runs twice, a dV pass and then a dK pass (see "Head dim 256").
+enum DkdvPass { kDkdvBoth, kDkdvOnlyDv, kDkdvOnlyDk };
 
 // rows [row0, row0 + kStepB) of a (rows, D) slab with `stride` elements
 // between rows -> shared memory; rows >= n_rows are zero-filled.
@@ -562,9 +608,9 @@ template <int D>
 using DkdvSmem =
     typename std::conditional<kAInRegs<D>, DkdvStage<D>, DkdvStageKV<D>>::type;
 
-// dK, dV: one CTA per (b, kv head, 64-key tile), the first key tiles (the
-// heaviest under a causal band) first
-template <int D>
+// dK, dV (or, by PASS, one of them): one CTA per (b, kv head, 64-key
+// tile), the first key tiles (the heaviest under a causal band) first
+template <int D, int PASS, bool kCap>
 __global__ void __launch_bounds__(kThreadsB, 2)
 flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -574,8 +620,10 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                            const float* __restrict__ dsum,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            int t_len, int s_len, int n_heads, int n_kv,
-                           int causal, int window, float scale) {
+                           int causal, int window, float scale,
+                           float softcap) {
   constexpr int kSub = kSubB<D>;
+  constexpr bool kDv = PASS != kDkdvOnlyDk, kDk = PASS != kDkdvOnlyDv;
   DkdvSmem<D>& s = shared_stage<DkdvSmem<D>>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
@@ -618,7 +666,7 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     stage_rows<D>(s.dout[1], v + kv_off, k0, s_len, kv_row);
   } else {
     stage_rows<D>(s.k, k + kv_off, k0, s_len, kv_row);
-    stage_rows<D>(s.v, v + kv_off, k0, s_len, kv_row);
+    if (kDk) stage_rows<D>(s.v, v + kv_off, k0, s_len, kv_row);
   }
   if (qt_first < n_qt) stage(0, 0, qt_first);
   cp_async_commit();
@@ -631,13 +679,19 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     __syncthreads();
   }
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[kDk ? D / 8 : 1][4], dva[kDv ? D / 8 : 1][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int n = 0; n < (kDk ? D / 8 : 1); ++n) dka[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < (kDv ? D / 8 : 1); ++n) dva[n][e] = 0.f;
+  }
   const float inv_s = 1.f / (float)s_len;
   const float sl2 = scale * kLog2e;
+  // softcap (kCap): P^T = 2^(c log2(e) tanh(s scale / c) - lse log2(e))
+  const float cap_in = kCap ? scale / softcap : 0.f;
+  const float cap_l2 = kCap ? softcap * kLog2e : 0.f;
   const int kp[2] = {k0 + warp * 16 + gr, k0 + warp * 16 + gr + 8};
 
   int r = 0, qt = qt_first, buf = 0;
@@ -668,8 +722,9 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     for (int sub = 0; sub < kStepB; sub += kSub) {
       const bf16(*sq)[D + kPad] = tq + sub;
       const bf16(*sdo)[D + kPad] = tdo + sub;
-      // S^T = K Q^T (16 keys x kSub rows), then P^T in place
-      float st[kSub / 8][4];
+      // S^T = K Q^T (16 keys x kSub rows), then P^T in place; capped,
+      // dP^T = V dO^T first (the cap's derivative needs the raw S^T)
+      float st[kSub / 8][4], dpt[kSub / 8][4];
 #pragma unroll
       for (int j = 0; j < kSub / 8; ++j)
         st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
@@ -677,14 +732,35 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
         mma_rows<D, kSub>(st, kf, sq, lane);
       else
         mma_rows<D, kSub>(st, s.k, sq, warp, lane);
+      auto v_dot = [&]() {  // dP^T = V dO^T
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+          dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+        if constexpr (kAInRegs<D>)
+          mma_rows<D, kSub>(dpt, vf, sdo, lane);
+        else
+          mma_rows<D, kSub>(dpt, s.v, sdo, warp, lane);
+      };
+      if constexpr (kCap && kDk) v_dot();
 #pragma unroll
       for (int j = 0; j < kSub / 8; ++j) {
         const float2 l =
             *reinterpret_cast<const float2*>(&sl[sub + j * 8 + tc * 2]);
+        float2 dd = {0.f, 0.f};
+        if constexpr (kCap && kDk)
+          dd = *reinterpret_cast<const float2*>(&sd[sub + j * 8 + tc * 2]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float lv = (e & 1) ? l.y : l.x;
-          const float x = fast_exp2(fmaf(st[j][e], sl2, -lv * kLog2e));
+          float x;
+          [[maybe_unused]] float dcap;  // the cap's derivative
+          if constexpr (kCap) {
+            const float th = tanhf(st[j][e] * cap_in);
+            x = fast_exp2(fmaf(cap_l2, th, -lv * kLog2e));
+            dcap = 1.f - th * th;
+          } else {
+            x = fast_exp2(fmaf(st[j][e], sl2, -lv * kLog2e));
+          }
           if (inside) {
             st[j][e] = x;
           } else {
@@ -693,45 +769,48 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                 qp < t_len && keep(qp, kp[e >> 1], causal, window);
             st[j][e] = kept ? x : (lv <= 0.5f * kNegInf ? inv_s : 0.f);
           }
+          if constexpr (kCap && kDk) {  // dS^T in place of dP^T
+            const float ds =
+                st[j][e] * (dpt[j][e] - ((e & 1) ? dd.y : dd.x)) * dcap;
+            dpt[j][e] = (inside || lv > 0.5f * kNegInf) ? ds : 0.f;
+          }
         }
       }
       // dV += P^T dO
-      mma_cols<D, kSub>(dva, st, sdo, lane);
-      // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in place (0 for a row
-      // with no key in its band)
-      float dpt[kSub / 8][4];
+      if constexpr (kDv) mma_cols<D, kSub>(dva, st, sdo, lane);
+      if constexpr (!kCap && kDk) {
+        // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in place (0 for a row
+        // with no key in its band)
+        v_dot();
 #pragma unroll
-      for (int j = 0; j < kSub / 8; ++j)
-        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-      if constexpr (kAInRegs<D>)
-        mma_rows<D, kSub>(dpt, vf, sdo, lane);
-      else
-        mma_rows<D, kSub>(dpt, s.v, sdo, warp, lane);
+        for (int j = 0; j < kSub / 8; ++j) {
+          const float2 dd =
+              *reinterpret_cast<const float2*>(&sd[sub + j * 8 + tc * 2]);
+          const float2 l =
+              *reinterpret_cast<const float2*>(&sl[sub + j * 8 + tc * 2]);
 #pragma unroll
-      for (int j = 0; j < kSub / 8; ++j) {
-        const float2 dd =
-            *reinterpret_cast<const float2*>(&sd[sub + j * 8 + tc * 2]);
-        const float2 l =
-            *reinterpret_cast<const float2*>(&sl[sub + j * 8 + tc * 2]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float ds = st[j][e] * (dpt[j][e] - ((e & 1) ? dd.y : dd.x));
-          dpt[j][e] = (inside || ((e & 1) ? l.y : l.x) > 0.5f * kNegInf)
-                          ? ds : 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const float ds =
+                st[j][e] * (dpt[j][e] - ((e & 1) ? dd.y : dd.x));
+            dpt[j][e] = (inside || ((e & 1) ? l.y : l.x) > 0.5f * kNegInf)
+                            ? ds : 0.f;
+          }
         }
       }
       // dK += dS^T Q
-      mma_cols<D, kSub>(dka, dpt, sq, lane);
+      if constexpr (kDk) mma_cols<D, kSub>(dka, dpt, sq, lane);
     }
     __syncthreads();  // this buffer is consumed before it is loaded again
     r = r_next, qt = qt_next, buf ^= 1;
   }
 
   // dK * scale and dV through buffer 0 (consumed) to global
-  store_rows<D>(dk + kv_off, dka, scale, s.q[0], k0, s_len, kv_row, warp,
-                lane);
-  store_rows<D>(dv + kv_off, dva, 1.f, s.dout[0], k0, s_len, kv_row, warp,
-                lane);
+  if constexpr (kDk)
+    store_rows<D>(dk + kv_off, dka, scale, s.q[0], k0, s_len, kv_row, warp,
+                  lane);
+  if constexpr (kDv)
+    store_rows<D>(dv + kv_off, dva, 1.f, s.dout[0], k0, s_len, kv_row, warp,
+                  lane);
 }
 
 template <int D>
@@ -750,7 +829,7 @@ using DqSmem =
 
 // dQ: one CTA per (b, head, 64-row q tile), the last tiles (the heaviest
 // under a causal band) first
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreadsB, 2)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -760,7 +839,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ dsum,
                          bf16* __restrict__ dq, int t_len, int s_len,
                          int n_heads, int n_kv, int causal, int window,
-                         float scale) {
+                         float scale, float softcap) {
+  constexpr int kSub = kSubQ<D>;
   DqSmem<D>& s = shared_stage<DqSmem<D>>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;
@@ -820,6 +900,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   for (int n = 0; n < D / 8; ++n)
     dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
   const float sl2 = scale * kLog2e;
+  // softcap (kCap): P = 2^(c log2(e) tanh(s scale / c) - lse log2(e))
+  const float cap_in = kCap ? scale / softcap : 0.f;
+  const float cap_l2 = kCap ? softcap * kLog2e : 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int kb = k_begin + it * kStepB;
@@ -833,42 +916,54 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    // S = Q K^T and dP = dO V^T (16 rows x 64 keys)
-    float sc[kStepB / 8][4], dp[kStepB / 8][4];
-#pragma unroll
-    for (int j = 0; j < kStepB / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-    if constexpr (kAInRegs<D>) {
-      mma_rows<D, kStepB>(sc, qf, s.k[buf], lane);
-      mma_rows<D, kStepB>(dp, dof, s.v[buf], lane);
-    } else {
-      mma_rows<D, kStepB>(sc, s.q, s.k[buf], warp, lane);
-      mma_rows<D, kStepB>(dp, s.dout, s.v[buf], warp, lane);
-    }
     const bool inside = kb + kStepB <= s_len &&
                         (!causal || kb + kStepB - 1 <= q0) &&
                         (window <= 0 || kb > q_hi - window);
-    // dS = P (dP - D) in place of S
+    // kSub keys of the stage at a time
 #pragma unroll
-    for (int j = 0; j < kStepB / 8; ++j) {
+    for (int sub = 0; sub < kStepB; sub += kSub) {
+      const bf16(*tk)[D + kPad] = s.k[buf] + sub;
+      const bf16(*tv)[D + kPad] = s.v[buf] + sub;
+      // S = Q K^T and dP = dO V^T (16 rows x kSub keys)
+      float sc[kSub / 8][4], dp[kSub / 8][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float ds =
-            fast_exp2(fmaf(sc[j][e], sl2, -l2[i])) * (dp[j][e] - dr[i]);
-        if (inside) {
-          sc[j][e] = ds;
-        } else {
-          const int kp = kb + j * 8 + tc * 2 + (e & 1);
-          const bool kept = live[i] && kp < s_len &&
-                            keep(qp[i], kp, causal, window);
-          sc[j][e] = kept ? ds : 0.f;
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+      if constexpr (kAInRegs<D>) {
+        mma_rows<D, kSub>(sc, qf, tk, lane);
+        mma_rows<D, kSub>(dp, dof, tv, lane);
+      } else {
+        mma_rows<D, kSub>(sc, s.q, tk, warp, lane);
+        mma_rows<D, kSub>(dp, s.dout, tv, warp, lane);
+      }
+      // dS = P (dP - D) (times the cap's derivative) in place of S
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float ds;
+          if constexpr (kCap) {
+            const float th = tanhf(sc[j][e] * cap_in);
+            ds = fast_exp2(fmaf(cap_l2, th, -l2[i])) * (dp[j][e] - dr[i]) *
+                 (1.f - th * th);
+          } else {
+            ds = fast_exp2(fmaf(sc[j][e], sl2, -l2[i])) * (dp[j][e] - dr[i]);
+          }
+          if (inside) {
+            sc[j][e] = ds;
+          } else {
+            const int kp = kb + sub + j * 8 + tc * 2 + (e & 1);
+            const bool kept = live[i] && kp < s_len &&
+                              keep(qp[i], kp, causal, window);
+            sc[j][e] = kept ? ds : 0.f;
+          }
         }
       }
+      // dQ += dS K
+      mma_cols<D, kSub>(dqa, sc, tk, lane);
     }
-    // dQ += dS K
-    mma_cols<D, kStepB>(dqa, sc, s.k[buf], lane);
     __syncthreads();  // this buffer is consumed before it is loaded again
   }
 
@@ -877,12 +972,70 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                 lane);
 }
 
+// the dK/dV kernel as pass PASS on `stream`
+template <int D, int PASS, bool kCap>
+int launch_dkdv_bf16(const void* q, const void* k, const void* v,
+                     const void* lse, const void* dout, void* dk, void* dv,
+                     const float* dsum, int batch, int t_len, int s_len,
+                     int n_heads, int n_kv, int causal, int window,
+                     float scale, float softcap, cudaStream_t stream) {
+  const dim3 g_kv(batch * n_kv, (s_len + kTB - 1) / kTB);
+  constexpr int smem = dynamic_smem_bytes<DkdvSmem<D>>();
+  const int err =
+      allow_dynamic_smem<flash_bwd_dkdv_bf16_kernel<D, PASS, kCap>, smem>();
+  if (err) return err;
+  flash_bwd_dkdv_bf16_kernel<D, PASS, kCap>
+      <<<g_kv, kThreadsB, smem, stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+          (const float*)lse, dsum, (bf16*)dk, (bf16*)dv, t_len, s_len,
+          n_heads, n_kv, causal, window, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 kernels (the dK/dV kernel's passes, then dQ) on `stream`
+template <int D, bool kCap>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* lse, const void* dout, void* dq, void* dk,
+                void* dv, const float* dsum, int batch, int t_len,
+                int s_len, int n_heads, int n_kv, int causal, int window,
+                float scale, float softcap, cudaStream_t stream) {
+  int err;
+  if constexpr (D <= 128) {
+    err = launch_dkdv_bf16<D, kDkdvBoth, kCap>(q, k, v, lse, dout, dk, dv,
+                                               dsum, batch, t_len, s_len,
+                                               n_heads, n_kv, causal, window,
+                                               scale, softcap, stream);
+  } else {  // a dV pass, then a dK pass
+    err = launch_dkdv_bf16<D, kDkdvOnlyDv, kCap>(q, k, v, lse, dout, dk, dv,
+                                                 dsum, batch, t_len, s_len,
+                                                 n_heads, n_kv, causal,
+                                                 window, scale, softcap,
+                                                 stream);
+    if (err) return err;
+    err = launch_dkdv_bf16<D, kDkdvOnlyDk, kCap>(q, k, v, lse, dout, dk, dv,
+                                                 dsum, batch, t_len, s_len,
+                                                 n_heads, n_kv, causal,
+                                                 window, scale, softcap,
+                                                 stream);
+  }
+  if (err) return err;
+  const dim3 g_q(batch * n_heads, (t_len + kTB - 1) / kTB);
+  constexpr int smem_q = dynamic_smem_bytes<DqSmem<D>>();
+  err = allow_dynamic_smem<flash_bwd_dq_bf16_kernel<D, kCap>, smem_q>();
+  if (err) return err;
+  flash_bwd_dq_bf16_kernel<D, kCap><<<g_q, kThreadsB, smem_q, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, dsum, (bf16*)dq, t_len, s_len, n_heads, n_kv,
+      causal, window, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            int o_f32, const void* lse, const void* dout, void* dq, void* dk,
            void* dv, float* dsum, int batch, int t_len, int s_len,
            int n_heads, int n_kv, int causal, int window, float scale,
-           cudaStream_t stream) {
+           float softcap, cudaStream_t stream) {
   const int n_rows = batch * t_len * n_heads;
   const int dot_blocks = (n_rows + 7) / 8;
   if (o_f32)
@@ -894,39 +1047,27 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   int err = (int)cudaGetLastError();
   if (err) return err;
   if constexpr (std::is_same<T, bf16>::value) {
-    const dim3 g_kv(batch * n_kv, (s_len + kTB - 1) / kTB);
-    constexpr int smem_kv = dynamic_smem_bytes<DkdvSmem<D>>();
-    err = allow_dynamic_smem<flash_bwd_dkdv_bf16_kernel<D>, smem_kv>();
-    if (err) return err;
-    flash_bwd_dkdv_bf16_kernel<D><<<g_kv, kThreadsB, smem_kv, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, dsum, (bf16*)dk, (bf16*)dv, t_len, s_len,
-        n_heads, n_kv, causal, window, scale);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    const dim3 g_q(batch * n_heads, (t_len + kTB - 1) / kTB);
-    constexpr int smem_q = dynamic_smem_bytes<DqSmem<D>>();
-    err = allow_dynamic_smem<flash_bwd_dq_bf16_kernel<D>, smem_q>();
-    if (err) return err;
-    flash_bwd_dq_bf16_kernel<D><<<g_q, kThreadsB, smem_q, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, dsum, (bf16*)dq, t_len, s_len, n_heads, n_kv,
-        causal, window, scale);
-    return (int)cudaGetLastError();
+    if (softcap > 0.f)
+      return launch_bf16<D, true>(q, k, v, lse, dout, dq, dk, dv, dsum,
+                                  batch, t_len, s_len, n_heads, n_kv, causal,
+                                  window, scale, softcap, stream);
+    return launch_bf16<D, false>(q, k, v, lse, dout, dq, dk, dv, dsum, batch,
+                                 t_len, s_len, n_heads, n_kv, causal, window,
+                                 scale, softcap, stream);
   } else {
-    constexpr int kThreads = kTile * (D / kSlice<D>);
-    const dim3 g_kv(batch * n_kv, (s_len + kTile - 1) / kTile);
+    constexpr int kThreads = kTile<D> * (D / kSlice<D>);
+    const dim3 g_kv(batch * n_kv, (s_len + kTile<D> - 1) / kTile<D>);
     flash_bwd_dkdv_kernel<D, T><<<g_kv, kThreads, 0, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, dsum, (T*)dk, (T*)dv, t_len, s_len, n_heads,
-        n_kv, causal, window, scale);
+        n_kv, causal, window, scale, softcap);
     err = (int)cudaGetLastError();
     if (err) return err;
-    const dim3 g_q(batch * n_heads, (t_len + kTile - 1) / kTile);
+    const dim3 g_q(batch * n_heads, (t_len + kTile<D> - 1) / kTile<D>);
     flash_bwd_dq_kernel<D, T><<<g_q, kThreads, 0, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, dsum, (T*)dq, t_len, s_len, n_heads, n_kv,
-        causal, window, scale);
+        causal, window, scale, softcap);
     return (int)cudaGetLastError();
   }
 }
@@ -936,14 +1077,35 @@ int launch_dtype(int is_bf16, const void* q, const void* k, const void* v,
                  const void* o, int o_f32, const void* lse, const void* dout,
                  void* dq, void* dk, void* dv, float* dsum, int batch,
                  int t_len, int s_len, int n_heads, int n_kv, int causal,
-                 int window, float scale, cudaStream_t st) {
+                 int window, float scale, float softcap, cudaStream_t st) {
   if (is_bf16)
     return launch<D, bf16>(q, k, v, o, o_f32, lse, dout, dq, dk, dv, dsum,
                            batch, t_len, s_len, n_heads, n_kv, causal,
-                           window, scale, st);
+                           window, scale, softcap, st);
   return launch<D, float>(q, k, v, o, 1, lse, dout, dq, dk, dv, dsum, batch,
                           t_len, s_len, n_heads, n_kv, causal, window, scale,
-                          st);
+                          softcap, st);
+}
+
+// launch_dtype<head_dim>(args...), for the compiled head dims
+template <typename... A>
+int launch_dim(int head_dim, A... args) {
+  switch (head_dim) {
+    case 16:
+      return launch_dtype<16>(args...);
+    case 32:
+      return launch_dtype<32>(args...);
+    case 64:
+      return launch_dtype<64>(args...);
+    case 80:
+      return launch_dtype<80>(args...);
+    case 128:
+      return launch_dtype<128>(args...);
+    case 256:
+      return launch_dtype<256>(args...);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -952,38 +1114,16 @@ int launch_dtype(int is_bf16, const void* q, const void* k, const void* v,
 // one dtype (is_bf16 ? bfloat16 : float32); o (B,T,H,D) contiguous, float32
 // if o_f32 (as it always is with float32 inputs), else bfloat16; lse and
 // dsum (B,H,T) float32, dsum scratch that the launch fills.  window <= 0
-// means none.  Three kernels on `stream`; returns the first
-// cudaGetLastError() that is not 0.
+// means none; softcap <= 0 means none.  Three kernels on `stream` (four at
+// D = 256 in bf16: the dot kernel, the dK/dV kernel's dV and dK passes,
+// the dQ kernel); returns the first cudaGetLastError() that is not 0.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* dsum, int batch, int t_len, int s_len, int n_heads, int n_kv,
     int head_dim, int causal, int window, int is_bf16, int o_f32,
-    float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* ds = (float*)dsum;
-  switch (head_dim) {
-    case 16:
-      return launch_dtype<16>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
-                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
-                              causal, window, scale, st);
-    case 32:
-      return launch_dtype<32>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
-                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
-                              causal, window, scale, st);
-    case 64:
-      return launch_dtype<64>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
-                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
-                              causal, window, scale, st);
-    case 80:
-      return launch_dtype<80>(is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
-                              dv, ds, batch, t_len, s_len, n_heads, n_kv,
-                              causal, window, scale, st);
-    case 128:
-      return launch_dtype<128>(is_bf16, q, k, v, o, o_f32, lse, dout, dq,
-                               dk, dv, ds, batch, t_len, s_len, n_heads,
-                               n_kv, causal, window, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+    float scale, float softcap, void* stream) {
+  return launch_dim(head_dim, is_bf16, q, k, v, o, o_f32, lse, dout, dq, dk,
+                    dv, (float*)dsum, batch, t_len, s_len, n_heads, n_kv,
+                    causal, window, scale, softcap, (cudaStream_t)stream);
 }

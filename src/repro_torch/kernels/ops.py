@@ -287,11 +287,11 @@ class AttentionFn(torch.autograd.Function):
     their scale (4 bytes an output element kept until the backward)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, softcap=None):
         out, lse, o32 = flash_attention.flash_attention_fwd(
-            q, k, v, causal=causal, window=window)
+            q, k, v, causal=causal, window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, o32, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
@@ -299,8 +299,8 @@ class AttentionFn(torch.autograd.Function):
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention.flash_attention_bwd(
             q, k, v, o32, lse, dout.contiguous(), causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 class SelectiveScanFn(torch.autograd.Function):
@@ -324,20 +324,23 @@ class SelectiveScanFn(torch.autograd.Function):
             None if dh_final is None else dh_final.contiguous())
 
 
-def attention(q, k, v, *, causal=True, window=None):
-    """Attention, q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D): the flash
-    kernel on a CUDA tensor, the plain version on a CPU tensor or under
+def attention(q, k, v, *, causal=True, window=None, softcap=None):
+    """Attention, q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D), the scores
+    capped at ``softcap`` c tanh(s/c) where it is set: the flash kernel on
+    a CUDA tensor, the plain version on a CPU tensor or under
     ``use_kernels(False)``; with grad, through ``AttentionFn``."""
     DISPATCH_COUNTS["attention"] += 1
     if not _USE_KERNELS:
-        return ref.attention(q, k, v, causal=causal, window=window)
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
     if q.is_cuda:
         TRACE_COUNTS["attention"] += _build.note_variant(
-            "flash_attention", (q.dtype, q.shape[-1], causal, window))
+            "flash_attention", (q.dtype, q.shape[-1], causal, window,
+                                softcap or None))
     if _wants_grad(q, k, v):
-        return AttentionFn.apply(q, k, v, causal, window)
+        return AttentionFn.apply(q, k, v, causal, window, softcap)
     return flash_attention.flash_attention(q, k, v, causal=causal,
-                                           window=window)
+                                           window=window, softcap=softcap)
 
 
 def selective_scan(delta, x, b, c, a):

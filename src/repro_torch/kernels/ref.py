@@ -110,12 +110,15 @@ def selective_scan(delta, x, b, c, a):
     return torch.stack(ys, dim=1).to(delta.dtype), h
 
 
-def attention(q, k, v, *, causal: bool = True, window: int | None = None):
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              softcap: float | None = None):
     """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D), float32 softmax; query and
     key positions are their indices; q head h reads kv head h // (H/KV).
-    Computes in float32 whatever the inputs' dtype."""
-    return _attend(q, v, _scores(q, k, causal, window,
-                                 torch.float32)).to(q.dtype)
+    ``softcap`` c (None or 0: off) caps each scaled score s at c tanh(s/c)
+    before the mask, as the JAX package's plain attention does.  Computes
+    in float32 whatever the inputs' dtype."""
+    return _attend(q, v, _scores(q, k, causal, window, torch.float32,
+                                 softcap)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +144,22 @@ def _band(t: int, s: int, causal: bool, window, device) -> torch.Tensor:
     return m
 
 
-def _scores(q, k, causal, window, wd):
-    """Masked scaled scores (B, KV, rep, T, S) in dtype ``wd``."""
+def _raw_scores(q, k, wd):
+    """Scaled scores (B, KV, rep, T, S) in dtype ``wd``, unmasked."""
     b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
+    kvh = k.shape[2]
     qg = q.reshape(b, t, kvh, h // kvh, d).to(wd)
-    sc = torch.einsum("btgrk,bsgk->bgrts", qg, k.to(wd)) / math.sqrt(d)
+    return torch.einsum("btgrk,bsgk->bgrts", qg, k.to(wd)) / math.sqrt(d)
+
+
+def _scores(q, k, causal, window, wd, softcap=None, raw=None):
+    """Masked scaled scores (B, KV, rep, T, S) in dtype ``wd``, capped at
+    ``softcap`` c tanh(s/c) before the mask when it is set; ``raw`` the
+    unmasked scaled scores where the caller has them."""
+    t, s = q.shape[1], k.shape[1]
+    sc = _raw_scores(q, k, wd) if raw is None else raw
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
     return torch.where(_band(t, s, causal, window, q.device), sc, NEG_INF)
 
 
@@ -158,16 +171,18 @@ def _attend(q, v, sc):
     return out.reshape(b, t, h, d)
 
 
-def attention_lse(q, k, v, *, causal: bool = True, window=None):
-    """``attention`` with its rows' log-sum-exp of the masked scaled scores
-    and the output before its rounding to q's dtype -> (out (B,T,H,D) in
-    q's dtype, lse (B,H,T) float32, o32 (B,T,H,D) float32, ``out`` itself
+def attention_lse(q, k, v, *, causal: bool = True, window=None,
+                  softcap=None):
+    """``attention`` with its rows' log-sum-exp of the masked scaled (and
+    capped) scores and the output before its rounding to q's dtype ->
+    (out (B,T,H,D) in q's dtype, lse (B,H,T) float32, o32 (B,T,H,D)
+    float32, ``out`` itself
     for float32 and float64 inputs): o32 is the O that ``attention_bwd``
     takes on the training path.  A row with no key in its band has lse =
     -1e30 (every score is the mask value): its output is the uniform
     average of v, as in ``attention``."""
     b, t, h, _ = q.shape
-    sc = _scores(q, k, causal, window, _work_dtype(q))
+    sc = _scores(q, k, causal, window, _work_dtype(q), softcap)
     full = _attend(q, v, sc)
     out = full.to(q.dtype)
     lse = torch.logsumexp(sc, dim=-1).reshape(b, h, t)
@@ -175,14 +190,17 @@ def attention_lse(q, k, v, *, causal: bool = True, window=None):
                       else full)
 
 
-def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None):
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None,
+                  softcap=None):
     """The backward of ``attention`` from its output and log-sum-exp, the
     formula the flash backward kernels compute:
 
-        P  = exp(S - lse)              (S the masked scaled scores)
+        P  = exp(S - lse)              (S the masked scaled scores, capped)
         D  = rowsum(dO * O)
         dV = P^T dO                    (summed over the group's q heads)
         dS = P * (dO V^T - D)          (0 where the mask holds)
+             * (1 - tanh^2(s / c))     (with ``softcap`` c, s the scaled
+                                        score before its cap)
         dQ = dS K / sqrt(d),   dK = dS^T Q / sqrt(d)
 
     A row with no key in its band (lse <= -1e30 / 2) weighs every key
@@ -195,7 +213,8 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None):
     s, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
     wd = _work_dtype(q)
-    sc = _scores(q, k, causal, window, wd)                   # (B,G,R,T,S)
+    raw = _raw_scores(q, k, wd)                              # (B,G,R,T,S)
+    sc = _scores(q, k, causal, window, wd, softcap, raw)
     band = _band(t, s, causal, window, q.device)
     lse_g = lse.to(wd).reshape(b, kvh, rep, t)[..., None]
     empty = lse_g <= NEG_INF / 2
@@ -205,7 +224,10 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None):
     dsum = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B,G,R,T,1)
     dv = torch.einsum("bgrts,btgrk->bsgk", p, dog)
     dp = torch.einsum("btgrk,bsgk->bgrts", dog, v.to(wd))
-    ds = torch.where(band & ~empty, p * (dp - dsum), 0.0) / math.sqrt(d)
+    ds = torch.where(band & ~empty, p * (dp - dsum), 0.0)
+    if softcap:
+        ds = ds * (1 - torch.tanh(raw / softcap) ** 2)
+    ds = ds / math.sqrt(d)
     dq = torch.einsum("bgrts,bsgk->btgrk", ds, k.to(wd)).reshape(b, t, h, d)
     dk = torch.einsum("bgrts,btgrk->bsgk", ds,
                       q.reshape(b, t, kvh, rep, d).to(wd))

@@ -11,9 +11,10 @@ rotary), the standard serving convention.  Positions are (B, T), or
 does the masking and the cache bookkeeping, as in the JAX package.
 
 * **Prefill and train** call ``ops.attention(q, k, v, causal=cfg.causal,
-  window=cfg.window)``: the flash kernel on the card, ``ref.attention`` on
-  the CPU.  This computes what the JAX package's ``_sdpa_full``,
-  ``_sdpa_chunked`` and ``_sdpa_banded`` compute over the prompt: prefill
+  window=cfg.window, softcap=cfg.softcap)``: the flash kernel on the card,
+  ``ref.attention`` on the CPU.  This computes what the JAX package's
+  ``_sdpa_full``, ``_sdpa_chunked`` and ``_sdpa_banded`` compute over the
+  prompt: prefill
   positions are always the default ones (the model's ``forward`` takes no
   others whose temporal stream is not the index), so query and key
   position ``i`` is index ``i``, and the kernel's masks by index
@@ -37,14 +38,20 @@ does the masking and the cache bookkeeping, as in the JAX package.
 * **Cross-attention** (``cfg.cross``, ``_cross_attention``): queries from
   the decoder, keys and values projected from the encoder's hidden states
   (``enc_kv``, (B, S_enc, D)), no RoPE and no mask.  Prefill and train run
-  ``ops.attention(q, k, v, causal=False)``, the flash kernel with T != S,
+  ``ops.attention(q, k, v, causal=False, softcap=cfg.softcap)``, the flash
+  kernel with T != S,
   where the JAX package runs ``_sdpa_full`` (every key position is valid);
   prefill caches the projected keys and values wholesale
   (``cross_cache_specs``).  Decode reads that cache through ``_sdpa_full``
   and never writes it.
 
-Softcap and qk-norm wait for the family that needs them (gemma3); such a
-config raises ``NotImplementedError``.
+* **qk-norm** (``cfg.qk_norm``, gemma3): q and k pass through ``rmsnorm``
+  over the head dim (``q_norm``, ``k_norm``, shape (Dh,), ones at init) at
+  its default eps of 1e-6, not ``cfg.norm_eps``, before RoPE, as in the
+  JAX package; cross-attention normalises q only.
+* **Softcap** (``cfg.softcap`` c, off when falsy): every path caps the
+  scaled scores at c tanh(s/c) before the mask: the flash kernels given
+  ``softcap``, decode's ``_sdpa_full`` in plain torch.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import AttnCfg
 from repro_torch.dist.sharding import TensorSpec, tspec
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope
+from repro_torch.models.common import apply_rope, rmsnorm
 
 NEG_INF = -1e30
 
@@ -67,22 +74,18 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def _supported(cfg: AttnCfg):
-    for name, on in (("softcap", cfg.softcap), ("qk_norm", cfg.qk_norm)):
-        if on:
-            raise NotImplementedError(
-                f"attention: {name} waits for the family that needs it")
-
-
 def attn_specs(cfg: AttnCfg, d_model: int) -> dict[str, TensorSpec]:
-    _supported(cfg)
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    return {
+    s = {
         "wq": tspec((d_model, h, dh), ("embed", "heads", "head_dim")),
         "wk": tspec((d_model, kv, dh), ("embed", "kv_heads", "head_dim")),
         "wv": tspec((d_model, kv, dh), ("embed", "kv_heads", "head_dim")),
         "wo": tspec((h, dh, d_model), ("heads", "head_dim", "embed")),
     }
+    if cfg.qk_norm:
+        s["q_norm"] = tspec((dh,), ("head_dim",), init="ones")
+        s["k_norm"] = tspec((dh,), ("head_dim",), init="ones")
+    return s
 
 
 def attn_cache_specs(cfg: AttnCfg, batch: int, cache_len: int,
@@ -121,10 +124,14 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project(params, x, cfg: AttnCfg, positions):
-    """x (B,T,D) -> q (B,T,H,Dh), k,v (B,T,KV,Dh); rope applied."""
+    """x (B,T,D) -> q (B,T,H,Dh), k,v (B,T,KV,Dh); qk-norm (if set), then
+    rope applied."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_section)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_section)
@@ -149,6 +156,8 @@ def _sdpa_full(q, k, v, q_pos, k_pos, cfg: AttnCfg):
     qg = q.reshape(b, t, kvh, rep, dh)
     scores = torch.einsum("btgrk,bsgk->bgrts", qg, k).float()
     scores = scores / math.sqrt(dh)
+    if cfg.softcap:
+        scores = torch.tanh(scores / cfg.softcap) * cfg.softcap
     mask = _mask(q_pos, k_pos, cfg)[:, None, None]        # (B,1,1,T,S)
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -177,7 +186,6 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
     encoder's hidden states (B, S_enc, D), cached wholesale at prefill and
     read, not written, at decode.
     """
-    _supported(cfg)
     if cfg.cross:
         return _cross_attention(params, x, cfg, cache=cache, enc_kv=enc_kv,
                                 mode=mode)
@@ -201,7 +209,8 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
         if mode == "prefill":
             new_cache = _prefill_cache(
                 k, v, mask_pos, cache_len_for(cfg, max(cache_len or t, t)))
-        out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window)
+        out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                            softcap=cfg.softcap)
 
     wo = params["wo"]
     out = out.reshape(b, t, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
@@ -238,6 +247,8 @@ def _write_slot(buf, val, slot):
 def _cross_attention(params, x, cfg: AttnCfg, *, cache, enc_kv, mode):
     b, t, _ = x.shape
     q = _proj(x, params["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
     if mode == "decode":
         new_cache = cache
         q_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
@@ -253,7 +264,7 @@ def _cross_attention(params, x, cfg: AttnCfg, *, cache, enc_kv, mode):
             kp = torch.arange(k.shape[1], dtype=torch.int32,
                               device=x.device)[None].expand(b, -1)
             new_cache = {"k": k, "v": v, "pos": kp.contiguous()}
-        out = ops.attention(q, k, v, causal=False)
+        out = ops.attention(q, k, v, causal=False, softcap=cfg.softcap)
     wo = params["wo"]
     out = out.reshape(b, t, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
     return out, new_cache

@@ -3,10 +3,14 @@ the PyTorch port, held against the JAX package on the CPU.
 
 ``csrc/flash_attention_bwd.cu`` runs bfloat16 on the tensor cores: a dK/dV
 kernel over 64-key tiles that walks the group's q heads and the band's
-64-row q tiles (at D = 128 each staged tile in two halves of 32 rows,
-``kSubB``), and a dQ kernel over 64-row q tiles that walks the band's
-64-key tiles, at head dims 16 to 128 (h2o-danube's 80, qwen2-vl's 128)
-and under windows shorter than T.  ``_flash_bwd_bf16_model`` repeats that in torch: products of
+64-row q tiles (at D = 128 and 256 each staged tile in two halves of 32
+rows, ``kSubB``; at D = 256 as two launches, a dV pass and a dK pass, each
+accumulating one of the two with the same arithmetic), and a dQ kernel
+over 64-row q tiles that walks the band's 64-key tiles (at D = 256 each
+in two halves of 32 keys, ``kSubQ``), at head dims 16 to 256
+(h2o-danube's 80, qwen2-vl's 128, gemma3's 256), under windows shorter
+than T and under gemma3's softcap c (S capped at c tanh(s/c), dS times
+1 - tanh^2).  ``_flash_bwd_bf16_model`` repeats that in torch: products of
 bf16 values accumulated in float32, P = 2^(S scale log2(e) - lse log2(e)),
 P and dS ROUNDED TO TWO bf16 TERMS each before their products (hi =
 bf16(x), lo = bf16(x - hi), one product each), the scale applied to dK and
@@ -37,7 +41,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs.base import AttnCfg as JAttnCfg  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import _build, ref, selective_scan  # noqa: E402
 
 FLASH_BWD_RTOL = 2 ** -8    # chip_smoke.py, bf16 gradients
@@ -47,13 +53,25 @@ TILE = 64           # keys (dK/dV) or rows (dQ) a CTA owns, and the step
 FLASH_BWD_SRC = (_build.CSRC / "flash_attention_bwd.cu").read_text()
 
 
-def _sub_rows(d):
-    """The q rows a dK/dV warp's S^T and dP^T span at once at head dim
-    ``d``: the kernel's ``kSubB`` rule, read from the source."""
+def _sub_rule(name, d):
+    """The kernel's ``constexpr int <name> = D <= L ? A : B;`` rule at head
+    dim ``d``, read from the source."""
     lim, small, large = map(int, re.search(
-        r"constexpr int kSubB = D <= (\d+) \? (\d+) : (\d+);",
+        rf"constexpr int {name} = D <= (\d+) \? (\d+) : (\d+);",
         FLASH_BWD_SRC).groups())
     return small if d <= lim else large
+
+
+def _sub_rows(d):
+    """The q rows a dK/dV warp's S^T and dP^T span at once at head dim
+    ``d`` (``kSubB``)."""
+    return _sub_rule("kSubB", d)
+
+
+def _sub_keys(d):
+    """The keys a dQ warp's S and dP span at once at head dim ``d``
+    (``kSubQ``)."""
+    return _sub_rule("kSubQ", d)
 
 
 def _share(got, want):
@@ -112,8 +130,20 @@ def _mma(acc, x, b, terms):
         acc += part @ b
 
 
+def _capped(st, scale, softcap):
+    """(base-2 exponent of the scores before lse, the cap's derivative):
+    s scale log2(e) and 1, or c log2(e) tanh(s scale / c) and 1 - tanh^2,
+    in float32 as the kernels compute them."""
+    f32 = torch.float32
+    if not softcap:
+        return st * (scale * torch.tensor(LOG2E, dtype=f32)), 1.0
+    th = torch.tanh(st * (scale / torch.tensor(softcap, dtype=f32)))
+    return (torch.tensor(softcap, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+            * th, 1 - th * th)
+
+
 def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
-                          terms=2):
+                          terms=2, softcap=None):
     """What ``flash_bwd_dkdv_bf16_kernel`` and ``flash_bwd_dq_bf16_kernel``
     compute, in plain torch, tile by tile (the kernels' walks and masks)."""
     b, t, h, d = q.shape
@@ -128,7 +158,6 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
         .permute(0, 2, 3, 1)                                     # (B,G,R,T)
     lg = lse.reshape(b, kvh, rep, t)
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=f32)
-    sl2 = scale * torch.tensor(LOG2E, dtype=f32)
     l2 = lg * torch.tensor(LOG2E, dtype=f32)
     empty = lg <= -0.5e30
 
@@ -159,10 +188,11 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
                 kept = (_keep(rows, keys, causal, window)
                         & (rows < t)[:, None]).T
                 st = kt @ qt_.transpose(-1, -2)                 # (keys, rows)
-                p = torch.exp2(st * sl2 - lt)
+                x, dcap = _capped(st, scale, softcap)
+                p = torch.exp2(x - lt)
                 p = torch.where(kept, p, torch.where(et, 1.0 / s, 0.0))
                 dpt = vt @ dot.transpose(-1, -2)
-                ds = torch.where(et, 0.0, p * (dpt - dt))
+                ds = torch.where(et, 0.0, p * (dpt - dt) * dcap)
                 for r0 in range(0, TILE, sub):      # the kernel's sub-steps
                     part = slice(r0, r0 + sub)
                     _mma(dva, p[..., part], dot[..., part, :], terms)
@@ -185,6 +215,7 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
         live = ~_cut(empty, q0, TILE)[..., None] & (rows < t)[:, None]
         dt = _cut(dsum, q0, TILE)[..., None]
         dqa = torch.zeros((b, kvh, rep, TILE, d))
+        sub = _sub_keys(d)
         for kb in range(k_begin, k_end, TILE):
             keys = torch.arange(kb, kb + TILE)
             kt = _tile(kg, kb, TILE)[:, :, None]
@@ -192,8 +223,12 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
             sc = qt_ @ kt.transpose(-1, -2)                     # (rows, keys)
             dp = dot @ vt.transpose(-1, -2)
             kept = live & _keep(rows, keys, causal, window) & (keys < s)
-            ds = torch.where(kept, torch.exp2(sc * sl2 - lt) * (dp - dt), 0.0)
-            _mma(dqa, ds, kt, terms)
+            x, dcap = _capped(sc, scale, softcap)
+            ds = torch.where(kept, torch.exp2(x - lt) * (dp - dt) * dcap,
+                             0.0)
+            for k0_ in range(0, TILE, sub):         # the kernel's sub-steps
+                part = slice(k0_, k0_ + sub)
+                _mma(dqa, ds[..., part], kt[..., part, :], terms)
         n = min(TILE, t - q0)
         dq[:, :, :, q0:q0 + n] = (dqa * scale)[:, :, :, :n]
     dq = dq.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
@@ -201,60 +236,74 @@ def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-@pytest.mark.parametrize("t,s,h,kv,d,causal,window", [
-    (128, 128, 8, 2, 64, True, None),     # llama's GQA and head dim, cut
-    (100, 100, 4, 2, 16, True, None),     # the reduced llama, ragged T
-    (100, 77, 4, 2, 32, False, 24),       # ragged S, non-causal window
-    (200, 50, 2, 1, 64, True, 16),        # rows with no key in the band
-    (200, 200, 4, 1, 80, True, 72),       # h2o-danube's head dim, a window
-                                          # shorter than T, GQA 4:1
-    (130, 130, 8, 1, 128, True, None),    # qwen2-vl's head dim, GQA 8:1
-    (150, 90, 2, 1, 128, False, 40),      # T != S, windowed, D = 128
+@pytest.mark.parametrize("t,s,h,kv,d,causal,window,softcap", [
+    (128, 128, 8, 2, 64, True, None, None),   # llama's GQA and head dim, cut
+    (100, 100, 4, 2, 16, True, None, None),   # the reduced llama, ragged T
+    (100, 77, 4, 2, 32, False, 24, None),     # ragged S, non-causal window
+    (200, 50, 2, 1, 64, True, 16, None),      # rows with no key in the band
+    (200, 200, 4, 1, 80, True, 72, None),     # h2o-danube's head dim, a
+                                              # window shorter than T, 4:1
+    (130, 130, 8, 1, 128, True, None, None),  # qwen2-vl's head dim, 8:1
+    (150, 90, 2, 1, 128, False, 40, None),    # T != S, windowed, D = 128
+    (130, 130, 4, 2, 256, True, None, None),  # gemma3's head dim, GQA 2:1
+    (150, 150, 2, 1, 256, True, 40, 2.0),     # D = 256, a window < T and
+                                              # a softcap
 ])
-def test_flash_bwd_bf16_design_is_inside_the_bf16_tolerance(t, s, h, kv, d,
-                                                            causal, window):
+def test_flash_bwd_bf16_design_is_inside_the_bf16_tolerance(
+        t, s, h, kv, d, causal, window, softcap):
     """The tensor-core backward's roundings (P and dS to two bf16 terms
     before their products, the gradients at the store) keep every gradient
     within 2^-8 of its scale of ``ref.attention_bwd`` and of ``jax.vjp`` of
-    the JAX package's plain attention, on the same bf16 inputs; one bf16
-    term for P and dS would not."""
+    the JAX package's plain attention (``_sdpa_full`` with the cap, for a
+    softcap), on the same bf16 inputs; one bf16 term for P and dS would
+    not."""
     r = np.random.default_rng(t + s + d)
     arrays = [r.normal(size=shape).astype(np.float32)
               for shape in ((2, t, h, d), (2, s, kv, d), (2, s, kv, d),
                             (2, t, h, d))]
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
-    o32, lse, _ = ref.attention_lse(q.float(), k.float(), v.float(),
-                                    causal=causal, window=window)
+    mask = dict(causal=causal, window=window, softcap=softcap)
+    o32, lse, _ = ref.attention_lse(q.float(), k.float(), v.float(), **mask)
     o = o32.to(torch.bfloat16)      # what the bf16 forward hands over
-    got = _flash_bwd_bf16_model(q, k, v, o, lse, do, causal=causal,
-                                window=window)
+    got = _flash_bwd_bf16_model(q, k, v, o, lse, do, **mask)
     assert all(g.dtype == torch.bfloat16 for g in got)
-    want = ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
-                             window=window)
+    want = ref.attention_bwd(q, k, v, o, lse, do, **mask)
     for g, w in zip(got, want):
         assert _share(g.float(), w.float()) <= FLASH_BWD_RTOL
     # jax.vjp differentiates through the float32 output before its rounding
     # to bf16 (from the rounded one, D = rowsum(dO O) alone moves dQ and dK
     # by up to 0.005 of their scale here): the model takes that output
+    if softcap:
+        cfg = JAttnCfg(n_heads=h, n_kv=kv, head_dim=d, window=window,
+                       causal=causal, softcap=softcap)
+        qpos = jnp.broadcast_to(jnp.arange(t, dtype=jnp.int32), (2, t))
+        kpos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (2, s))
+
+        def plain(a, b_, c):
+            return jattn._sdpa_full(a, b_, c, qpos, kpos, cfg)
+        # the same bf16 values, in float32 (_sdpa_full computes its
+        # scores in the inputs' dtype)
+        jin = [jnp.asarray(x.float().numpy()) for x in (q, k, v, do)]
+    else:
+        def plain(a, b_, c):
+            return jref.attention(a, b_, c, causal=causal, window=window)
+        jin = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+
     @jax.jit
     def jax_grads(q_, k_, v_, do_):
-        _, vjp = jax.vjp(lambda a, b, c: jref.attention(
-            a, b, c, causal=causal, window=window), q_, k_, v_)
+        _, vjp = jax.vjp(plain, q_, k_, v_)
         return vjp(do_)
 
-    got32 = _flash_bwd_bf16_model(q, k, v, o32, lse, do, causal=causal,
-                                  window=window)
-    jin = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    got32 = _flash_bwd_bf16_model(q, k, v, o32, lse, do, **mask)
     for g, j in zip(got32, jax_grads(*jin)):
         assert _share(g.float(), np.asarray(j, np.float32)) <= FLASH_BWD_RTOL
     # the rounding is real: the model is not the float32 reference itself
     exact = ref.attention_bwd(q.float(), k.float(), v.float(), o.float(),
-                              lse, do.float(), causal=causal, window=window)
+                              lse, do.float(), **mask)
     for g, e in zip(got, exact):
         assert float((g.float() - e).abs().max()) > 0
     # and one bf16 term would put some gradient past the tolerance
-    one = _flash_bwd_bf16_model(q, k, v, o, lse, do, causal=causal,
-                                window=window, terms=1)
+    one = _flash_bwd_bf16_model(q, k, v, o, lse, do, terms=1, **mask)
     assert max(_share(g.float(), w.float())
                for g, w in zip(one, want)) > FLASH_BWD_RTOL
 
@@ -492,12 +541,21 @@ def test_flash_bwd_tiles_match_the_kernel():
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert int(re.search(r"constexpr int kTB = (\d+);", src)[1]) == TILE
     assert int(re.search(r"constexpr int kStepB = (\d+);", src)[1]) == TILE
-    # the head dims the wrappers take, each with its sub-step: the whole
-    # stage up to D = 64 (the design as it was), halves of it at 128
+    # the head dims the wrappers take, each with its sub-steps: the whole
+    # stage up to D = 64 (the design as it was), halves of it in dK/dV at
+    # 128 and 256, and in dQ at 256
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    assert HEAD_DIMS == (16, 32, 64, 80, 128)
+    assert HEAD_DIMS == (16, 32, 64, 80, 128, 256)
     subs = {d: _sub_rows(d) for d in HEAD_DIMS}
-    assert subs == {16: 64, 32: 64, 64: 64, 80: 64, 128: 32}
-    assert all(TILE % sub == 0 and sub % 16 == 0 for sub in subs.values())
+    assert subs == {16: 64, 32: 64, 64: 64, 80: 64, 128: 32, 256: 32}
+    subq = {d: _sub_keys(d) for d in HEAD_DIMS}
+    assert subq == {16: 64, 32: 64, 64: 64, 80: 64, 128: 64, 256: 32}
+    assert all(TILE % sub == 0 and sub % 16 == 0
+               for sub in (*subs.values(), *subq.values()))
     for d in HEAD_DIMS:
         assert f"case {d}:" in src
+    # past D = 128 the dK/dV kernel runs as a dV pass and a dK pass
+    assert re.search(r"if constexpr \(D <= 128\) \{\s*err = launch_dkdv_bf16"
+                     r"<D, kDkdvBoth, kCap>", src)
+    assert "launch_dkdv_bf16<D, kDkdvOnlyDv, kCap>" in src
+    assert "launch_dkdv_bf16<D, kDkdvOnlyDk, kCap>" in src

@@ -156,13 +156,14 @@ def test_cpu_route_counts_dispatches_not_launches():
     ("layout", "contiguous"),
     ("window", "window"),
     ("align", "16-byte boundaries"),
+    ("softcap", "softcap"),
 ])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     """The checks run before any launch, so they hold on the CPU too."""
     q = torch.zeros((1, 8, 4, 16))
     k = torch.zeros((1, 8, 2, 16))
     v = torch.zeros((1, 8, 2, 16))
-    window = None
+    window = softcap = None
     if bad == "dtype":
         k = k.to(torch.bfloat16)
     elif bad == "head_dim":
@@ -174,10 +175,12 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     elif bad == "align":     # a contiguous bf16 view 2 bytes into its buffer
         q, k, v = (torch.zeros(t.numel() + 1, dtype=torch.bfloat16)[1:]
                    .view(t.shape) for t in (q, k, v))
+    elif bad == "softcap":
+        softcap = -1.0
     else:
         window = 0
     with pytest.raises(ValueError, match=match):
-        flash_attention._check(q, k, v, window)
+        flash_attention._check(q, k, v, window, softcap)
 
 
 @pytest.mark.parametrize("bad,match", [

@@ -285,15 +285,24 @@ def test_mamba1_layer_prefill_and_decode_match_jax():
 
 
 def test_unported_features_raise():
-    """Softcap and qk-norm wait for gemma3; ring caches (a window shorter
-    than the cache) are ported: a 6-token prefill under a window of 8 with
-    capacity 12 leaves 8 slots, the last two empty, for decode to wrap."""
-    for name, cfg in (("softcap", attention.AttnCfg(
-            n_heads=2, n_kv=1, head_dim=16, softcap=30.0)),
-            ("qk_norm", attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16,
-                                          qk_norm=True))):
-        with pytest.raises(NotImplementedError, match=name):
-            attention.attn_specs(cfg, 32)
+    """The layer kinds of the families still to come (mamba2 and shared
+    blocks: zamba2; MoE layers: mixtral, arctic) raise; softcap and qk-norm
+    are ported (gemma3): a softcap config gives the plain specs, qk-norm
+    adds ``q_norm`` and ``k_norm`` of the head dim.  Ring caches (a window
+    shorter than the cache) are ported: a 6-token prefill under a window
+    of 8 with capacity 12 leaves 8 slots, the last two empty, for decode
+    to wrap."""
+    from repro_torch.models import stack
+
+    for kind in ("mamba2", "shared", "moe"):
+        with pytest.raises(NotImplementedError, match=kind):
+            stack.layer_specs(stack.LayerCfg(kind=kind), 32)
+    capped = attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16, softcap=30.0)
+    assert sorted(attention.attn_specs(capped, 32)) == ["wk", "wo", "wq",
+                                                        "wv"]
+    normed = attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16, qk_norm=True)
+    specs = attention.attn_specs(normed, 32)
+    assert specs["q_norm"].shape == specs["k_norm"].shape == (16,)
     windowed = attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16, window=8)
     params = {k: torch.zeros(s.shape)
               for k, s in attention.attn_specs(windowed, 32).items()}

@@ -25,7 +25,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs.base import AttnCfg as JAttnCfg  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import (_build, flash_attention, ops, ref,  # noqa: E402
                                  selective_scan)
 
@@ -78,6 +80,46 @@ def test_attention_bwd_matches_autograd_and_jax_vjp(case):
         assert g.dtype == torch.float32
         _close(g.numpy(), a.numpy())
         _close(g.numpy(), np.asarray(w))
+
+
+SOFTCAP = 2.0     # small enough that tanh bends the scores of N(0, 1) data
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_bwd_with_softcap_matches_autograd_and_jax_vjp(case):
+    """gemma3's softcap: scores capped at c tanh(s/c) before the mask.  The
+    plain backward (dS times 1 - tanh^2) against autograd through the
+    capped plain attention and against ``jax.vjp`` of the JAX package's
+    ``_sdpa_full`` with the same cap, positions the indices."""
+    b, t, s, h, kv, d, causal, window = case
+    qa, ka, va, doa = _attn_arrays(sum(case[:6]) + 1, b, t, s, h, kv, d)
+    qa *= 2.0                   # scores up to ~6: the cap bends them
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in (qa, ka, va))
+    do = torch.from_numpy(doa)
+    out = ref.attention(q, k, v, causal=causal, window=window,
+                        softcap=SOFTCAP)
+    auto = torch.autograd.grad(out, (q, k, v), do)
+    o, lse, _ = ref.attention_lse(q.detach(), k.detach(), v.detach(),
+                                  causal=causal, window=window,
+                                  softcap=SOFTCAP)
+    assert torch.equal(o, out.detach())
+    got = ref.attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, do,
+                            causal=causal, window=window, softcap=SOFTCAP)
+    cfg = JAttnCfg(n_heads=h, n_kv=kv, head_dim=d, window=window,
+                   causal=causal, softcap=SOFTCAP)
+    qpos = jnp.broadcast_to(jnp.arange(t, dtype=jnp.int32), (b, t))
+    kpos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
+    _, vjp = jax.vjp(lambda q_, k_, v_: jattn._sdpa_full(
+        q_, k_, v_, qpos, kpos, cfg), *map(jnp.asarray, (qa, ka, va)))
+    want = vjp(jnp.asarray(doa))
+    uncapped = ref.attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                                 do, causal=causal, window=window)
+    for g, a, w, u in zip(got, auto, want, uncapped):
+        _close(g.numpy(), a.numpy())
+        _close(g.numpy(), np.asarray(w))
+    # the cap's derivative is live: without it dq moves past the tolerance
+    assert float((got[0] - uncapped[0]).abs().max()) > \
+        100 * TOL * float(got[0].abs().max())
 
 
 def test_attention_lse_marks_rows_without_keys():
@@ -141,6 +183,11 @@ def test_attention_function_gradcheck(case):
     assert torch.autograd.gradcheck(
         lambda q_, k_, v_: ops.AttentionFn.apply(q_, k_, v_, causal, window),
         (q, k, v))
+    # with a softcap (q scaled up so that the cap bends the scores)
+    q = (3 * q).detach().requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda q_, k_, v_: ops.AttentionFn.apply(q_, k_, v_, causal, window,
+                                                 SOFTCAP), (q, k, v))
 
 
 @pytest.mark.parametrize("n", [1, 3])
@@ -233,12 +280,16 @@ def test_dkdv_tile_walk_covers_every_weighted_pair(t, s, causal, window):
     or any key of a row with no key in its band) is visited."""
     band = ref._band(t, s, causal, window, "cpu").numpy()
     weighted = band | ~band.any(1, keepdims=True)
-    for q_step in (64, 32):             # the bf16 and the float32 kernel
-        need = {(i // q_step, j // 64) for i, j in zip(*np.nonzero(weighted))}
-        assert need <= _tiles_visited(t, s, causal, window, q_step=q_step)
+    # the bf16 kernel, the float32 kernel, the float32 kernel at D = 256
+    for kv_tile, q_step in ((64, 64), (64, 32), (16, 16)):
+        need = {(i // q_step, j // kv_tile)
+                for i, j in zip(*np.nonzero(weighted))}
+        assert need <= _tiles_visited(t, s, causal, window, kv_tile, q_step)
 
 
 @pytest.mark.parametrize("module,src,entry,argtypes", [
+    (flash_attention, "flash_attention.cu", "flash_attention_launch",
+     "_ARGTYPES"),
     (flash_attention, "flash_attention.cu", "flash_attention_lse_launch",
      "_LSE_ARGTYPES"),
     (flash_attention, "flash_attention_bwd.cu", "flash_attention_bwd_launch",
