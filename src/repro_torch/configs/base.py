@@ -1,10 +1,10 @@
 """Config dataclasses for the served models + the four assigned input shapes.
 
-The port of the JAX package's ``configs/base.py`` for the families the port
-serves so far: dense GQA, Mamba1, and the encoder-decoder (whisper:
-``ModelCfg.encoder`` and ``ModelCfg.embed_inputs``).  ``MoECfg``,
-``Mamba2Cfg``, ``moe_layer`` and ``StackCfg.shared`` wait for the families
-that need them.
+The port of the JAX package's ``configs/base.py``: every family, dense GQA,
+MoE (``MoECfg``, ``moe_layer``), Mamba1, the Mamba2 hybrid with its shared
+attention block (``Mamba2Cfg``, ``StackCfg.shared``), and the
+encoder-decoder (whisper: ``ModelCfg.encoder`` and
+``ModelCfg.embed_inputs``).
 """
 from __future__ import annotations
 
@@ -40,6 +40,15 @@ class MlpCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    capacity_factor: float = 1.25
+    dense_residual_ff: Optional[int] = None   # arctic: parallel dense MLP
+
+
+@dataclasses.dataclass(frozen=True)
 class Mamba1Cfg:
     d_inner: int
     d_state: int = 16
@@ -49,13 +58,23 @@ class Mamba1Cfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class Mamba2Cfg:
+    d_inner: int
+    d_state: int = 64
+    head_dim: int = 64
+    conv_width: int = 4
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerCfg:
     """One position in the stack pattern."""
 
-    kind: str                 # 'attn_mlp' | 'mamba1'
+    kind: str                 # 'attn_mlp' | 'mamba1' | 'mamba2' | 'shared'
     attn: Optional[AttnCfg] = None
     mlp: Optional[MlpCfg] = None
-    ssm: Optional[Mamba1Cfg] = None
+    moe: Optional[MoECfg] = None
+    ssm: Optional[Mamba1Cfg | Mamba2Cfg] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +82,7 @@ class StackCfg:
     pattern: tuple[LayerCfg, ...]
     n_groups: int
     tail: tuple[LayerCfg, ...] = ()
+    shared: Optional[LayerCfg] = None     # weights for kind='shared' positions
 
     @property
     def n_layers(self) -> int:
@@ -72,7 +92,7 @@ class StackCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelCfg:
     name: str
-    family: str                           # dense | ssm | audio | vlm
+    family: str                   # dense | moe | ssm | hybrid | audio | vlm
     d_model: int
     vocab: int
     stack: StackCfg
@@ -130,4 +150,18 @@ def dense_layer(d_model: int, n_heads: int, n_kv: int, d_ff: int,
                      rope_theta=rope_theta, qk_norm=qk_norm,
                      mrope_section=mrope, cross=cross, causal=causal),
         mlp=MlpCfg(d_ff=d_ff),
+    )
+
+
+def moe_layer(d_model: int, n_heads: int, n_kv: int, d_ff: int,
+              n_experts: int, top_k: int, head_dim: int | None = None,
+              window: int | None = None, dense_residual_ff: int | None = None,
+              capacity_factor: float = 1.25) -> LayerCfg:
+    return LayerCfg(
+        kind="attn_mlp",
+        attn=AttnCfg(n_heads=n_heads, n_kv=n_kv,
+                     head_dim=head_dim or d_model // n_heads, window=window),
+        moe=MoECfg(n_experts=n_experts, top_k=top_k, d_ff=d_ff,
+                   capacity_factor=capacity_factor,
+                   dense_residual_ff=dense_residual_ff),
     )

@@ -22,7 +22,8 @@ of the caller's whose temporal stream is the index.
 
 ``LM`` is the same model as an ``nn.Module`` that owns the tree as
 parameters under the tree's paths.  ``params_from_numpy`` carries a JAX
-parameter tree across (a copy, no transposes); ``cache_from_numpy`` and
+parameter tree across (a copy, no transposes) and ``params_to_numpy``
+carries one back; ``cache_from_numpy`` and
 ``cache_to_numpy`` do the same for caches, ``train_state_from_numpy`` and
 ``train_state_to_numpy`` for train states ``{params, m, v, step}``.
 """
@@ -245,16 +246,23 @@ def train_state_from_numpy(state, device) -> dict:
     return _tree_map(lambda a: _from_numpy(a, device), state)
 
 
-def train_state_to_numpy(state) -> dict:
-    """The port's train state -> numpy arrays the JAX package takes:
-    bfloat16 leaves as ml_dtypes bfloat16 (the same bits)."""
+def params_to_numpy(tree) -> dict:
+    """The port's parameter tree (any tree of tensors) -> numpy arrays the
+    JAX package takes, the same paths and layouts: bfloat16 leaves as
+    ml_dtypes bfloat16 (the same bits)."""
     def one(t):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             import ml_dtypes
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy()
-    return _tree_map(one, state)
+    return _tree_map(one, tree)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's train state -> numpy arrays the JAX package takes:
+    bfloat16 leaves as ml_dtypes bfloat16 (the same bits)."""
+    return params_to_numpy(state)
 
 
 def cache_to_numpy(tree) -> dict:

@@ -11,16 +11,22 @@ layers' new caches once at the end.  A partial ``tail`` runs after the
 groups.  A layer whose attention is ``cross`` (the whisper decoder's) runs
 causal self-attention (``_no_cross``), then cross-attention over the
 encoder's hidden states (``aux["enc"]``, under ``ln_x`` / ``xattn``), then
-its MLP, with a "self" and a "cross" cache.  Shared layers and MoE wait
-for the families that need them.
+its MLP, with a "self" and a "cross" cache.  An ``attn_mlp`` layer with
+``moe`` set runs the MoE layer (``models.moe``) as its feed-forward.  A
+``shared`` position (zamba2's shared attention block) owns no parameters:
+it runs ``StackCfg.shared`` with the stack's one ``params["shared"]``
+tree, wherever it occurs, and keeps a cache of its own per occurrence in
+the group's (or tail's) cache tree.  Unknown kinds raise ``ValueError``.
 
 Remat in train mode, as the JAX package's ``jax.checkpoint`` around each
 group: ``"full"`` wraps each group in ``torch.utils.checkpoint.checkpoint``
-(non-reentrant), so only the group's input is kept and the group is run
-again in the backward; ``"dots"`` is a selective checkpoint that keeps the
-outputs of the products without batch dimensions (``aten.mm``, what a
-weight product ``x @ w`` lowers to) and recomputes everything else, the
-counterpart of ``dots_with_no_batch_dims_saveable``.
+(non-reentrant: the parameters the group closes over, the shared ones
+too, get their gradients through it), so only the group's input is kept
+and the group is run again in the backward; ``"dots"`` is a selective
+checkpoint that keeps the outputs of the products without batch
+dimensions (``aten.mm``, what a weight product ``x @ w`` lowers to) and
+recomputes everything else, the counterpart of
+``dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
@@ -40,12 +46,7 @@ from repro_torch.models.attention import (attn_cache_specs, attn_specs,
                                           cache_len_for, cross_cache_specs)
 from repro_torch.models.common import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
-
-
-def _kind(lc: LayerCfg):
-    if lc.kind not in ("attn_mlp", "mamba1"):
-        raise NotImplementedError(
-            f"layer kind {lc.kind!r} waits for the family that needs it")
+from repro_torch.models.moe import moe, moe_specs
 
 
 # ---------------------------------------------------------------------------
@@ -54,7 +55,10 @@ def _kind(lc: LayerCfg):
 
 
 def layer_specs(lc: LayerCfg, d_model: int) -> dict[str, Any]:
-    _kind(lc)
+    """A layer's parameter specs; a ``shared`` position owns none (its
+    parameters are the stack's ``shared`` tree)."""
+    if lc.kind == "shared":
+        return {}
     if lc.kind == "attn_mlp":
         s: dict[str, Any] = {"ln1": rmsnorm_spec(d_model),
                              "attn": attn_specs(lc.attn, d_model),
@@ -62,32 +66,53 @@ def layer_specs(lc: LayerCfg, d_model: int) -> dict[str, Any]:
         if lc.attn.cross:
             s["ln_x"] = rmsnorm_spec(d_model)
             s["xattn"] = attn_specs(lc.attn, d_model)
-        s["ffn"] = mlp_specs(lc.mlp, d_model)
+        s["ffn"] = (moe_specs(lc.moe, d_model) if lc.moe
+                    else mlp_specs(lc.mlp, d_model))
         return s
-    return {"ln": rmsnorm_spec(d_model),
-            "ssm": mamba_mod.mamba1_specs(lc.ssm, d_model)}
+    if lc.kind in ("mamba1", "mamba2"):
+        fn = (mamba_mod.mamba1_specs if lc.kind == "mamba1"
+              else mamba_mod.mamba2_specs)
+        return {"ln": rmsnorm_spec(d_model), "ssm": fn(lc.ssm, d_model)}
+    raise ValueError(lc.kind)
+
+
+def _effective(lc: LayerCfg, shared: Optional[LayerCfg]) -> LayerCfg:
+    """The config a position runs: the stack's ``shared`` one at a
+    ``shared`` position."""
+    if lc.kind != "shared":
+        return lc
+    if shared is None:
+        raise ValueError("a 'shared' layer needs the stack's shared config")
+    return shared
 
 
 def layer_cache_specs(lc: LayerCfg, d_model: int, batch: int, seq_len: int,
-                      enc_len: int | None = None,
-                      dtype=torch.bfloat16) -> dict[str, Any]:
-    _kind(lc)
-    if lc.kind == "attn_mlp":
-        c = {"self": attn_cache_specs(lc.attn, batch,
-                                      cache_len_for(lc.attn, seq_len),
+                      enc_len: int | None = None, dtype=torch.bfloat16,
+                      shared: Optional[LayerCfg] = None) -> dict[str, Any]:
+    """A layer's cache specs; a ``shared`` position keeps a cache of its
+    own for the ``shared`` config it runs."""
+    eff = _effective(lc, shared)
+    if eff.kind == "attn_mlp":
+        c = {"self": attn_cache_specs(eff.attn, batch,
+                                      cache_len_for(eff.attn, seq_len),
                                       dtype)}
-        if lc.attn.cross:
-            c["cross"] = cross_cache_specs(lc.attn, batch, enc_len, dtype)
+        if eff.attn.cross:
+            c["cross"] = cross_cache_specs(eff.attn, batch, enc_len, dtype)
         return c
-    return {"ssm": mamba_mod.mamba1_cache_specs(lc.ssm, d_model, batch,
-                                                dtype)}
+    if eff.kind in ("mamba1", "mamba2"):
+        fn = (mamba_mod.mamba1_cache_specs if eff.kind == "mamba1"
+              else mamba_mod.mamba2_cache_specs)
+        return {"ssm": fn(eff.ssm, d_model, batch, dtype)}
+    raise ValueError(eff.kind)
 
 
 def apply_layer(lc: LayerCfg, params, x, *, mode: str, cache, aux: dict,
-                eps: float):
-    _kind(lc)
-    if lc.kind == "attn_mlp":
-        a_cfg = lc.attn
+                eps: float, shared: Optional[LayerCfg] = None):
+    """One layer; at a ``shared`` position ``params`` are the stack's
+    shared parameters and ``shared`` their config."""
+    eff = _effective(lc, shared)
+    if eff.kind == "attn_mlp":
+        a_cfg = eff.attn
         h = rmsnorm(x, params["ln1"], eps)
         a, c_self = attn_mod.attention(
             params["attn"], h, _no_cross(a_cfg) if a_cfg.cross else a_cfg,
@@ -106,13 +131,18 @@ def apply_layer(lc: LayerCfg, params, x, *, mode: str, cache, aux: dict,
             if c_cross is not None:
                 new_cache["cross"] = c_cross
         h = rmsnorm(x, params["ln2"], eps)
-        x = x + mlp(params["ffn"], h, lc.mlp)
+        f = (moe(params["ffn"], h, eff.moe) if eff.moe
+             else mlp(params["ffn"], h, eff.mlp))
+        x = x + f
         return x, (new_cache or None)
-    h = rmsnorm(x, params["ln"], eps)
-    y, c = mamba_mod.mamba1(params["ssm"], h, lc.ssm, mode=mode,
-                            cache=cache.get("ssm") if cache else None)
-    x = x + y
-    return x, ({"ssm": c} if c is not None else None)
+    if eff.kind in ("mamba1", "mamba2"):
+        h = rmsnorm(x, params["ln"], eps)
+        fn = mamba_mod.mamba1 if eff.kind == "mamba1" else mamba_mod.mamba2
+        y, c = fn(params["ssm"], h, eff.ssm, mode=mode,
+                  cache=cache.get("ssm") if cache else None)
+        x = x + y
+        return x, ({"ssm": c} if c is not None else None)
+    raise ValueError(eff.kind)
 
 
 def _no_cross(a_cfg):
@@ -135,11 +165,15 @@ def stack_specs(sc: StackCfg, d_model: int) -> dict[str, Any]:
     out: dict[str, Any] = {}
     group = {f"p{i}": layer_specs(lc, d_model)
              for i, lc in enumerate(sc.pattern)}
+    group = {k: v for k, v in group.items() if v}
     if sc.n_groups > 0 and group:
         out["groups"] = _stack_tree(group, sc.n_groups)
     if sc.tail:
         out["tail"] = {f"t{i}": layer_specs(lc, d_model)
                        for i, lc in enumerate(sc.tail)}
+        out["tail"] = {k: v for k, v in out["tail"].items() if v}
+    if sc.shared is not None:
+        out["shared"] = layer_specs(sc.shared, d_model)
     return out
 
 
@@ -148,13 +182,14 @@ def stack_cache_specs(sc: StackCfg, d_model: int, batch: int, seq_len: int,
                       dtype=torch.bfloat16) -> dict[str, Any]:
     out: dict[str, Any] = {}
     group = {f"p{i}": layer_cache_specs(lc, d_model, batch, seq_len, enc_len,
-                                        dtype)
+                                        dtype, sc.shared)
              for i, lc in enumerate(sc.pattern)}
     if sc.n_groups > 0:
         out["groups"] = _stack_tree(group, sc.n_groups)
     if sc.tail:
         out["tail"] = {f"t{i}": layer_cache_specs(lc, d_model, batch,
-                                                  seq_len, enc_len, dtype)
+                                                  seq_len, enc_len, dtype,
+                                                  sc.shared)
                        for i, lc in enumerate(sc.tail)}
     return out
 
@@ -210,13 +245,16 @@ def apply_stack(params, x, sc: StackCfg, *, mode: str, cache, aux: dict,
     if remat not in REMAT:
         raise ValueError(f"apply_stack: remat {remat!r} not in {REMAT}")
 
+    shared_params = params.get("shared")
+
     def group_body(x, gp, gc):
         new_c: dict[str, Any] = {}
         for i, lc in enumerate(sc.pattern):
             key = f"p{i}"
-            x, nc = apply_layer(lc, gp[key], x, mode=mode,
+            p = shared_params if lc.kind == "shared" else gp[key]
+            x, nc = apply_layer(lc, p, x, mode=mode,
                                 cache=gc.get(key) if gc else None,
-                                aux=aux, eps=eps)
+                                aux=aux, eps=eps, shared=sc.shared)
             if nc is not None:
                 new_c[key] = nc
         return x, new_c
@@ -251,8 +289,9 @@ def apply_stack(params, x, sc: StackCfg, *, mode: str, cache, aux: dict,
         key = f"t{i}"
         c: Optional[dict] = ((cache.get("tail") or {}).get(key)
                              if cache is not None else None)
-        x, nc = apply_layer(lc, params["tail"][key], x, mode=mode, cache=c,
-                            aux=aux, eps=eps)
+        p = shared_params if lc.kind == "shared" else params["tail"][key]
+        x, nc = apply_layer(lc, p, x, mode=mode, cache=c, aux=aux, eps=eps,
+                            shared=sc.shared)
         if nc is not None:
             new_cache.setdefault("tail", {})[key] = nc
 

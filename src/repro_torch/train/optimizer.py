@@ -6,7 +6,13 @@ functional, as there: ``adamw_update`` takes the parameter, gradient and
 moment trees and returns new ones, with the same arithmetic in float32.
 The moments are kept in ``OptCfg.state_dtype`` (float32 by default;
 bfloat16 halves the optimizer's memory).  Every number stays a tensor on
-the parameters' device, so a step needs no host sync.
+the parameters' device, so a step needs no host sync.  A leaf of more
+than ``_SLICE_ELEMS`` values is updated a slice at a time into its new
+tensors (the update is elementwise, so the numbers are the same): the
+float32 temporaries of one slice, not of the whole leaf, sit beside the
+old and the new state (a mixtral layer's expert leaves are 3.2 GB each:
+its one-layer step with bf16 moments ran out of an H100's 80 GB in an
+unsliced update).
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ import dataclasses
 import math
 
 import torch
+
+_SLICE_ELEMS = 1 << 26      # update big leaves in slices of 64 M values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,22 +99,36 @@ def adamw_update(params, grads, opt_state, cfg: OptCfg):
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=t.device), t)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=t.device), t)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, wd):
         g = g.to(torch.float32) * scale
         m32 = m.to(torch.float32) * cfg.b1 + (1 - cfg.b1) * g
         v32 = v.to(torch.float32) * cfg.b2 + (1 - cfg.b2) * g * g
         step_ = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
         p32 = p.to(torch.float32)
-        wd = cfg.weight_decay if p.dim() >= 2 else 0.0
         p32 = p32 - lr * (step_ + wd * p32)
         return (p32.to(p.dtype), m32.to(cfg.state_dtype),
                 v32.to(cfg.state_dtype))
+
+    def upd_leaf(p, g, m, v):
+        wd = cfg.weight_decay if p.dim() >= 2 else 0.0
+        if p.numel() <= _SLICE_ELEMS:
+            return upd(p, g, m, v, wd)
+        out = (torch.empty_like(p),
+               torch.empty(p.shape, dtype=cfg.state_dtype, device=p.device),
+               torch.empty(p.shape, dtype=cfg.state_dtype, device=p.device))
+        flat = [t.reshape(-1) for t in (p, g, m, v)]
+        dst = [t.view(-1) for t in out]
+        for i in range(0, p.numel(), _SLICE_ELEMS):
+            part = upd(*(t[i:i + _SLICE_ELEMS] for t in flat), wd)
+            for d, r in zip(dst, part):
+                d[i:i + _SLICE_ELEMS] = r
+        return out
 
     flat_p = tree_leaves(params)
     flat_g = tree_leaves(grads)
     flat_m = tree_leaves(opt_state["m"])
     flat_v = tree_leaves(opt_state["v"])
-    out = [upd(p, g, m, v)
+    out = [upd_leaf(p, g, m, v)
            for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
     new_p = tree_rebuild(params, [o[0] for o in out])
     new_m = tree_rebuild(params, [o[1] for o in out])

@@ -285,17 +285,34 @@ def test_mamba1_layer_prefill_and_decode_match_jax():
 
 
 def test_unported_features_raise():
-    """The layer kinds of the families still to come (mamba2 and shared
-    blocks: zamba2; MoE layers: mixtral, arctic) raise; softcap and qk-norm
-    are ported (gemma3): a softcap config gives the plain specs, qk-norm
-    adds ``q_norm`` and ``k_norm`` of the head dim.  Ring caches (a window
+    """Every layer kind of the JAX package is ported: a ``mamba2`` layer
+    gives the JAX package's spec keys, a ``shared`` position owns none (its
+    parameters are the stack's shared tree) and an unknown kind raises
+    ``ValueError``, as in the JAX package.  Softcap and qk-norm are ported
+    (gemma3): a softcap config gives the plain specs, qk-norm adds
+    ``q_norm`` and ``k_norm`` of the head dim.  Ring caches (a window
     shorter than the cache) are ported: a 6-token prefill under a window
     of 8 with capacity 12 leaves 8 slots, the last two empty, for decode
     to wrap."""
+    from repro.configs.base import LayerCfg as JaxLayerCfg
+    from repro.configs.base import Mamba2Cfg as JaxMamba2Cfg
+    from repro.models import stack as jax_stack
+    from repro_torch.configs.base import Mamba2Cfg
     from repro_torch.models import stack
 
-    for kind in ("mamba2", "shared", "moe"):
-        with pytest.raises(NotImplementedError, match=kind):
+    m2 = stack.layer_specs(stack.LayerCfg(
+        kind="mamba2", ssm=Mamba2Cfg(d_inner=64, d_state=8, head_dim=16)), 32)
+    jm2 = jax_stack.layer_specs(JaxLayerCfg(
+        kind="mamba2", ssm=JaxMamba2Cfg(d_inner=64, d_state=8, head_dim=16)),
+        32)
+    assert sorted(m2) == sorted(jm2) == ["ln", "ssm"]
+    assert sorted(m2["ssm"]) == sorted(jm2["ssm"])
+    for k, spec in jm2["ssm"].items():
+        assert m2["ssm"][k].shape == spec.shape, k
+    assert stack.layer_specs(stack.LayerCfg(kind="shared"), 32) == {} == \
+        jax_stack.layer_specs(JaxLayerCfg(kind="shared"), 32)
+    for kind in ("moe", "mamba3"):
+        with pytest.raises(ValueError, match=kind):
             stack.layer_specs(stack.LayerCfg(kind=kind), 32)
     capped = attention.AttnCfg(n_heads=2, n_kv=1, head_dim=16, softcap=30.0)
     assert sorted(attention.attn_specs(capped, 32)) == ["wk", "wo", "wq",
