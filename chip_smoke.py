@@ -37,7 +37,11 @@ h2o-danube-1.8b at full width and depth on 1 x 8,192 tokens, gemma3-4b
 at full width on 16 of its 34 layers (2 of 5 groups and its tail) on
 1 x 4,096 tokens, zamba2-2.7b at full width and depth on 1 x 4,096
 tokens and mixtral-8x22b at full width on 1 of its 56 layers on
-1 x 8,192 tokens.
+1 x 8,192 tokens.  The dry-run traces every (arch x shape) cell of
+``configs.cells()`` at full size on the meta device and lays it on the
+production meshes of 256 and 512 cards; two cells run for real at full
+width and depth, their batch cut to one sequence: llama3.2-1b's train_4k
+step on 1 x 4,096 tokens and h2o-danube-1.8b's prefill_32k on 1 x 32,768.
 
 1. device   the card, its count, its power limit and the float32 matmul
             settings (TF32 off for matmuls and cuDNN);
@@ -175,7 +179,23 @@ tokens and mixtral-8x22b at full width on 1 of its 56 layers on
             and a checkpoint round trip of a full-width two-group
             llama train state (bit for bit onto the card, the same loss
             from the restored state, a corrupted leaf falling back to the
-            step before).
+            step before);
+10. dryrun  ``python -m repro_torch.launch.dryrun --all --mesh both``,
+            started in a background process with the run (the meta
+            device, no card; one host core of its own, which this
+            process leaves to it): every cell's record free of
+            errors and its model FLOPs at most 1.05x the counted FLOPs,
+            one line a cell (counted and model FLOPs, per-device bytes
+            against the card's 80 GB, the dominant term and lower bound
+            on each mesh, trace seconds); ``dryrun_hail`` on both meshes;
+            then the two cut cells traced on meta and run on the card
+            under the same trace: aten operations, FLOPs, bytes and the
+            kernels' notes equal on both, flash launches equal to the
+            trace's flash records, the predicted peak (arguments + temp
+            on a (1, 1) mesh) within 25% of the card's, the roofline's
+            lower bound at most the measured wall (median of 3 steps
+            after the traced one, CUDA events), and the step's share of
+            the bf16 peak.
 
 Each phase prints one JSON line; every check that fails raises, so the exit
 code is not 0.  The last line is ``{"ok": true, "device": {...}}``.  Data
@@ -205,6 +225,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the card's figures (H100 SXM datasheet): one definition for the
+# kernels' bounds and the dry-run's roofline.  Alone, without the port's
+# sources beside it, the script stops here.
+from repro_torch.launch.mesh import HW  # noqa: E402
 SEED = 0
 ROWS = 1 << 19                 # rows a block
 BLOCKS = 64                    # the cut: a sixth of one datanode's 20 GB
@@ -213,10 +238,6 @@ N_NODES = 10
 BAD_FRACTION = 0.001
 KEYS = ("visitDate", "sourceIP", "adRevenue")
 QUICK = ("visitDate", 10000, 10155)    # examples/quickstart.py's query
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-INT_OPS_PER_S = 67e12          # H100 SXM peak outside the tensor cores
-F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # dense bf16 on the tensor cores
 INT32_MAX = 2**31 - 1
 
 # LM serving: the traffic of phase 7
@@ -638,8 +659,8 @@ def device_ms(fn, iters: int, match: str | None = None) -> tuple[float, str]:
 
 
 def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+             ops_per_s: float = HW["peak_int_ops"]) -> tuple[float, str]:
+    t_bytes = n_bytes / HW["hbm_bw"] * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -772,18 +793,11 @@ def attn_inputs(b, t, s, h, kv, d, dtype):
 
 
 def attn_bound_terms(q, k, v, causal, window) -> tuple[int, int]:
-    """(bytes, flops) of ``attn_bound``."""
-    b, t, h, d = q.shape
-    s = k.shape[1]
-    qp = torch.arange(t)[:, None]
-    kp = torch.arange(s)[None, :]
-    m = torch.ones((t, s), dtype=torch.bool)
-    if causal:
-        m &= kp <= qp
-    if window is not None:
-        m &= kp > qp - window
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return n_bytes, 4 * b * h * d * int(m.sum())
+    """(bytes, flops) of ``attn_bound``: the flash module's ``fwd_work``,
+    which the dry-run's trace notes for each launch."""
+    from repro_torch.kernels import flash_attention
+
+    return flash_attention.fwd_work(q, k, causal, window)
 
 
 def attn_bound(q, k, v, causal, window):
@@ -792,19 +806,20 @@ def attn_bound(q, k, v, causal, window):
     unmasked (query, key) pair, at the tensor-core rate for bf16 inputs
     and the CUDA-core rate for float32."""
     n_bytes, n_ops = attn_bound_terms(q, k, v, causal, window)
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    rate = (HW["peak_bf16_flops"] if q.dtype == torch.bfloat16
+            else HW["peak_f32_flops"])
     return bound_ms(n_bytes, n_ops, rate)
 
 
 def attn_lse_bound(q, k, v, causal, window):
     """``attn_bound`` of the training forward, which also writes each
     row's lse and, for bf16 inputs, the float32 output (4 bytes each)."""
-    n_bytes, n_ops = attn_bound_terms(q, k, v, causal, window)
-    b, t, h, _ = q.shape
-    n_bytes += 4 * b * h * t
-    if q.dtype == torch.bfloat16:
-        n_bytes += 4 * q.numel()
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    from repro_torch.kernels import flash_attention
+
+    n_bytes, n_ops = flash_attention.fwd_work(q, k, causal, window,
+                                              with_lse=True)
+    rate = (HW["peak_bf16_flops"] if q.dtype == torch.bfloat16
+            else HW["peak_f32_flops"])
     return bound_ms(n_bytes, n_ops, rate)
 
 
@@ -970,41 +985,34 @@ def scan_inputs(b, t, d, n):
 
 
 def scan_bound(delta, b):
-    """delta and x read and y written (4 B each per (b, t, d)), b and c
-    read, a read and h_final written; 7 float32 operations per (b, t, d,
-    n): delta*a, exp, *h, (delta x)*B, +, and the multiply-add into y."""
-    bs, t, d = delta.shape
-    n = b.shape[-1]
-    n_bytes = 4 * (3 * bs * t * d + 2 * bs * t * n + d * n + bs * d * n)
-    return bound_ms(n_bytes, 7 * bs * t * d * n, F32_OPS_PER_S)
+    """The scan module's ``fwd_work`` (delta, x and y, b and c, a and
+    h_final once; 7 float32 operations per (b, t, d, n)) at the CUDA
+    cores' rate."""
+    from repro_torch.kernels import selective_scan
+
+    return bound_ms(*selective_scan.fwd_work(delta, b), HW["peak_f32_flops"])
 
 
 def flash_bwd_bound(q, k, v, causal, window):
-    """q, k, v and dO read once, o (float32, as the training path hands it
-    over) read once, lse and D (float32 a row and head) read once, dq, dk
-    and dv written once, against 10 flops (QK^T, dO V^T, P^T dO, dS^T Q,
-    dS K: a multiply and an add each) per head dim and per unmasked
-    (query, key) pair, at the tensor-core rate for bf16 inputs and the
-    CUDA-core rate for float32."""
-    b, t, h, d = q.shape
-    _, fwd_ops = attn_bound_terms(q, k, v, causal, window)
-    n_bytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
-        + 4 * q.numel() + 2 * 4 * b * h * t
-    n_ops = fwd_ops // 4 * 10
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    """The flash module's ``bwd_work`` (the float32 O, as the training
+    path hands it over; 10 flops per head dim and unmasked pair) at the
+    tensor-core rate for bf16 inputs and the CUDA-core rate for
+    float32."""
+    from repro_torch.kernels import flash_attention
+
+    n_bytes, n_ops = flash_attention.bwd_work(q, k, causal, window)
+    rate = (HW["peak_bf16_flops"] if q.dtype == torch.bfloat16
+            else HW["peak_f32_flops"])
     return bound_ms(n_bytes, n_ops, rate)
 
 
 def scan_bwd_bound(delta, b, with_dh):
-    """delta, x, dy read and ddelta, dx written (4 B each per (b, t, d)),
-    b, c read and db, dc written, a read and da written, dh_final read if
-    given; about 12 float32 operations per (b, t, d, n) (the two recurrences
-    and the five gradient terms)."""
-    bs, t, d = delta.shape
-    n = b.shape[-1]
-    n_bytes = 4 * (5 * bs * t * d + 4 * bs * t * n + 2 * d * n
-                   + (bs * d * n if with_dh else 0))
-    return bound_ms(n_bytes, 12 * bs * t * d * n, F32_OPS_PER_S)
+    """The scan module's ``bwd_work`` (about 12 float32 operations per
+    (b, t, d, n)) at the CUDA cores' rate."""
+    from repro_torch.kernels import selective_scan
+
+    return bound_ms(*selective_scan.bwd_work(delta, b, with_dh),
+                    HW["peak_f32_flops"])
 
 
 def search_inputs(rng, b, parts):
@@ -3437,11 +3445,220 @@ def phase_train(batch: dict) -> dict:
     return record
 
 
+# The dry-run (phase 10): every cell of ``configs.cells()`` traced on the
+# meta device in a background process started with the run, and two cells
+# run for real at full width and depth, their batch cut to fit one card.
+DRYRUN_WAIT_S = 600              # the most phase 10 waits for the traces
+DRYRUN_FLOPS_MARGIN = 1.05       # model_flops <= 1.05 x the counted flops
+DRYRUN_PEAK_TOL = 0.25           # predicted peak within 25% of the card's
+DRYRUN_CARD = (("llama3.2-1b", "train_4k", 1, 4096),
+               ("h2o-danube-1.8b", "prefill_32k", 1, 32768))
+DRYRUN_STEPS = 3                 # timed steps after the traced one
+
+
+def start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun --all --mesh both`` in
+    the background -> (process, its output directory, its log's path);
+    stopped at exit if still running.  It traces on the meta device on
+    one host core of its own, at a lower priority; this process keeps the
+    others, so the two never share a core."""
+    import atexit
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    log = os.path.join(out, "dryrun.log")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    own = cores[-1]
+    if len(cores) > 1:
+        os.sched_setaffinity(0, cores[:-1])
+    child = (f"import os, runpy; os.sched_setaffinity(0, {{{own}}}); "
+             f"os.nice(10); runpy.run_module('repro_torch.launch.dryrun', "
+             f"run_name='__main__')")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", child, "--all", "--mesh", "both",
+             "--force", "--out", out],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log
+
+
+def dryrun_card_cell(arch: str, shape_name: str, batch: int, seq: int):
+    """One cell at full width and depth, its batch cut to (batch, seq):
+    traced on meta, then run on the card under the same trace (its peak
+    memory), then DRYRUN_STEPS steps timed by CUDA events.  -> the
+    record, after its checks: meta and card traces identical (aten
+    operations, flops, bytes, kernel notes), flash launches equal to the
+    trace's flash records, the predicted peak (arguments + temp on a
+    (1, 1) mesh) within DRYRUN_PEAK_TOL of the card's, the roofline's lower
+    bound at most the measured wall."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import model_specs
+    from repro_torch.train.optimizer import OptCfg
+    from repro_torch.train.step import StepCfg, init_train_state
+
+    cfg = get_config(arch)
+    shape = ShapeCfg(shape_name, seq, batch, SHAPES[shape_name].kind)
+    step, trees, weights = dr.build_cell(cfg, shape, StepCfg())
+    host = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    rules = sh.DEFAULT_RULES
+    meta = dr.trace_step(step, dr.empty_args(trees), trees, shape.kind,
+                         meshes=[host], rules=rules)
+    laid = dr.lay_out(meta, trees, weights, cfg, shape, host, rules)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    if shape.kind == "train":
+        args = (init_train_state(cfg, OptCfg(), gen, "cuda"),
+                {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)})
+    else:
+        args = (sh.init_params(model_specs(cfg), gen, "cuda",
+                               dtype=torch.bfloat16), {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clear_launches()
+    card = dr.trace_step(step, args, trees, shape.kind, meshes=[host],
+                         rules=rules, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.KERNEL_LAUNCHES)
+    walls = []
+    for _ in range(DRYRUN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(stop) / 1e3)
+        del out
+    wall = sorted(walls)[len(walls) // 2]
+    del args, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mt, ct = meta["trace"], card["trace"]
+    name = f"{arch} {shape_name} at {batch} x {seq}"
+    diff = {op: (mt.op_counts.get(op, 0), ct.op_counts.get(op, 0))
+            for op in set(mt.op_counts) | set(ct.op_counts)
+            if mt.op_counts.get(op, 0) != ct.op_counts.get(op, 0)}
+    check(not diff, f"{name}: aten operations on meta == on the card "
+                    f"(differing: {dict(sorted(diff.items())[:12])})")
+    check((mt.flops, mt.dot_flops, mt.hbm_bytes) == (ct.flops, ct.dot_flops,
+                                                     ct.hbm_bytes),
+          f"{name}: counted flops and bytes on meta == on the card")
+    check(mt.kernels == ct.kernels, f"{name}: kernel notes on meta == on "
+                                    f"the card")
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        check(launches.get(kernel, 0) == mt.kernels.get(kernel, {}).get(
+            "calls", 0), f"{name}: {kernel} launches == the meta trace's "
+                         f"records")
+    predicted = laid["memory"]["argument_bytes"] + laid["memory"][
+        "temp_bytes"]
+    measured = peak - base
+    check(abs(predicted - measured) <= DRYRUN_PEAK_TOL * measured,
+          f"{name}: predicted peak {predicted} within {DRYRUN_PEAK_TOL} of "
+          f"the card's {measured}")
+    bound = laid["roofline"]["step_lower_bound_s"]
+    check(bound <= wall, f"{name}: lower bound {bound} s <= wall {wall} s")
+    return {"cell": name, "ops": sum(mt.op_counts.values()),
+            "ops_card": sum(ct.op_counts.values()),
+            "skipped_host_ops_card": ct.skipped_ops,
+            "flops": mt.flops, "dot_flops": mt.dot_flops,
+            "hbm_bytes": mt.hbm_bytes, "kernels": mt.kernels,
+            "launches": launches, "model_flops": laid["model_flops"],
+            "argument_bytes": laid["memory"]["argument_bytes"],
+            "temp_bytes": laid["memory"]["temp_bytes"],
+            "predicted_peak_bytes": predicted,
+            "card_peak_bytes": measured, "card_peak_raw_bytes": peak,
+            "peak_ratio": predicted / measured,
+            "roofline": laid["roofline"], "wall_s": wall, "walls_s": walls,
+            "bound_over_wall": bound / wall,
+            "share_of_peak": laid["model_flops"] / (
+                wall * HW["peak_bf16_flops"]),
+            "trace_s": {"meta": meta["trace_s"], "card": card["trace_s"]}}
+
+
+def phase_dryrun(proc, out_dir: str, log: str) -> dict:
+    """Phase 10: (a) every cell's record from the background dry-run (no
+    error; model_flops <= DRYRUN_FLOPS_MARGIN x the counted flops), one
+    line a cell, and ``dryrun_hail``'s two records; (b) the DRYRUN_CARD
+    cells against the card."""
+    import shutil
+
+    from repro_torch.configs import cells
+    from repro_torch.launch import dryrun_hail
+
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    waited = time.perf_counter() - t0
+    with open(log) as f:
+        tail = f.read()[-2000:]
+    check(rc == 0, f"the background dry-run exited {rc}: {tail}")
+    n = 0
+    for arch, shape in cells():
+        recs = {}
+        for mesh in ("single", "multi"):
+            with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+                      ) as f:
+                recs[mesh] = json.load(f)
+            check("error" not in recs[mesh],
+                  f"dry-run {arch} {shape} {mesh}: "
+                  f"{recs[mesh].get('error')}")
+        one = recs["single"]
+        counted = one["traced"]["flops"]
+        check(one["model_flops"] <= DRYRUN_FLOPS_MARGIN * counted,
+              f"dry-run {arch} {shape}: model_flops {one['model_flops']} "
+              f"<= {DRYRUN_FLOPS_MARGIN} x counted {counted}")
+        emit("dryrun_cell", arch=arch, shape=shape, counted_flops=counted,
+             model_flops=one["model_flops"],
+             model_over_counted=one["model_flops"] / counted,
+             ops=one["traced"]["ops"], trace_s=one["trace_s"],
+             attention_split=one["attention_split"],
+             **{m: {"device_bytes": r["memory"]["argument_bytes"]
+                    + r["memory"]["temp_bytes"],
+                    "device_bytes_over_hbm": (
+                        r["memory"]["argument_bytes"]
+                        + r["memory"]["temp_bytes"]) / HW["hbm_bytes"],
+                    "hbm_bytes": r["hlo"]["hbm_bytes"],
+                    "coll_link_bytes": r["hlo"]["coll_link_bytes"],
+                    "dominant": r["roofline"]["dominant"],
+                    "lower_bound_s": r["roofline"]["step_lower_bound_s"],
+                    "roofline": r["roofline"],
+                    "roofline_fraction": r["roofline_fraction"]}
+                for m, r in recs.items()})
+        n += 1
+    hail = [dryrun_hail.run(m, out_dir=out_dir) for m in (False, True)]
+    card = [dryrun_card_cell(*c) for c in DRYRUN_CARD]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"cells": n, "records": 2 * n, "wait_s": waited,
+            "log_tail": tail[-300:],
+            "hail": [{k: v for k, v in r.items() if k != "hlo"}
+                     for r in hail],
+            "card": card, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    dryrun = start_dryrun()
     from repro_torch.core import mapreduce as mr
     from repro_torch.core import query as q
     from repro_torch.core import schema as sc
@@ -4261,6 +4478,8 @@ def main() -> int:
          "bound_by": scan_bwd["bound_by"], "library_ms": None,
          "shape": scan_bwd["shape"], "ms_by": scan_bwd["ms_by"]},
     ]
+    # --- 10. the dry-run: every cell on meta, two against the card ------
+    emit("dryrun", **phase_dryrun(*dryrun))
     emit("done", seconds=time.perf_counter() - t_run)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,19 +1,41 @@
-"""Tensor specs and their single-device uses (accounting and
-initialization), and the scan axes of a mesh.
+"""Logical-axis sharding: TensorSpec trees and the rule-based resolver.
 
 Every parameter and cache tensor is declared once as a ``TensorSpec`` with
-logical axis names; the specs drive parameter accounting and
-``init_params``.  Of the JAX package's logical-axis resolver the port has
-what the wave dispatch reads: the "batch" rule and ``scan_mesh_axes`` /
-``scan_device_count``, over a ``launch.mesh.DeviceMesh`` or any object with
-``axis_names`` and ``devices.shape``.  ``resolve_pspec``, ``constrain`` and
-``sharding_ctx`` have no counterpart yet, and the port's models make no
-``constrain`` calls.
+logical axis names ("embed", "mlp", "batch", ...); the specs drive
+parameter accounting and ``init_params``.  ``resolve_pspec`` maps logical
+axes to mesh axes by the JAX package's priority rules with divisibility
+fallbacks:
+
+* a rule lists candidate mesh axes per logical axis, best first; a
+  candidate may be a COMPOUND tuple like ("pod", "data"), sharding over
+  both;
+* mesh axes absent from the mesh, or of size 1, are dropped from a
+  candidate; for a compound one the longest PREFIX whose size product
+  divides the dimension is used;
+* a mesh axis is used at most once per tensor: later logical axes fall
+  through to their next candidate or stay replicated;
+* anything that does not divide evenly stays replicated (never errors).
+
+The port has no ``PartitionSpec``: a resolved spec is a plain tuple with
+one entry per dimension (None, a mesh axis name, or a tuple of names),
+its trailing Nones trimmed as the JAX package trims them.  The port's
+parameters live on one device, so nothing is placed by a spec:
+``shard_shape`` / ``shard_bytes`` (the per-device counterparts of the JAX
+package's ``shardings`` / ``shape_structs``) size a device's part for the
+dry-run, and ``sharding_ctx`` / ``constrain`` record, inside a step traced
+by the dry-run, the constraints the JAX package's steps put on their
+activations.  Outside a context ``constrain`` is the identity and records
+nothing, and inside one it returns its input unchanged: no number changes.
+``scan_mesh_axes`` / ``scan_device_count`` give the wave dispatch the
+"batch" rule's mesh axes.  Meshes are a ``launch.mesh.DeviceMesh`` or any
+object with ``axis_names`` and ``devices.shape``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -128,14 +150,49 @@ def init_params(tree, generator: torch.Generator, device, dtype=None):
 
 
 # ---------------------------------------------------------------------------
-# Scan axes of a mesh
+# Rules and resolver
 # ---------------------------------------------------------------------------
 
 # logical axis -> candidate mesh axes, best first; a tuple is compound
-# (shard over several mesh axes).  The JAX package's rule for "batch", the
-# one logical axis the wave dispatch resolves.
+# (shard over several mesh axes); missing keys mean "always replicated".
+# The JAX package's rules.
 DEFAULT_RULES: dict[str, tuple] = {
+    # data-parallel axes
     "batch": (("pod", "data"), "data"),
+    "layers": (),
+    # long-context KV: prefer data, spill to model when batch already took it
+    "kv_seq": ("data", "model"),
+    # weight axes
+    "embed": ("data",),
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": (),
+    "mlp": ("model",),
+    "expert": ("model",),
+    "expert_mlp": ("model",),
+    "ssm_inner": ("model",),
+    "conv_dim": ("model",),
+    "ssm_heads": ("model",),
+    "ssm_state": (),
+    "dt_rank": (),
+    # activation axes (constrain() names)
+    "seq": (),
+    "act_embed": (),
+    "act_vocab": ("model",),
+    "act_mlp": ("model",),
+    "act_kv_heads": ("model",),
+}
+
+# Variant rule sets for the dry-run's --rules flag, the JAX package's.
+RULE_PRESETS: dict[str, dict[str, tuple]] = {
+    "baseline": DEFAULT_RULES,
+    # pure data-parallel: weights replicated, only batch-ish axes sharded
+    "dp_only": {"batch": (("pod", "data"), "data"), "kv_seq": ("data",)},
+    # fsdp-flavoured: the embed dimension of weights over the compound
+    # (data, model) grid where it divides, else over data alone
+    "fsdp": {**DEFAULT_RULES, "embed": (("data", "model"), "data"),
+             "vocab": ("model", "data")},
 }
 
 
@@ -143,6 +200,138 @@ def _mesh_sizes(mesh) -> dict[str, int]:
     # a DeviceMesh and the duck-typed fake meshes in tests alike (only
     # axis_names + devices.shape are read)
     return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def resolve_pspec(shape: Sequence[int], axes: Sequence[Optional[str]],
+                  mesh, rules: Optional[dict] = None) -> tuple:
+    """Map logical axes to a spec on ``mesh`` (see the module doc): one
+    entry per dimension, None, a mesh axis or a tuple of mesh axes, the
+    trailing Nones trimmed."""
+    rules = DEFAULT_RULES if rules is None else rules
+    sizes = _mesh_sizes(mesh)
+    used: set[str] = set()
+    entries: list = []
+    for dim, name in zip(shape, axes):
+        entry = None
+        for cand in rules.get(name, ()) if name else ():
+            cand_axes = (cand,) if isinstance(cand, str) else tuple(cand)
+            # drop mesh axes that do not exist, shard nothing (size 1) or
+            # are used already: a size-1 axis kept inside a compound
+            # prefix would give a non-canonical spec and burn the axis
+            cand_axes = tuple(a for a in cand_axes
+                              if sizes.get(a, 1) > 1 and a not in used)
+            if not cand_axes:
+                continue
+            # the longest prefix whose size product divides the dimension
+            for k in range(len(cand_axes), 0, -1):
+                prefix = cand_axes[:k]
+                prod = math.prod(sizes[a] for a in prefix)
+                if prod > 1 and dim % prod == 0:
+                    entry = prefix[0] if k == 1 else prefix
+                    used.update(prefix)
+                    break
+            if entry is not None:
+                break
+        entries.append(entry)
+    while entries and entries[-1] is None:   # trim for clean equality
+        entries.pop()
+    return tuple(entries)
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one entry of a resolved spec."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_shape(spec: TensorSpec, mesh, rules: Optional[dict] = None
+                ) -> tuple[int, ...]:
+    """The shape of one device's part of ``spec`` on ``mesh``."""
+    sizes = _mesh_sizes(mesh)
+    ps = resolve_pspec(spec.shape, spec.axes, mesh, rules)
+    return tuple(
+        dim // math.prod(sizes[a] for a in spec_axes(ps[i]))
+        if i < len(ps) else dim for i, dim in enumerate(spec.shape))
+
+
+def shard_bytes(tree, mesh, rules: Optional[dict] = None) -> int:
+    """The bytes one device holds of every spec of ``tree`` on ``mesh``."""
+    return sum(math.prod(shard_shape(s, mesh, rules)) * s.dtype.itemsize
+               for s in _leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# Constraints inside a traced step (sharding_ctx / constrain /
+# ctx_axis_size)
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class Constraint:
+    """One ``constrain`` call inside a ``sharding_ctx``: the logical axes,
+    the tensor's shape and dtype, the resolved spec and, where the tensor
+    is the output of a product with a weight, that weight's spec as the
+    product saw it (its leaf's trailing dimensions: what the dry-run's
+    collective model reads to find the dimensions the product summed
+    over)."""
+    axes: tuple
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: tuple
+    weight: Optional[TensorSpec] = None
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, rules: Optional[dict] = None, observer=None):
+    """Install (mesh, rules) for ``constrain`` calls; yields the list the
+    calls append their ``Constraint`` records to.  ``observer`` (the
+    dry-run's cost trace) names a weight's spec (``weight_spec(w)``) and
+    is told of every constrained tensor (``pin(x, axes)``)."""
+    prev = getattr(_CTX, "state", None)
+    records: list[Constraint] = []
+    _CTX.state = (mesh, DEFAULT_RULES if rules is None else rules, records,
+                  observer)
+    try:
+        yield records
+    finally:
+        _CTX.state = prev
+
+
+def ctx_axis_size(name: str) -> int:
+    """Size of a mesh axis inside ``sharding_ctx`` (1 when absent or
+    without a context)."""
+    state = getattr(_CTX, "state", None)
+    if state is None:
+        return 1
+    return _mesh_sizes(state[0]).get(name, 1)
+
+
+def constrain(x: torch.Tensor, axes: Sequence[Optional[str]], *,
+              weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's ``with_sharding_constraint`` site: the identity.
+    Inside ``sharding_ctx`` it records a ``Constraint``; ``weight`` is the
+    weight of the product that made ``x``, as that product read it."""
+    state = getattr(_CTX, "state", None)
+    if state is None:
+        return x
+    mesh, rules, records, observer = state
+    wspec = None
+    if observer is not None:
+        if weight is not None:
+            wspec = observer.weight_spec(weight)
+        observer.pin(x, axes)
+    records.append(Constraint(
+        tuple(axes), tuple(x.shape), x.dtype,
+        resolve_pspec(x.shape, tuple(axes), mesh, rules), wspec))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Scan axes of a mesh
+# ---------------------------------------------------------------------------
 
 
 def scan_mesh_axes(mesh) -> tuple[str, ...]:

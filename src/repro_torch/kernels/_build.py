@@ -39,6 +39,10 @@ PTXAS_LOG = "ptxas.log"
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
+# The hook of the active ``launch.cost_analysis.CostTrace``, None outside
+# one: a kernel wrapper's body runs through ``noted``.
+COST_HOOK = None
+
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _VARIANTS: set = set()
@@ -149,3 +153,15 @@ def note_variant(kernel: str, key) -> int:
         return 0
     _VARIANTS.add((kernel, key))
     return 1
+
+
+def noted(kernel: str, work, run, inputs=()):
+    """A kernel wrapper's body ``run()``.  Under an active cost trace the
+    trace records ``work()`` -> (flops, dot flops, bytes) of the launch,
+    by the kernel's formulas, under the launch counter's name ``kernel``,
+    on any device, and counts nothing ``run()`` dispatches: neither the
+    CUDA route's allocations and copies nor the meta route's empty
+    outputs nor the plain version's operations.  ``inputs``: the tensors
+    whose split over a mesh the launch's work follows."""
+    hook = COST_HOOK
+    return run() if hook is None else hook(kernel, work, run, inputs)

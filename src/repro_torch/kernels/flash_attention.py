@@ -40,12 +40,21 @@ a softcap is recomputed in the backward, dS taking its derivative.
 float32 runs on the CUDA cores in full float32.  The forward counts as a
 ``flash_attention`` launch, the backward as one ``flash_attention_bwd``
 launch, each also under its ``launch_key`` in ``_build.SHAPE_LAUNCHES``.
+
+A ``meta`` tensor takes the meta route: ``torch.empty`` outputs of exactly
+the CUDA route's shapes and dtypes (lse and the float32 O included), after
+the CUDA route's checks, for the dry-run's cost trace
+(``launch/cost_analysis.py``).  Under that trace each wrapper notes its
+launch's work on any device by ``fwd_work`` / ``bwd_work``, the formulas of
+``chip_smoke.py``'s bounds, and the trace counts nothing inside it.  Any
+other device raises.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -108,6 +117,73 @@ def launch_key(what: str, q, k, causal: bool, window, softcap=None) -> str:
             f"{str(q.dtype)[6:]} {'causal' if causal else 'non-causal'}"
             + ("" if window is None else f" window {window}")
             + (f" softcap {softcap}" if softcap else ""))
+
+
+def unmasked_pairs(t: int, s: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks keep over queries i < t and keys
+    j < s: j <= i where ``causal``, j > i - window where ``window`` is
+    set (the kernels' masks by index)."""
+    i = np.arange(t, dtype=np.int64)
+    hi = np.minimum(i, s - 1) if causal else np.full(t, s - 1, np.int64)
+    lo = (np.maximum(i - window + 1, 0) if window is not None
+          else np.zeros(t, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def fwd_work(q, k, causal: bool, window, *, with_lse: bool = False
+             ) -> tuple[int, int]:
+    """(bytes, flops) of one forward launch: q, k and v read once and the
+    output written once (with ``with_lse`` also each row's lse and, for
+    bfloat16 inputs, the float32 output, 4 bytes each), against 4 flops
+    (QK^T and PV, a multiply and an add each) per head dim and unmasked
+    (query, key) pair."""
+    b, t, h, d = q.shape
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if with_lse:
+        n_bytes += 4 * b * h * t
+        if q.dtype == torch.bfloat16:
+            n_bytes += 4 * q.numel()
+    return n_bytes, 4 * b * h * d * unmasked_pairs(t, k.shape[1], causal,
+                                                   window)
+
+
+def bwd_work(q, k, causal: bool, window, o_itemsize: int = 4
+             ) -> tuple[int, int]:
+    """(bytes, flops) of one backward launch: q, k, v and dO read once, O
+    read once (``o_itemsize`` bytes an element: the training path hands
+    over the float32 O), lse and D (float32 a row and head) read once, dq,
+    dk and dv written once, against 10 flops (QK^T, dO V^T, P^T dO, dS^T Q,
+    dS K: a multiply and an add each) per head dim and unmasked pair."""
+    b, t, h, d = q.shape
+    n_bytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()
+               + o_itemsize * q.numel() + 2 * 4 * b * h * t)
+    return n_bytes, 10 * b * h * d * unmasked_pairs(t, k.shape[1], causal,
+                                                    window)
+
+
+def _as_cost(work) -> tuple[int, int, int]:
+    """(bytes, flops) of a flash launch -> (flops, dot flops, bytes):
+    every flop of the kernel is a product's."""
+    n_bytes, flops = work
+    return flops, flops, n_bytes
+
+
+def _meta(q, k, v, o=None, lse=None, do=None, *, window, softcap,
+          with_lse: bool = False, bwd: bool = False):
+    """The meta route: the CUDA route's checks, then empty outputs of its
+    shapes and dtypes."""
+    if bwd:
+        _check_bwd(q, k, v, o, lse, do, window, softcap)
+        return tuple(torch.empty_like(x) for x in (q, k, v))
+    _check(q, k, v, window, softcap)
+    out = torch.empty_like(q)
+    if not with_lse:
+        return out
+    b, t, h, _ = q.shape
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    o32 = out if q.dtype == torch.float32 else torch.empty(
+        q.shape, dtype=torch.float32, device=q.device)
+    return out, lse, o32
 
 
 def _launch(q, k, v, causal: bool, window, softcap,
@@ -191,12 +267,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     """q (B,T,H,D), k/v (B,S,KV,D) on one device, H a multiple of KV
     -> (B,T,H,D) in q's dtype; ``softcap`` None or 0 leaves the scores
     uncapped."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _launch(q, k, v, causal, window, softcap)
+    def run():
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, softcap=softcap)
+        if q.device.type == "meta":
+            return _meta(q, k, v, window=window, softcap=softcap)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: no kernel for device "
+                             f"{q.device}")
+        return _launch(q, k, v, causal, window, softcap)
+    return _build.noted("flash_attention", lambda: _as_cost(fwd_work(
+        q, k, causal, window)), run, (q, k, v))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
@@ -207,12 +289,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
     a row with no key in its band; o32 (B,T,H,D) float32, ``out`` itself
     for float32 inputs): o32 is what the backward's D = rowsum(dO * O)
     reads."""
-    if q.device.type == "cpu":
-        return ref.attention_lse(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _launch(q, k, v, causal, window, softcap, with_lse=True)
+    def run():
+        if q.device.type == "cpu":
+            return ref.attention_lse(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+        if q.device.type == "meta":
+            return _meta(q, k, v, window=window, softcap=softcap,
+                         with_lse=True)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: no kernel for device "
+                             f"{q.device}")
+        return _launch(q, k, v, causal, window, softcap, with_lse=True)
+    return _build.noted("flash_attention", lambda: _as_cost(fwd_work(
+        q, k, causal, window, with_lse=True)), run, (q, k, v))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -221,9 +310,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dtype or in float32) and lse and the upstream gradient ``do``
     (contiguous, q's shape and dtype) -> (dq, dk, dv) in the inputs'
     dtype."""
-    if q.device.type == "cpu":
-        return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                 window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _launch_bwd(q, k, v, o, lse, do, causal, window, softcap)
+    def run():
+        if q.device.type == "cpu":
+            return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window, softcap=softcap)
+        if q.device.type == "meta":
+            return _meta(q, k, v, o, lse, do, window=window,
+                         softcap=softcap, bwd=True)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: no kernel for device "
+                             f"{q.device}")
+        return _launch_bwd(q, k, v, o, lse, do, causal, window, softcap)
+    return _build.noted("flash_attention_bwd", lambda: _as_cost(bwd_work(
+        q, k, causal, window, o.element_size())), run, (q, k, v, do))

@@ -5,7 +5,8 @@ around the two standalone primitives the fused reader inlines
 
 Routing follows the tensor: a CPU tensor takes the kernel's plain PyTorch
 version, a CUDA tensor launches the hand-written kernel or raises — there
-is no fallback.  ``use_kernels(False)`` is an explicit request for the plain
+is no fallback; a meta tensor (the dry-run's trace) takes the LM kernels'
+meta routes, empty outputs of the kernel's shapes.  ``use_kernels(False)`` is an explicit request for the plain
 versions on any device.
 
 Counters (the contract of the JAX package's ``kernels/ops.py``):

@@ -24,6 +24,13 @@ backwards, summing over N and over the warp's channels with transposing
 shuffle butterflies; a second kernel sums the per-CTA partials of dB, dC
 and dA in a fixed order (deterministic, no atomics).  It counts as one
 ``selective_scan_bwd`` launch.
+
+A ``meta`` tensor takes the meta route: the CUDA route's checks, then
+``torch.empty`` outputs of its shapes and dtypes, for the dry-run's cost
+trace (``launch/cost_analysis.py``).  Under that trace each wrapper notes
+its launch's work on any device by ``fwd_work`` / ``bwd_work``, the
+formulas of ``chip_smoke.py``'s bounds, and the trace counts nothing
+inside it.  Any other device raises.
 """
 from __future__ import annotations
 
@@ -71,6 +78,37 @@ def _check(delta, x, b, c, a):
                          f"1..{MAX_STATE}")
 
 
+def fwd_work(delta, b) -> tuple[int, int]:
+    """(bytes, flops) of one forward launch: delta and x read and y
+    written (4 B each per (b, t, d)), b and c read, a read and h_final
+    written; 7 float32 operations per (b, t, d, n): delta*a, exp, *h,
+    (delta x)*B, +, and the multiply-add into y."""
+    bs, t, d = delta.shape
+    n = b.shape[-1]
+    return (4 * (3 * bs * t * d + 2 * bs * t * n + d * n + bs * d * n),
+            7 * bs * t * d * n)
+
+
+def bwd_work(delta, b, with_dh: bool) -> tuple[int, int]:
+    """(bytes, flops) of one backward launch: delta, x, dy read and ddelta,
+    dx written (4 B each per (b, t, d)), b, c read and db, dc written, a
+    read and da written, dh_final read if given; about 12 float32
+    operations per (b, t, d, n) (the two recurrences and the five
+    gradient terms)."""
+    bs, t, d = delta.shape
+    n = b.shape[-1]
+    return (4 * (5 * bs * t * d + 4 * bs * t * n + 2 * d * n
+                 + (bs * d * n if with_dh else 0)),
+            12 * bs * t * d * n)
+
+
+def _as_cost(work) -> tuple[int, int, int]:
+    """(bytes, flops) of a scan launch -> (flops, dot flops, bytes): the
+    scan makes no product."""
+    n_bytes, flops = work
+    return flops, 0, n_bytes
+
+
 def _launch(delta, x, b, c, a):
     _check(delta, x, b, c, a)
     bs, t_len, d = delta.shape
@@ -94,12 +132,21 @@ def selective_scan(delta, x, b, c, a):
     """delta, x (B,T,D) float32; b, c (B,T,N) float32; a (D,N) float32
     (negative), all on one device -> y (B,T,D) float32, h_final (B,D,N)
     float32."""
-    if delta.device.type == "cpu":
-        return selective_scan_plain(delta, x, b, c, a)
-    if delta.device.type != "cuda":
-        raise ValueError(f"selective_scan: no kernel for device "
-                         f"{delta.device}")
-    return _launch(delta, x, b, c, a)
+    def run():
+        if delta.device.type == "cpu":
+            return selective_scan_plain(delta, x, b, c, a)
+        if delta.device.type == "meta":
+            _check(delta, x, b, c, a)
+            return torch.empty_like(delta), torch.empty(
+                (delta.shape[0], delta.shape[2], a.shape[1]),
+                dtype=torch.float32, device=delta.device)
+        if delta.device.type != "cuda":
+            raise ValueError(f"selective_scan: no kernel for device "
+                             f"{delta.device}")
+        return _launch(delta, x, b, c, a)
+    return _build.noted("selective_scan",
+                        lambda: _as_cost(fwd_work(delta, b)), run,
+                        (delta, x, b, c))
 
 
 def _check_bwd(delta, x, b, c, a, dy, dh_final):
@@ -150,9 +197,15 @@ def selective_scan_bwd(delta, x, b, c, a, dy, dh_final=None):
     """The backward of ``selective_scan`` from its inputs and the upstream
     gradients of y (B,T,D) and h_final (B,D,N; None reads as zeros) ->
     (ddelta, dx, db, dc, da), float32."""
-    if delta.device.type == "cpu":
-        return ref.selective_scan_bwd(delta, x, b, c, a, dy, dh_final)
-    if delta.device.type != "cuda":
-        raise ValueError(f"selective_scan: no kernel for device "
-                         f"{delta.device}")
-    return _launch_bwd(delta, x, b, c, a, dy, dh_final)
+    def run():
+        if delta.device.type == "cpu":
+            return ref.selective_scan_bwd(delta, x, b, c, a, dy, dh_final)
+        if delta.device.type == "meta":
+            _check_bwd(delta, x, b, c, a, dy, dh_final)
+            return tuple(torch.empty_like(v) for v in (delta, x, b, c, a))
+        if delta.device.type != "cuda":
+            raise ValueError(f"selective_scan: no kernel for device "
+                             f"{delta.device}")
+        return _launch_bwd(delta, x, b, c, a, dy, dh_final)
+    return _build.noted("selective_scan_bwd", lambda: _as_cost(bwd_work(
+        delta, b, dh_final is not None)), run, (delta, x, b, c, dy))

@@ -1,8 +1,9 @@
-"""Device meshes for the multi-device wave dispatch.
+"""Device meshes: the multi-device wave dispatch's, and the dry-run's
+production meshes.
 
 The counterpart of the JAX package's ``launch/mesh.py`` (``make_mesh``,
-``make_host_mesh``).  A ``DeviceMesh`` has what the axis rules read of a
-``jax.sharding.Mesh`` — ``axis_names`` and ``devices``, a numpy object
+``make_host_mesh``, ``make_production_mesh``, ``HW``).  A ``DeviceMesh``
+has what the axis rules read of a ``jax.sharding.Mesh`` — ``axis_names`` and ``devices``, a numpy object
 array of ``torch.device`` shaped like the mesh — and one thing more: each
 position of the mesh is a *slot*, a (device, stream) pair, and the mesh
 owns one ``torch.cuda.Stream`` per CUDA slot.
@@ -11,7 +12,10 @@ That is the port's one deliberate difference from a jax mesh: a device may
 appear more than once.  Four slots over ``cuda:0`` are four streams on one
 card, so the wave path runs with n_dev > 1 where there is one card, and
 four ``"cpu"`` slots let the CPU tests run it with n_dev > 1 (a CPU slot
-takes the kernels' plain versions).
+takes the kernels' plain versions).  The production meshes of the
+dry-run (``launch/dryrun.py``) are the ``meta`` device repeated 256 or 512
+times: their slots have no stream, and nothing placed on them is
+allocated.
 """
 from __future__ import annotations
 
@@ -141,3 +145,39 @@ def make_host_mesh(device=None) -> DeviceMesh:
     ``device`` None means the card."""
     return make_mesh((1, 1), ("data", "model"),
                      devices=["cuda" if device is None else device])
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices=None) -> DeviceMesh:
+    """The JAX package's production meshes: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model") with
+    ``multi_pod``.  ``devices=None`` is the ``meta`` device in every
+    position (the dry-run traces on it and needs no card); a single device
+    is repeated, a sequence must hold one device per position."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    if devices is None:
+        devices = ["meta"] * n
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices] * n
+    return make_mesh(shape, axes, devices=devices)
+
+
+# The roofline's hardware model, per device, with the JAX package's keys
+# (its HW models a TPU v5e).  Datasheet figures for the NVIDIA H100 SXM5
+# 80GB, not measurements: dense bf16 on the tensor cores, HBM3 bandwidth
+# and capacity, and NVLink 4's 450 GB/s a direction as the link rate.  A
+# 16-wide mesh axis spans two nodes of eight GPUs, whose links between
+# nodes are slower than NVLink, so the collective term taken at this rate
+# is a lower bound, as the roofline is.  ``peak_f32_flops`` and
+# ``peak_int_ops`` (outside the tensor cores) are the port's additions,
+# for the kernels' bounds in ``chip_smoke.py``.
+HW = {
+    "peak_bf16_flops": 989e12,      # FLOP/s
+    "hbm_bw": 3.35e12,              # B/s
+    "ici_bw": 450e9,                # B/s, a direction
+    "hbm_bytes": 80e9,
+    "peak_f32_flops": 67e12,        # FLOP/s on the CUDA cores
+    "peak_int_ops": 67e12,          # int32 ops/s on the CUDA cores
+}

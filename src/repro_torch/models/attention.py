@@ -62,7 +62,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import AttnCfg
-from repro_torch.dist.sharding import TensorSpec, tspec
+from repro_torch.dist.sharding import (TensorSpec, constrain, ctx_axis_size,
+                                       tspec)
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rmsnorm
 
@@ -191,6 +192,15 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
                                 mode=mode)
     b, t, _ = x.shape
     q, k, v = _project(params, x, cfg, positions)
+    # The JAX package's tensor-parallel choice: heads over "model" where
+    # they divide it, else (gemma3-4b's 8 heads on a 16-wide axis) the
+    # query sequence over "model" instead of the attention replicated
+    heads_tp = cfg.n_heads % ctx_axis_size("model") == 0
+    q_axes = (("batch", "seq", "act_heads", "head_dim") if heads_tp
+              else ("batch", "act_seq_tp", "act_heads", "head_dim"))
+    q = constrain(q, q_axes, weight=params["wq"])
+    k = constrain(k, ("batch", "seq", "act_kv_heads", "head_dim"),
+                  weight=params["wk"])
     # masking and cache bookkeeping use the temporal stream for M-RoPE
     mask_pos = positions[0] if positions.dim() == 3 else positions
 
@@ -214,6 +224,7 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
 
     wo = params["wo"]
     out = out.reshape(b, t, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
+    out = constrain(out, ("batch", "seq", "act_embed"), weight=wo)
     return out, new_cache
 
 

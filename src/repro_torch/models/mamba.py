@@ -52,7 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Mamba1Cfg, Mamba2Cfg
-from repro_torch.dist.sharding import TensorSpec, tspec
+from repro_torch.dist.sharding import TensorSpec, constrain, tspec
 from repro_torch.kernels import ops
 from repro_torch.models.common import rmsnorm
 
@@ -120,6 +120,8 @@ def mamba1(params, x, cfg: Mamba1Cfg, *, mode: str, cache):
     r = cfg.dt_rank or d_model // 16
 
     xz = x @ params["in_proj"].to(dt_)
+    xz = constrain(xz, ("batch", "seq", "ssm_inner"),
+                   weight=params["in_proj"])
     xa, z = xz[..., :di], xz[..., di:]
 
     conv_tail = cache["conv"] if cache is not None else None
@@ -159,7 +161,9 @@ def mamba1(params, x, cfg: Mamba1Cfg, *, mode: str, cache):
 
     y = y.to(dt_) + params["D"].to(dt_) * xa
     y = y * F.silu(z)
-    return y @ params["out_proj"].to(dt_), new_cache
+    out = y @ params["out_proj"].to(dt_)
+    return constrain(out, ("batch", "seq", "act_embed"),
+                     weight=params["out_proj"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +282,8 @@ def mamba2(params, x, cfg: Mamba2Cfg, *, mode: str, cache):
     nh = di // p
 
     zxd = x @ params["in_proj"].to(dt_)
+    zxd = constrain(zxd, ("batch", "seq", "ssm_inner"),
+                    weight=params["in_proj"])
     z, xbc, dt_head = (zxd[..., :di], zxd[..., di:2 * di + 2 * n],
                        zxd[..., 2 * di + 2 * n:])
 
@@ -322,4 +328,6 @@ def mamba2(params, x, cfg: Mamba2Cfg, *, mode: str, cache):
 
     y = y.reshape(bsz, t, di).to(dt_)
     y = rmsnorm(y * F.silu(z), params["norm"])
-    return y @ params["out_proj"].to(dt_), new_cache
+    out = y @ params["out_proj"].to(dt_)
+    return constrain(out, ("batch", "seq", "act_embed"),
+                     weight=params["out_proj"]), new_cache

@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MlpCfg
-from repro_torch.dist.sharding import TensorSpec, tspec
+from repro_torch.dist.sharding import TensorSpec, constrain, tspec
 
 
 def mlp_specs(cfg: MlpCfg, d_model: int) -> dict[str, TensorSpec]:
@@ -29,4 +29,7 @@ def mlp(params, x: torch.Tensor, cfg: MlpCfg) -> torch.Tensor:
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return h @ params["w_down"].to(dt)
+    h = constrain(h, ("batch", "seq", "act_mlp"), weight=params["w_up"])
+    out = h @ params["w_down"].to(dt)
+    return constrain(out, ("batch", "seq", "act_embed"),
+                     weight=params["w_down"])

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.common import (default_positions, embed_spec,
                                        embed_tokens, rmsnorm, rmsnorm_spec,
                                        unembed_spec)
@@ -115,6 +116,7 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
                                  device=x.device)
+    x = constrain(x, ("batch", "seq", "act_embed"))
     b, t = x.shape[:2]
 
     mrope = cfg.mrope
@@ -145,7 +147,10 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x if mode == "train" else (x, new_cache)
-    logits = (x @ lm_head(params, cfg).to(dt)).float()
+    head = lm_head(params, cfg)
+    logits = x @ head.to(dt)
+    logits = constrain(logits, ("batch", "seq", "act_vocab"),
+                       weight=head).float()
     if mode == "train":
         return logits
     return logits, new_cache
@@ -153,9 +158,16 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
 
 def decode_positions(pos, batch: int, device=None,
                      mrope: bool = False) -> torch.Tensor:
-    """pos: scalar int -> (B,1) int32 positions, or (3,B,1) for M-RoPE
-    (text tokens: the same position in every stream)."""
-    p = torch.full((batch, 1), int(pos), dtype=torch.int32, device=device)
+    """pos: scalar int, or a 0-d integer tensor -> (B,1) int32 positions,
+    or (3,B,1) for M-RoPE (text tokens: the same position in every
+    stream).  A tensor is broadcast on its device, never read on the host
+    (the dry-run traces decode on the meta device)."""
+    if torch.is_tensor(pos):
+        p = pos.to(device=device, dtype=torch.int32).reshape(1, 1).expand(
+            batch, 1).contiguous()
+    else:
+        p = torch.full((batch, 1), int(pos), dtype=torch.int32,
+                       device=device)
     return p[None].expand(3, batch, 1) if mrope else p
 
 

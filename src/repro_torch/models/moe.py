@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MlpCfg, MoECfg
-from repro_torch.dist.sharding import TensorSpec, tspec
+from repro_torch.dist.sharding import TensorSpec, constrain, tspec
 from repro_torch.models.mlp import mlp, mlp_specs
 
 DEFAULT_GROUPS = 32
@@ -101,7 +101,7 @@ def moe(params, x: torch.Tensor, cfg: MoECfg, *, return_aux: bool = False):
     ng = n // g                                  # tokens per group
     cap = capacity(cfg, ng)
 
-    xg = x.reshape(g, ng, d)
+    xg = constrain(x.reshape(g, ng, d), ("moe_group", None, "act_embed"))
     logits, top_idx, gates, pos = route(params, xg, cfg)
     keep = pos < cap
 
@@ -112,21 +112,31 @@ def moe(params, x: torch.Tensor, cfg: MoECfg, *, return_aux: bool = False):
     dest = dest.reshape(-1)
     src = (xg[:, :, None, :] * keep[..., None].to(dt)).reshape(-1, d)
     disp = x.new_zeros((g * e * cap, d)).index_add(0, dest, src)
-    disp = disp.view(g, e, cap, d)
+    # groups -> experts: the JAX package's all-to-all under GSPMD
+    disp = constrain(disp.view(g, e, cap, d),
+                     ("moe_group", "expert", "moe_cap", "act_embed"))
 
     outs = []
     for i in range(e):
         xe = disp[:, i]                                        # (G, cap, D)
-        h = F.silu(xe @ params["w_gate"][i].to(dt)) * (
-            xe @ params["w_up"][i].to(dt))
-        outs.append(h @ params["w_down"][i].to(dt))
-    out = torch.stack(outs, dim=1).reshape(g * e * cap, d)
+        wg, wd = params["w_gate"][i], params["w_down"][i]
+        h = F.silu(xe @ wg.to(dt)) * (xe @ params["w_up"][i].to(dt))
+        # the JAX package constrains the experts' stacked h; the port
+        # records each expert's part of it
+        h = constrain(h, ("moe_group", "moe_cap", "expert_mlp"), weight=wg)
+        outs.append(h @ wd.to(dt))
+    # experts -> groups, before the combine; each expert's product summed
+    # over its own expert_mlp (``wd``, the last expert's, stands for all)
+    out = constrain(torch.stack(outs, dim=1).reshape(g, e * cap, d),
+                    ("moe_group", None, "act_embed"), weight=wd)
+    out = out.reshape(g * e * cap, d)
     del outs
 
     # combine: each assignment's row back to its token, weighted
     gathered = out.index_select(0, dest).view(g, ng, k, d)
     w = (gates.to(dt) * keep.to(dt))[..., None]
-    y = (gathered * w).sum(dim=2).reshape(b, t, d)
+    y = constrain((gathered * w).sum(dim=2).reshape(b, t, d),
+                  ("batch", "seq", "act_embed"))
 
     if cfg.dense_residual_ff:
         res = {kk[4:]: v for kk, v in params.items() if kk.startswith("res_")}
