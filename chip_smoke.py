@@ -180,6 +180,15 @@ step on 1 x 4,096 tokens and h2o-danube-1.8b's prefill_32k on 1 x 32,768.
             llama train state (bit for bit onto the card, the same loss
             from the restored state, a corrupted leaf falling back to the
             step before);
+9b. fullwidth  every arch of ``tests/data/fullwidth_jax.npz`` (the JAX
+            package's readings at published widths, cut in depth by
+            ``launch.fullwidth.CUTS``) on the kernel route in float32
+            compute, on weights drawn on the card by the counter-based
+            hash the fixture's numpy twin drew: prefill logits, caches,
+            teacher-forced decode logits, the loss and every gradient
+            leaf's norm and hashed dot held at ``fullwidth.LIMITS``, an
+            MoE layer on the fixture's routing; one line an arch; a
+            mismatch, or a family's kernel not launched, fails;
 10. dryrun  ``python -m repro_torch.launch.dryrun --all --mesh both``,
             started in a background process with the run (the meta
             device, no card; one host core of its own, which this
@@ -230,6 +239,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # kernels' bounds and the dry-run's roofline.  Alone, without the port's
 # sources beside it, the script stops here.
 from repro_torch.launch.mesh import HW  # noqa: E402
+# the MoE routing rule's one definition, shared with the full-width phase
+from repro_torch.launch.routing import (  # noqa: E402
+    ROUTE_FLIPS_MAX, ROUTE_GAP_SHARE, Routing)
 SEED = 0
 ROWS = 1 << 19                 # rows a block
 BLOCKS = 64                    # the cut: a sixth of one datanode's 20 GB
@@ -362,9 +374,7 @@ MOE_HYBRID_CASES = [
 # every output and gradient at SERVE_LAYER_TOL; the tokens the kernel route
 # would have routed otherwise are counted, with their logit gaps: at most
 # ROUTE_FLIPS_MAX of them a check, each gap within ROUTE_GAP_SHARE of the
-# logits' largest magnitude.
-ROUTE_FLIPS_MAX = 8
-ROUTE_GAP_SHARE = 1e-5
+# logits' largest magnitude (both from ``launch.routing``).
 # Softcap (gemma3's option, which no config sets): phase 3 holds the
 # kernels to the plain versions at this cap on scores of N(0, 1) data at
 # D = 64 and 256, where c tanh(s / c) bends them (a 10th element of a
@@ -2187,76 +2197,13 @@ def stack_layers(sc) -> list:
             + [(lc, None, f"t{i}") for i, lc in enumerate(sc.tail)])
 
 
-class Routing:
-    """Records every MoE routing decision (``models.moe.route``) made
-    inside the block: the float32 logits, top_idx and pos of each call.
-    Given the records of another run (``forced``), each call instead takes
-    that run's top_idx and pos (its gates then the softmax of its own
-    logits at those experts) and keeps its own decisions beside them
-    ("own"), so two routes can be held to each other on one routing (see
-    ROUTE_FLIPS_MAX).  A block without MoE layers records nothing."""
-
-    def __init__(self, forced: list | None = None):
-        self.forced = None if forced is None else list(forced)
-        self.records: list = []
-
-    def __enter__(self):
-        from repro_torch.models import moe as moe_mod
-
-        self.real = moe_mod.route
-
-        def route(params, xg, cfg):
-            logits, top_idx, gates, pos = self.real(params, xg, cfg)
-            rec = {"logits": logits.detach(), "top_idx": top_idx,
-                   "pos": pos, "cap": None}
-            if self.forced is not None:
-                want = self.forced.pop(0)
-                rec["own"] = (top_idx, pos)
-                top_idx, pos = want["top_idx"], want["pos"]
-                gates = torch.softmax(logits.gather(-1, top_idx), dim=-1)
-                rec["top_idx"], rec["pos"] = top_idx, pos
-            rec["cap"] = moe_mod.capacity(cfg, xg.shape[1])
-            self.records.append(rec)
-            return logits, top_idx, gates, pos
-
-        moe_mod.route = route
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe as moe_mod
-
-        moe_mod.route = self.real
-        return False
-
-    def flips(self, plain: list) -> dict:
-        """Of a forced run against the run it was forced by (``plain``'s
-        records): the tokens whose own top_idx differed ("flips"), their
-        logit gaps (the k-th minus the (k+1)-th logit on the plain route)
-        as shares of the logits' largest magnitude, and the assignments
-        whose own keep differed ("keep_shifts")."""
-        flips, gaps, shifts = 0, [], 0
-        for rec, ref_rec in zip(self.records, plain):
-            own_idx, own_pos = rec["own"]
-            k = own_idx.shape[-1]
-            moved = (own_idx != ref_rec["top_idx"]).any(-1)
-            flips += int(moved.sum())
-            shifts += int(((own_pos < rec["cap"])
-                           != (ref_rec["pos"] < ref_rec["cap"])).sum())
-            if bool(moved.any()):
-                lg = ref_rec["logits"]
-                top = torch.topk(lg, k + 1, dim=-1).values
-                gap = (top[..., k - 1] - top[..., k])[moved]
-                gaps += (gap / lg.abs().max()).tolist()
-        return {"layers": len(self.records), "flips": flips,
-                "gap_shares": gaps, "keep_shifts": shifts}
-
-
-def check_routing(what: str, forced: "Routing", plain: list) -> dict | None:
-    """The routing rule (ROUTE_FLIPS_MAX, ROUTE_GAP_SHARE) of a forced run;
-    None where the block has no MoE layer."""
-    if not plain:
+def check_routing(what: str, forced: Routing) -> dict | None:
+    """The routing rule (ROUTE_FLIPS_MAX, ROUTE_GAP_SHARE) of a run forced
+    on another's routing (``launch.routing.Routing``); None where the
+    block has no MoE layer."""
+    if not forced.forced:
         return None
-    rec = forced.flips(plain)
+    rec = forced.flips()
     check(rec["flips"] <= ROUTE_FLIPS_MAX,
           f"{what}: {rec['flips']} tokens routed otherwise on the kernel "
           f"route > {ROUTE_FLIPS_MAX}")
@@ -2311,8 +2258,7 @@ def layer_routes(cfg, params, batch) -> dict:
                 out_ref = layer(x_ref, lc, g, key, False, aux_ref)
             with Routing(plain.records) as on_plain:
                 out_k = layer(x_ref, lc, g, key, True, aux_ref)
-            rec = check_routing(f"{cfg.name} layer {g} {key}", on_plain,
-                                plain.records)
+            rec = check_routing(f"{cfg.name} layer {g} {key}", on_plain)
             if rec is not None:
                 for name in ("layers", "flips", "gap_shares", "keep_shifts"):
                     routing[name] += rec[name]
@@ -2795,8 +2741,7 @@ def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ,
                              routing=on_plain)
     torch.cuda.synchronize()
     launches = dict(ops.KERNEL_LAUNCHES)
-    routing = check_routing(f"{arch} layer gradients", on_plain,
-                            plain_routing.records)
+    routing = check_routing(f"{arch} layer gradients", on_plain)
     shares = {n: share(on_kernels[n], plain[n])["share"] for n in plain}
     worst = max(shares, key=shares.get)
     calls = 2 if enc is not None else 1
@@ -3448,6 +3393,121 @@ def phase_train(batch: dict) -> dict:
 # The dry-run (phase 10): every cell of ``configs.cells()`` traced on the
 # meta device in a background process started with the run, and two cells
 # run for real at full width and depth, their batch cut to fit one card.
+# which kernels each family's full-width run must launch on the kernel
+# route (flash: attention; the scan: Mamba1)
+FULLWIDTH_KERNELS = {"attention": ("flash_attention",),
+                     "train_attention": ("flash_attention_bwd",),
+                     "mamba1": ("selective_scan",),
+                     "train_mamba1": ("selective_scan_bwd",)}
+
+
+def rope_bits() -> dict:
+    """RoPE's frequency ladders (``models.common._freqs``) made on the card
+    against the same made on the CPU, bit for bit, at every (head dim,
+    theta, M-RoPE section) an attention layer of a registered arch uses:
+    the card's float64 ``pow`` has to round to the CPU's float32 bits, as
+    the full-width readings assume."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.common import _freqs
+
+    ladders = set()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        stacks = [cfg.stack] + ([cfg.encoder] if cfg.encoder else [])
+        for sc in stacks:
+            lcs = list(sc.pattern) + list(sc.tail) + (
+                [sc.shared] if sc.shared is not None else [])
+            for lc in lcs:
+                a = lc.attn
+                if a is None:
+                    continue
+                half = a.head_dim // 2
+                parts = [(0, half)]
+                if a.mrope_section:
+                    o = [sum(a.mrope_section[:i])
+                         for i in range(len(a.mrope_section) + 1)]
+                    parts += list(zip(o[:-1], o[1:]))
+                ladders |= {(lo, hi, half, a.rope_theta)
+                            for lo, hi in parts}
+    differ = []
+    for lo, hi, half, theta in sorted(ladders):
+        got = _freqs(lo, hi, half, theta, "cuda").cpu()
+        want = _freqs(lo, hi, half, theta, "cpu")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            differ.append([lo, hi, half, theta,
+                           int((got != want).sum())])
+    rec = {"ladders": len(ladders),
+           "values": sum(hi - lo for lo, hi, _, _ in ladders),
+           "head_dims": sorted({2 * h for _, _, h, _ in ladders}),
+           "thetas": sorted({t for *_, t in ladders}), "differ": differ}
+    emit("rope_bits", **rec)
+    check(not differ, f"rope_bits: the card's frequency ladders differ "
+          f"from the CPU's: {differ}")
+    return rec
+
+
+def phase_fullwidth() -> dict:
+    """Phase 9b: every arch of the fixture ``tests/data/fullwidth_jax.npz``
+    (the JAX package's readings at published widths, made on a CPU by
+    ``tests/_torch_fullwidth.py --make``) on the kernel route in float32
+    compute, on weights drawn on the card by the counter-based hash
+    (``models.model.draw_params``, the bits the fixture's numpy twin
+    drew), held to the fixture by ``launch.fullwidth.compare`` at its
+    ``LIMITS``: one ``fullwidth`` line an arch with every reading beside
+    its limit, the kernels' launches in the run and its seconds.  A
+    mismatch, a missing reading or a kernel of the family not launched
+    fails the run."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import fullwidth as fw
+
+    ref = fw.load_fixture()
+    ops.use_kernels(True)
+    t_phase = time.perf_counter()
+    rope_bits()
+    out = {}
+    for arch in fw.fixture_archs(ref):
+        cfg, cut = fw.port_config(arch)
+        want_meta = {k: v for k, v in ref[f"{arch}/meta"].items()
+                     if k != "made"}
+        check(want_meta == json.loads(json.dumps(fw.meta(arch, cfg, cut))),
+              f"fullwidth {arch}: the fixture's metadata is not the "
+              f"config's")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clear_launches()
+        t0 = time.perf_counter()
+        got = fw.run(arch, "cuda", ref)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.KERNEL_LAUNCHES)
+        readings, fails = fw.compare(arch, got, ref)
+        kinds = {lc.kind for lc in cfg.stack.pattern + cfg.stack.tail}
+        if cfg.stack.shared is not None or cfg.encoder is not None or \
+                "attn_mlp" in kinds:
+            kinds.add("attention")
+        need = [k for kind in kinds for k in FULLWIDTH_KERNELS.get(kind, ())]
+        if cut.train:
+            need += [k for kind in kinds
+                     for k in FULLWIDTH_KERNELS.get("train_" + kind, ())]
+        rec = {"arch": arch, "cut": cut.meta(),
+               "readings": readings,
+               "limits": {k: fw.LIMITS[k] for k in readings
+                          if k in fw.LIMITS},
+               "launches": launches, "seconds": seconds,
+               "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        emit("fullwidth", **rec)
+        check(not fails, f"fullwidth {arch}: {fails}")
+        for k in need:
+            check(launches.get(k, 0) > 0,
+                  f"fullwidth {arch}: {k} was not launched")
+        out[arch] = rec
+        del got
+        torch.cuda.empty_cache()
+    emit("fullwidth_done", archs=list(out),
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
 DRYRUN_WAIT_S = 600              # the most phase 10 waits for the traces
 DRYRUN_FLOPS_MARGIN = 1.05       # model_flops <= 1.05 x the counted flops
 DRYRUN_PEAK_TOL = 0.25           # predicted peak within 25% of the card's
@@ -4478,6 +4538,8 @@ def main() -> int:
          "bound_by": scan_bwd["bound_by"], "library_ms": None,
          "shape": scan_bwd["shape"], "ms_by": scan_bwd["ms_by"]},
     ]
+    # --- 9b. full width: every family held to the JAX package's readings
+    phase_fullwidth()
     # --- 10. the dry-run: every cell on meta, two against the card ------
     emit("dryrun", **phase_dryrun(*dryrun))
     emit("done", seconds=time.perf_counter() - t_run)

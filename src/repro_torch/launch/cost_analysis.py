@@ -81,6 +81,13 @@ def _nbytes(t: torch.Tensor) -> int:
 #       the copy a training step differentiates, and whatever is computed
 #       from weights alone (casts, views, slices); split over its leaf's
 #       mesh axes but the batch axes, over which it is all-gathered first;
+#   "G" a weight's gradient as the product that makes it writes it: a
+#       product of activations that reads a storage which met a training
+#       weight in a product (the forward's input, or the output's gradient
+#       in the backward) and whose output has that weight's shape (each
+#       device sums its batch shard into the weight's "W" split); right
+#       after, the reduce-scatter the collective model counts leaves it at
+#       the parameter's split, "P", for the update;
 #   "P" a parameter of a training step's state, as the optimizer reads it,
 #       and "S" the optimizer's other state: split over all the leaf's
 #       axes; any operation that reads one is part of the update, "S";
@@ -90,15 +97,17 @@ def _nbytes(t: torch.Tensor) -> int:
 #       batch-split activation and a model-split weight is split over
 #       both), then as ``constrain`` pins it.
 # A split is a (batch part, other part) pair a mesh.
-_W, _P, _S, _D, _A = "W", "P", "S", "D", "A"
+_W, _G, _P, _S, _D, _A = "W", "G", "P", "S", "D", "A"
 
 
 class _Class:
-    __slots__ = ("kind", "pairs", "leaf", "gathered", "ref", "fresh")
+    __slots__ = ("kind", "pairs", "leaf", "gathered", "shard", "ref",
+                 "fresh")
 
-    def __init__(self, kind, pairs, leaf=None, gathered=None):
+    def __init__(self, kind, pairs, leaf=None, gathered=None, shard=None):
         self.kind, self.pairs, self.leaf = kind, pairs, leaf
         self.gathered = gathered        # a "P" leaf's "W" pairs
+        self.shard = shard              # a "W" copy's "P" pairs
         self.ref = None
         self.fresh = False
 
@@ -176,6 +185,12 @@ class CostTrace(TorchDispatchMode):
         self._one = ((1, 1),) * k
         self._full = tuple(self._all_devices(mesh) for mesh in self.meshes)
         self._cls: dict[int, _Class] = {}       # id(tensor) -> its class
+        # storage id -> {a training weight's shape as a product read it
+        # beside that storage, and transposed -> the weight's class, or
+        # None where weights of two splits share the shape}: a product of
+        # activations that reads the storage with that output shape is the
+        # weight's gradient
+        self._wgrad: dict[int, dict[tuple, Optional[_Class]]] = {}
         self.dev_bytes = [0.0] * k
         self._dev_live = [0.0] * k
         self.dev_peak_live_bytes = [0.0] * k
@@ -292,17 +307,57 @@ class CostTrace(TorchDispatchMode):
         entry.pairs = pairs
         entry.fresh = False
 
-    def _out_class(self, func, cin: list) -> _Class:
+    def _out_class(self, func, cin: list, tin: list, outs: list,
+                   dot: float) -> _Class:
+        """The class of an operation's outputs from its inputs' (``cin``,
+        of the tensors ``tin``)."""
         kinds = {c.kind for c in cin}
+        if dot and outs:
+            if _W in kinds:
+                self._note_weight_product(cin, tin)
+            elif kinds == {_A}:
+                w = self._gradient_of(tin, tuple(outs[0].shape))
+                if w is not None:
+                    return _Class(_G, w.pairs, w.leaf, shard=w.shard)
         if func is aten.detach.default and kinds == {_P}:
-            return _Class(_W, cin[0].gathered, cin[0].leaf)
+            return _Class(_W, cin[0].gathered, cin[0].leaf,
+                          shard=cin[0].pairs)
         if kinds & {_S, _P}:
             return _Class(_S, _most([c.pairs for c in cin], self._k))
         if kinds == {_W}:
             return _Class(_W, _widest([c.pairs for c in cin], self._k),
-                          cin[0].leaf)
+                          cin[0].leaf, shard=cin[0].shard)
         return _Class(_A, _widest([c.pairs for c in cin] or [self._one],
                                   self._k))
+
+    def _note_weight_product(self, cin: list, tin: list):
+        """A product of a training weight: its other inputs' storages met
+        the weight, at its shape and transposed."""
+        for t, c in zip(tin, cin):
+            if c.kind != _W or t.dim() != 2 or c.shard is None:
+                continue
+            for o, oc in zip(tin, cin):
+                if oc.kind == _W:
+                    continue
+                met = self._wgrad.setdefault(o.untyped_storage()._cdata, {})
+                for shape in (tuple(t.shape), tuple(t.shape)[::-1]):
+                    old = met.get(shape, c)
+                    same = old is not None and (old.pairs, old.shard) == (
+                        c.pairs, c.shard)
+                    met[shape] = c if same else None
+
+    def _gradient_of(self, tin: list, shape: tuple) -> Optional[_Class]:
+        """The weight whose gradient a product of activations ``tin`` with
+        output ``shape`` is: one that met an input's storage at that shape,
+        with no other split met there (a square wq beside a square wo of
+        the other split is told apart by the storage); None if none or
+        if the inputs name two splits."""
+        found = {}
+        for t in tin:
+            c = self._wgrad.get(t.untyped_storage()._cdata, {}).get(shape)
+            if c is not None:
+                found[(c.pairs, c.shard)] = c
+        return next(iter(found.values())) if len(found) == 1 else None
 
     # -- live bytes ----------------------------------------------------------
 
@@ -336,6 +391,7 @@ class CostTrace(TorchDispatchMode):
 
     def _freer(self, key):
         def free(_):
+            self._wgrad.pop(key, None)
             entry = self._live.pop(key, None)
             if entry is not None:
                 self.live_bytes -= entry.nbytes
@@ -396,9 +452,10 @@ class CostTrace(TorchDispatchMode):
                  and self._live[key].fresh}
         for key in fresh - written if moves else ():
             self._resplit(self._live[key], self._one)
-        cin = [self._class(t) for t in ins
+        tin = [t for t in ins
                if t.untyped_storage()._cdata not in fresh & written]
-        oc = self._out_class(func, cin)
+        cin = [self._class(t) for t in tin]
+        oc = self._out_class(func, cin, tin, outs, dot)
         if not ins:
             oc.pairs, oc.fresh = self._full, True
         for key in fresh & written:
@@ -411,10 +468,17 @@ class CostTrace(TorchDispatchMode):
                     oc.kind != _A
                     or t.untyped_storage()._cdata not in self._live):
                 self._set_class(t, _Class(oc.kind, oc.pairs, oc.leaf,
-                                          oc.gathered))
+                                          oc.gathered, oc.shard))
         if moves:
             for t in ins + outs:
                 self._moved(t, _nbytes(t))
+        if oc.kind == _G:
+            # reduce-scattered: the parameter's split from here on
+            for t in outs:
+                entry = self._live.get(t.untyped_storage()._cdata)
+                if entry is not None:
+                    self._resplit(entry, oc.shard)
+                self._set_class(t, _Class(_P, oc.shard, oc.leaf, oc.pairs))
 
     def _moved(self, t: torch.Tensor, n: int):
         """``n`` bytes of ``t`` read or written: an activation's counted
@@ -518,6 +582,18 @@ def model_collectives(weights, records, mesh, rules, *, train: bool,
        with no product before it (the MoE dispatch buffer), goes to its
        experts and back by two all-to-alls over that axis, twice as many
        in training.
+    5. An attention whose query heads the rules shard over a mesh axis
+       that they leave its KV heads whole on (the KV heads do not divide
+       it: 8 KV heads on a 16-wide "model" axis, the reduced configs' 2
+       on a 4-wide one; gemma3-4b's 8 query heads do not divide 16
+       either, so its queries split by sequence) gathers the queries'
+       heads over that axis to
+       meet the whole K and V: one all-gather of the query activation (the
+       ``act_heads`` record, followed by its K record), twice in training
+       (the backward gathers the K/V-shaped gradient terms).  Payload: the
+       queries' bytes over the batch axes.  The JAX package's step on a
+       (2, 4) host mesh gathers exactly this in the forward of reduced
+       gemma3-4b (f32[4,64,4,16] over the model axis, one a layer).
 
     An activation's payload is its bytes over the mesh axes of its spec
     and ``batch_axes`` (every recorded activation carries the whole
@@ -552,6 +628,21 @@ def model_collectives(weights, records, mesh, rules, *, train: bool,
                 add("reduce-scatter", full, gather)
         if train:
             add("all-reduce", shard, batch_axes - used)
+
+    def split_dim(w, i) -> set:
+        ps = sh.resolve_pspec(w.shape, w.axes, mesh, rules)
+        return set(sh.spec_axes(ps[i])) if i < len(ps) else set()
+
+    for r, nxt in zip(records, list(records[1:]) + [None]):
+        if (r.weight is not None and "act_heads" in r.axes
+                and r.axes[1] == "seq" and nxt is not None
+                and nxt.weight is not None and "act_kv_heads" in nxt.axes):
+            wq, wk = r.weight, nxt.weight
+            group = (split_dim(wq, wq.axes.index("heads"))
+                     - split_dim(wk, wk.axes.index("kv_heads")) - bmesh)
+            add("all-gather", math.prod(r.shape) * r.dtype.itemsize
+                / math.prod(sizes[a] for a in batch_axes), group,
+                2 if train else 1)
 
     for r in records:
         spec = sh.resolve_pspec(r.shape, r.axes, mesh, rules)

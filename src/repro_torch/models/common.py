@@ -34,9 +34,26 @@ def _rope_angles(positions: torch.Tensor, dim: int,
                  theta: float) -> torch.Tensor:
     """positions (...,) -> angles (..., dim//2)."""
     half = dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
-    return positions[..., None].float() * freqs
+    return positions[..., None].float() * _freqs(0, half, half, theta,
+                                                 positions.device)
+
+
+def _freqs(start: int, stop: int, half: int, theta: float,
+           device) -> torch.Tensor:
+    """theta^(-i / half) for i in [start, stop), made on ``device`` (no
+    host copy, which would wait for the device's queue at every call):
+    the float32 exponent, as the JAX package computes it, raised in
+    float64 and rounded once to float32, the same bits on every device.
+    (A float32 ``pow`` is an ulp off for some of these in one library or
+    another: XLA's on the CPU for 7 of head dim 80's 40, torch's for 3 of
+    64; and an angle's error grows with the position.)  The exponent is
+    the float64 quotient rounded to float32, the correctly rounded float32
+    quotient on every device (PyTorch's CUDA division of a float32 tensor
+    by a scalar multiplies by the reciprocal, which need not round to the
+    quotient where half is not a power of two, as 40)."""
+    e = (-torch.arange(start, stop, dtype=torch.float64, device=device)
+         / half).float()
+    return (theta ** e.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -70,11 +87,8 @@ def _mrope_part(pos: torch.Tensor, sec: int, d: int, theta: float,
                 offset: int) -> torch.Tensor:
     """Frequencies for an M-RoPE section use the *global* frequency ladder
     (indices offset..offset+sec of the d//2 ladder), per Qwen2-VL."""
-    half = d // 2
-    idx = torch.arange(offset, offset + sec, dtype=torch.float32,
-                       device=pos.device)
-    freqs = theta ** (-idx / half)
-    return pos[..., None].float() * freqs
+    return pos[..., None].float() * _freqs(offset, offset + sec, d // 2,
+                                           theta, pos.device)
 
 
 def default_positions(batch: int, seq: int, device=None,

@@ -26,6 +26,12 @@ parameter tree across (a copy, no transposes) and ``params_to_numpy``
 carries one back; ``cache_from_numpy`` and
 ``cache_to_numpy`` do the same for caches, ``train_state_from_numpy`` and
 ``train_state_to_numpy`` for train states ``{params, m, v, step}``.
+
+``draw_params`` draws a parameter tree from a counter-based hash
+(``hashed_uniform``): each value is a function of (seed, leaf index in the
+JAX flattening order, element index) alone, so a numpy twin of the hash
+draws the same bits on a host without torch, and a leaf can be drawn
+slice by slice on any device.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelCfg
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import TensorSpec, constrain
 from repro_torch.models.common import (default_positions, embed_spec,
                                        embed_tokens, rmsnorm, rmsnorm_spec,
                                        unembed_spec)
@@ -283,3 +289,110 @@ def cache_to_numpy(tree) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return _tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# Counter-based draws (the same bits from numpy and from torch on any device)
+# ---------------------------------------------------------------------------
+
+HASH_P = 2_147_483_647          # 2^31 - 1: every value stays below 2^31
+_HASH_STEPS = ((1_103_515_245, 12_345, 15), (48_271, 0, 13),
+               (69_621, 1, 16))
+_DRAW_SLICE = 1 << 24           # values drawn at a time
+
+
+def hash_mix(x):
+    """int64 values in [0, 2^31) -> int64 values in [0, 2^31): three rounds
+    of a multiply-add modulo 2^31 - 1 and an xor-shift.  No product passes
+    2^62, so the int64 arithmetic never overflows, and numpy arrays, torch
+    tensors and Python ints give the same values."""
+    for mul, add, shift in _HASH_STEPS:
+        x = (x * mul + add) % HASH_P
+        x = x ^ (x >> shift)
+    return x
+
+
+def hash_key(seed: int, leaf: int) -> int:
+    """The key of one leaf (or one stream) of one seed."""
+    return hash_mix(hash_mix(seed % HASH_P) ^ (leaf % HASH_P))
+
+
+def hash_ints(seed: int, leaf: int, start: int, count: int,
+              device=None) -> torch.Tensor:
+    """(count,) int64 hashes in [0, 2^31) of elements start .. start+count
+    of stream ``leaf`` of ``seed``."""
+    e = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    return hash_mix(hash_mix((e % HASH_P) ^ hash_key(seed, leaf))
+                    ^ (e // HASH_P))
+
+
+def hashed_uniform(seed: int, leaf: int, start: int, count: int,
+                   device=None) -> torch.Tensor:
+    """(count,) float64 values, uniform on (-1, 1), of elements start ..
+    start+count of stream ``leaf``: (2h + 1) / 2^31 - 1, exact in float64."""
+    h = hash_ints(seed, leaf, start, count, device)
+    return (h * 2 + 1).double() / float(1 << 31) - 1.0
+
+
+def fan_in(spec: TensorSpec) -> int:
+    """The fan-in of a weight: its first axis past the stacking ("layers")
+    and expert axes, times the head dim where that axis is the heads of an
+    output projection ((heads, head_dim, embed)).  (The JAX package's
+    ``init_params`` takes the leading axis, which for a stacked leaf is
+    the number of groups.)"""
+    i = 0
+    while i < len(spec.shape) - 1 and spec.axes[i] in ("layers", "expert"):
+        i += 1
+    n = spec.shape[i] if spec.shape else 1
+    if i + 1 < len(spec.shape) - 1 and spec.axes[i + 1] == "head_dim":
+        n *= spec.shape[i + 1]
+    return n
+
+
+def draw_recipe(spec: TensorSpec) -> tuple[float, float]:
+    """(offset, half-width) of a leaf's uniform draw, value = offset +
+    half-width * u: the JAX package's recipes at their standard deviation
+    (embed 0.5 d^-1/2, normal at ``spec.scale`` or fan-in^-1/2), with
+    zeros drawn as 0.1 u and ones as 1 + 0.1 u so that no path sees a
+    constant."""
+    if spec.init == "zeros":
+        return 0.0, 0.1
+    if spec.init == "ones":
+        return 1.0, 0.1
+    if spec.init == "embed":
+        std = 0.5 * spec.shape[-1] ** -0.5
+    elif spec.scale is not None:
+        std = spec.scale
+    else:
+        std = fan_in(spec) ** -0.5
+    return 0.0, std * math.sqrt(3.0)
+
+
+def draw_leaf(spec: TensorSpec, seed: int, leaf: int, device=None,
+              start: int = 0, count: int | None = None) -> torch.Tensor:
+    """Elements start .. start+count of one leaf, flat, drawn by
+    ``hashed_uniform`` and ``draw_recipe``: float64 offset + half * u,
+    rounded once to float32, in the spec's dtype."""
+    count = spec.size - start if count is None else count
+    offset, half = draw_recipe(spec)
+    out = torch.empty(count, dtype=spec.dtype, device=device)
+    for s0 in range(0, count, _DRAW_SLICE):
+        n = min(_DRAW_SLICE, count - s0)
+        v = hashed_uniform(seed, leaf, start + s0, n, device) * half
+        if offset:
+            v = v + offset
+        out[s0:s0 + n] = v.float()
+    return out
+
+
+def draw_params(specs, seed: int, device=None) -> dict:
+    """A parameter tree from a TensorSpec tree (``model_specs``), each leaf
+    drawn by ``draw_leaf`` under its index in the JAX package's flattening
+    order (dict keys sorted)."""
+    counter = iter(range(1 << 30))
+
+    def walk(node):
+        if isinstance(node, dict):   # sorted: the JAX flattening order
+            return {k: walk(node[k]) for k in sorted(node)}
+        return draw_leaf(node, seed, next(counter), device).view(node.shape)
+    return walk(specs)
