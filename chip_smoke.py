@@ -559,9 +559,14 @@ def ptxas_flash(log: str) -> list:
     instantiation (one a head dim; the bf16 kernels' with and without the
     softcap, the dK/dV kernel's passes) as ``ptxas -v`` reported them in
     the build: [{"kernel", "head_dim", ("pass", "softcap",) "registers",
-    "spill_stores", "spill_loads", "static_smem_bytes"}]."""
+    "spill_stores", "spill_loads", "static_smem_bytes",
+    "wgmma_serialized"}].  A kernel that sets its registers per warpgroup
+    (``setmaxnreg``: the bf16 forward) reports those of its launch;
+    "wgmma_serialized" is ptxas's C7512 warning that it waits after each
+    ``wgmma`` (for want of registers)."""
     import re
 
+    serialized = set(re.findall(r"C7512\).*?for the function '(\S+)'", log))
     rows, cur = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -571,7 +576,8 @@ def ptxas_flash(log: str) -> list:
                              r"(?:Lb(\d)E)?", entry[1])
             cur = None
             if name:
-                cur = {"kernel": name[1], "head_dim": int(name[2])}
+                cur = {"kernel": name[1], "head_dim": int(name[2]),
+                       "wgmma_serialized": entry[1] in serialized}
                 if name[3] is not None:     # the dK/dV kernel's DkdvPass
                     cur["pass"] = ("dK and dV", "dV", "dK")[int(name[3])]
                 if name[4] is not None:     # the bf16 kernels' kCap
@@ -592,6 +598,43 @@ def ptxas_flash(log: str) -> list:
     return sorted(rows, key=lambda r: (r["kernel"], r["head_dim"],
                                        r.get("pass", ""),
                                        r.get("softcap", False)))
+
+
+# The bf16 forward's head dims on the paths, each built on Hopper's
+# instructions: `wgmma` (HGMMA in the SASS) fed by TMA loads (UTMALDG),
+# and no `mma.sync` (HMMA).
+SASS_FLASH_DIMS = (64, 80, 128, 256)
+
+
+def sass_flash(lib_path: str) -> list:
+    """The counts of HGMMA, UTMALDG and HMMA instructions in the SASS of
+    every ``flash_bf16_kernel`` instantiation of the built library
+    (``cuobjdump -sass``): [{"head_dim", "softcap", "HGMMA", "UTMALDG",
+    "HMMA"}]."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    rows, cur = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = re.search(r"flash_bf16_kernelILi(\d+)ELb(\d)E", fn[1])
+            cur = None
+            if name:
+                cur = rows.setdefault(fn[1], {
+                    "head_dim": int(name[1]), "softcap": name[2] == "1",
+                    "HGMMA": 0, "UTMALDG": 0, "HMMA": 0})
+            continue
+        if cur is not None:
+            for op in ("HGMMA", "UTMALDG", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
+    return sorted(rows.values(), key=lambda r: (r["head_dim"],
+                                                r["softcap"]))
 
 
 def nvidia_smi() -> str:
@@ -3741,10 +3784,19 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
-    _build.library()
-    emit("build", seconds=time.perf_counter() - t0,
-         library_seconds=_build.build_seconds,
-         ptxas_flash=ptxas_flash(_build.ptxas_log()))
+    lib = _build.library()
+    build_s = time.perf_counter() - t0
+    sass = sass_flash(lib._name)
+    for d in SASS_FLASH_DIMS:
+        for cap in (False, True):
+            row = [r for r in sass
+                   if r["head_dim"] == d and r["softcap"] == cap]
+            check(len(row) == 1 and row[0]["HGMMA"] > 0
+                  and row[0]["UTMALDG"] > 0 and row[0]["HMMA"] == 0,
+                  f"the bf16 flash forward at D = {d} (softcap {cap}) runs "
+                  f"on wgmma fed by TMA, without mma.sync: {row}")
+    emit("build", seconds=build_s, library_seconds=_build.build_seconds,
+         ptxas_flash=ptxas_flash(_build.ptxas_log()), sass_flash=sass)
 
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
@@ -4464,7 +4516,7 @@ def main() -> int:
          "bound_by": pax["bound_by"], "library_ms": None,
          "shape": pax["shape"], "ms_by": pax["ms_by"]},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_fwd.cuh",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": sum(r["launches"].get("flash_attention", 0) for r in (
              served["flash_attention"], whisper, h2o_served, qwen_served,

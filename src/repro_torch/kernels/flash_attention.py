@@ -2,16 +2,18 @@
 layer.
 
 The port of the JAX package's ``kernels/flash_attention.py``.  The CUDA
-source (``csrc/flash_attention.cu``) keeps the JAX layout — q (B,T,H,D),
-k/v (B,S,KV,D), no transposes outside the kernel — with one CTA per
-(batch x head, 64-row q tile) looping over kv tiles, an online float32
+sources (``csrc/flash_attention.cu``, the entry points; ``csrc/
+flash_fwd.cuh``, the kernels, built a head dim a file) keep the JAX layout
+— q (B,T,H,D), k/v (B,S,KV,D), no transposes outside the kernel — with one
+CTA per (batch x head, q tile) looping over kv tiles, an online float32
 softmax, causal and window masks by index and GQA by index (q head h reads
 kv head h // (H/KV)).  It takes float32 or bfloat16, any T and S, head
 dims 16, 32, 64, 80, 128 and 256, and an optional softcap c (gemma3's
 scores capped at c tanh(s/c) before the mask; a runtime argument, 0 when
-off).  bfloat16 runs on the tensor cores (``mma.sync``, P
-rounded to bfloat16 before P·V, the only rounding beyond the reference's);
-float32 runs on the CUDA cores in full float32.
+off).  bfloat16 runs on the tensor cores (``wgmma`` fed by TMA loads,
+warp-specialised, 128-row q tiles; P rounded to bfloat16 before P·V, the
+only rounding beyond the reference's); float32 runs on the CUDA cores in
+full float32.
 
 ``flash_attention`` routes by device: a CPU tensor takes the plain version
 (``flash_attention_plain``, the ``ref.py`` counterpart), a CUDA tensor

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import math  # noqa: E402
+import re  # noqa: E402
 import types  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
@@ -313,23 +314,35 @@ def test_pax_scan_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
 # ---------------------------------------------------------------------------
 
 
-def _flash_bf16_model(q, k, v, *, causal, window, tile=64):
-    """What ``flash_bf16_kernel`` computes, in plain PyTorch: 64-row q tiles
-    and 64-key K/V tiles over the same band (tiles outside it skipped only
+def _flash_fwd_tiles(d):
+    """(q rows, keys) of the bf16 kernel's tiles at head dim ``d``, read
+    from ``csrc/flash_fwd.cuh`` (``kTQ``; ``kTK``: one size up to a head
+    dim, another past it)."""
+    src = (_build.CSRC / "flash_fwd.cuh").read_text()
+    q_tile = int(re.search(r"constexpr int kTQ = (\d+);", src)[1])
+    lim, small, large = map(int, re.search(
+        r"constexpr int kTK = D <= (\d+) \? (\d+) : (\d+);", src).groups())
+    return q_tile, small if d <= lim else large
+
+
+def _flash_bf16_model(q, k, v, *, causal, window):
+    """What ``flash_bf16_kernel`` computes, in plain PyTorch: the kernel's
+    q tiles and K/V tiles over the same band (tiles outside it skipped only
     when every row of the q tile keeps a key), S = Q K^T from bf16 values in
     float32, scaled by 1/sqrt(D) log2(e), masked scores -1e30 and keys past
     S -inf, a base-2 online softmax in float32, and P ROUNDED TO bf16 before
     P V."""
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
+    q_tile, tile = _flash_fwd_tiles(d)
     qf = q.float().permute(0, 2, 1, 3)                          # (B,H,T,D)
     kf, vf = (x.float().repeat_interleave(h // kvh, dim=2)
               .permute(0, 2, 1, 3) for x in (k, v))             # (B,H,S,D)
     sl2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
         * torch.tensor(1.4426950408889634, dtype=torch.float32)
     out = torch.empty((b, h, t, d))
-    for q0 in range(0, t, tile):
-        q_hi = min(q0 + tile, t) - 1
+    for q0 in range(0, t, q_tile):
+        q_hi = min(q0 + q_tile, t) - 1
         rows = torch.arange(q0, q_hi + 1)[:, None]
         k_max = min(q_hi, s - 1) if causal else s - 1
         k_min = max(q_hi - window + 1, 0) if window else 0
