@@ -16,7 +16,7 @@ builds variants made from ``flash_fwd.cuh`` by exact text substitutions
   then issues O += P V and waits for it (no softmax under P V), as at
   D = 256;
 * ``no_pingpong`` the two consumers issue their products without taking
-  turns;
+  turns, as at D = 256;
 * ``2_stages``    a ring of 2 K/V stages, not 3;
 * ``pv_chunks``   O += P V as one wgmma a 64-column chunk at D = 128 and
   256, not one over all of D;
@@ -158,7 +158,7 @@ def variants(header: str) -> dict[str, str]:
     return {
         "no_overlap": sub(header, "constexpr bool kOverlap = D <= 128;",
                           "constexpr bool kOverlap = false;"),
-        "no_pingpong": sub(header, "constexpr bool kPingPong = true;",
+        "no_pingpong": sub(header, "constexpr bool kPingPong = kOverlap<D>;",
                            "constexpr bool kPingPong = false;"),
         "2_stages": sub(header, "constexpr int kStages = D <= 128 ? 3 : 2;",
                         "constexpr int kStages = 2;"),
@@ -166,24 +166,18 @@ def variants(header: str) -> dict[str, str]:
                          "constexpr bool kWidePV = false;"),
         "tk64": sub(header, "constexpr int kTK = D <= 128 ? 128 : 80;",
                     "constexpr int kTK = D <= 128 ? 128 : 64;"),
-
         "no_pv": sub(header, "    issue_pv_step<D, TK>(o, pa[kc], v_tile, "
                      "kc);", "    ;"),
         "no_exp": sub(header, "fast_exp2(fmaf(s[j][e], scale, -mx[e >> 1]))",
                       "fmaf(s[j][e], scale, -mx[e >> 1])"),
-        "no_kv_load": sub(header, """        mbar_expect_tx(&sm.full_k[st], TK * D * 2);
-        load_tile<D, TK>(sm.k[st], k_wide, k_tail, &sm.full_k[st], g, k0, b);
-        mbar_expect_tx(&sm.full_v[st], TK * D * 2);
-        load_tile<D, TK>(sm.v[st], v_wide, v_tail, &sm.full_v[st], g, k0, b);""",
-                          """        if (it >= NS) {
-          mbar_arrive(&sm.full_k[st]);
-          mbar_arrive(&sm.full_v[st]);
-          continue;
-        }
-        mbar_expect_tx(&sm.full_k[st], TK * D * 2);
-        load_tile<D, TK>(sm.k[st], k_wide, k_tail, &sm.full_k[st], g, k0, b);
-        mbar_expect_tx(&sm.full_v[st], TK * D * 2);
-        load_tile<D, TK>(sm.v[st], v_wide, v_tail, &sm.full_v[st], g, k0, b);"""),
+        "no_kv_load": sub(
+            header, "        mbar_expect_tx(&sm.full_k[st], TK * D * 2);\n",
+            "        if (it >= NS) {\n"
+            "          mbar_arrive(&sm.full_k[st]);\n"
+            "          mbar_arrive(&sm.full_v[st]);\n"
+            "          continue;\n"
+            "        }\n"
+            "        mbar_expect_tx(&sm.full_k[st], TK * D * 2);\n"),
     }
 
 

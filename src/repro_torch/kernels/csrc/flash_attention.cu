@@ -72,10 +72,11 @@
 // - overlap: up to D = 128 each consumer issues S of tile j + 1 and
 //   O += P V of tile j together and runs the softmax of j + 1 while P V
 //   runs (P is packed to bf16 only after that P V is done, since `wgmma`
-//   reads its registers asynchronously); at D = 256 a consumer waits for
-//   each product (S, P and O of two tiles at once were slower there); the
-//   two consumers take turns to issue (named barriers), so one's softmax
-//   runs under the other's products;
+//   reads its registers asynchronously), and the two consumers take
+//   turns to issue (named barriers), so one's softmax runs under the
+//   other's products.  At D = 256 a consumer waits for each of its
+//   products and the consumers do not take turns (S, P and O of two
+//   tiles at once, and the turns, were slower there);
 // - only the tiles the band's edge or S crosses are masked element by
 //   element; the band is aligned to the key tile;
 // - the epilogue scales O by 1 / l once (a division an element made it a

@@ -268,8 +268,10 @@ constexpr bool kWidePV = true;
 template <int D>
 constexpr bool kOverlap = D <= 128;
 // The two consumers take turns to issue their products (named barriers),
-// so that one's softmax runs while the other's products do.
-constexpr bool kPingPong = true;
+// so that one's softmax runs while the other's products do: where each
+// overlaps its own work (at D = 256 the turns were 5% slower).
+template <int D>
+constexpr bool kPingPong = kOverlap<D>;
 constexpr int kTurnBarrier = 3;  // 3 + c: consumer c's turn; 1, 2: epilogue
 
 // A tile of R rows of D columns in shared memory is its chunks one after
@@ -499,7 +501,7 @@ __device__ __forceinline__ void rescale(float (&o)[D / 8][4],
 // phase i.  Without it the marks are empty.
 enum FwdPhase {
   kWaitK,      // K of the tile lands
-  kTurn,       // the other consumer issues (kPingPong)
+  kTurn,       // the other consumer issues (kPingPong<D>)
   kIssue,      // S = Q K^T and O += P V issued, V waited for
   kWaitS,      // S done
   kSoftmax,    // masks, scale, row max, exponentials, sums
@@ -637,14 +639,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_wide,
     Phases ph;
     ph.start();
 
-    // turns (kPingPong): wait for this consumer's, then, once its
+    // turns (kPingPong<D>): wait for this consumer's, then, once its
     // products are issued, hand it to the other; the last hand-over of
     // consumer 1 is left out, so every arrival is waited for
     auto take_turn = [&]() {
-      if constexpr (kPingPong) named_barrier(kTurnBarrier + cw, 256);
+      if constexpr (kPingPong<D>) named_barrier(kTurnBarrier + cw, 256);
     };
     auto pass_turn = [&](bool last) {
-      if constexpr (kPingPong)
+      if constexpr (kPingPong<D>)
         if (!(last && cw == 1)) named_barrier_arrive(kTurnBarrier + 1 - cw,
                                                      256);
     };
@@ -684,7 +686,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_wide,
 
     mbar_wait(&sm.q_full, 0);
     ph.mark(kWaitK);
-    if constexpr (kPingPong)  // consumer 0 issues first
+    if constexpr (kPingPong<D>)  // consumer 0 issues first
       if (cw == 1) named_barrier_arrive(kTurnBarrier, 256);
     if constexpr (kOverlap<D>) {
       // per tile: S of this tile and O += P V of the previous one issued
