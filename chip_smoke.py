@@ -476,6 +476,12 @@ WHISPER_ATTN = [
      torch.bfloat16),
     (SERVE_BATCH, WHISPER_PROMPT, WHISPER_FRAMES, 16, 16, 64, False, None,
      torch.bfloat16)]
+# the training shapes at which phase 3 also calls the flash backward a
+# second time and holds it to the first bit for bit (no atomics: a resumed
+# run repeats its loss)
+BWD_REPEAT_SHAPES = (H2O_TRAIN_ATTN, GEMMA4_TRAIN_ATTN,
+                     GEMMA4_TRAIN_LOCAL_ATTN, MIXTRAL_TRAIN_ATTN,
+                     ZAMBA_TRAIN_ATTN, WHISPER_ATTN[0])
 # bf16-compute layer gradients (phase 9).  Two checks.  (a) Each attention
 # call of the layer: the kernels' dq, dk, dv against the exact gradient of
 # the same bf16 q, k, v and upstream gradient (autograd through the plain
@@ -600,17 +606,20 @@ def ptxas_flash(log: str) -> list:
                                        r.get("softcap", False)))
 
 
-# The bf16 forward's head dims on the paths, each built on Hopper's
+# The bf16 flash kernels' head dims on the paths, each built on Hopper's
 # instructions: `wgmma` (HGMMA in the SASS) fed by TMA loads (UTMALDG),
-# and no `mma.sync` (HMMA).
+# and no `mma.sync` (HMMA): the forward, and the backward's dK/dV (its dV
+# and dK passes at D = 256) and dQ kernels, with and without the softcap.
 SASS_FLASH_DIMS = (64, 80, 128, 256)
+SASS_FLASH_KERNELS = ("flash_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
+                      "flash_bwd_dq_bf16_kernel")
 
 
 def sass_flash(lib_path: str) -> list:
     """The counts of HGMMA, UTMALDG and HMMA instructions in the SASS of
-    every ``flash_bf16_kernel`` instantiation of the built library
-    (``cuobjdump -sass``): [{"head_dim", "softcap", "HGMMA", "UTMALDG",
-    "HMMA"}]."""
+    every instantiation of the bf16 flash kernels (``SASS_FLASH_KERNELS``)
+    in the built library (``cuobjdump -sass``): [{"kernel", "head_dim",
+    ("pass",) "softcap", "HGMMA", "UTMALDG", "HMMA"}]."""
     import re
 
     from repro_torch.kernels import _build
@@ -619,21 +628,27 @@ def sass_flash(lib_path: str) -> list:
     sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
                           text=True, timeout=600, check=True).stdout
     rows, cur = {}, None
+    kernels = "|".join(SASS_FLASH_KERNELS)
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            name = re.search(r"flash_bf16_kernelILi(\d+)ELb(\d)E", fn[1])
+            name = re.search(rf"\d({kernels})ILi(\d+)E(?:Li(\d)E)?Lb(\d)E",
+                             fn[1])
             cur = None
             if name:
                 cur = rows.setdefault(fn[1], {
-                    "head_dim": int(name[1]), "softcap": name[2] == "1",
-                    "HGMMA": 0, "UTMALDG": 0, "HMMA": 0})
+                    "kernel": name[1], "head_dim": int(name[2]),
+                    "softcap": name[4] == "1", "HGMMA": 0, "UTMALDG": 0,
+                    "HMMA": 0})
+                if name[3] is not None:     # the dK/dV kernel's DkdvPass
+                    cur["pass"] = ("dK and dV", "dV", "dK")[int(name[3])]
             continue
         if cur is not None:
             for op in ("HGMMA", "UTMALDG", "HMMA"):
                 if re.search(rf"\b{op}\b", line):
                     cur[op] += 1
-    return sorted(rows.values(), key=lambda r: (r["head_dim"],
+    return sorted(rows.values(), key=lambda r: (r["kernel"], r["head_dim"],
+                                                r.get("pass", ""),
                                                 r["softcap"]))
 
 
@@ -1418,6 +1433,14 @@ def phase_kernels(rng):
         o, lse, o32 = flash_attention.flash_attention_fwd(q, k, v, **mask)
         got = flash_attention.flash_attention_bwd(q, k, v, o32, lse, do,
                                                   **mask)
+        same = None
+        if shape in BWD_REPEAT_SHAPES:
+            # deterministic: a second call gives the same bits
+            again = flash_attention.flash_attention_bwd(q, k, v, o32, lse,
+                                                        do, **mask)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
         case = f"q {(b, t, h, d)} k/v {(b, s, kv, d)} {dtype} " \
                f"causal={causal} window={window}" \
                + (f" softcap={cap}" if cap else "")
@@ -1461,12 +1484,15 @@ def phase_kernels(rng):
         check(max(rel) <= FLASH_BWD_RTOL[dtype], f"flash_attention_bwd "
               f"kernel == plain at {case}: dq, dk, dv {rel} of their scale "
               f"> {FLASH_BWD_RTOL[dtype]}")
+        check(same is not False, f"flash_attention_bwd gives the same bits "
+              f"on a second call at {case}")
         flash_bwd_cases.append({"case": case, "out_max_abs_err": out_err,
                                 "lse_share": lse_err,
                                 "max_abs_err": abs_err,
                                 "share_of_scale": rel,
                                 "share_of_plain_in_dtype": rel_bf16,
-                                "tol_share": FLASH_BWD_RTOL[dtype]})
+                                "tol_share": FLASH_BWD_RTOL[dtype],
+                                "bit_equal_again": same})
         del q, k, v, do, o, o32, got, lse
     # the backward also takes O in q's dtype (the D kernel's other path)
     q, k, v = attn_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
@@ -3787,14 +3813,20 @@ def main() -> int:
     lib = _build.library()
     build_s = time.perf_counter() - t0
     sass = sass_flash(lib._name)
-    for d in SASS_FLASH_DIMS:
-        for cap in (False, True):
-            row = [r for r in sass
-                   if r["head_dim"] == d and r["softcap"] == cap]
-            check(len(row) == 1 and row[0]["HGMMA"] > 0
-                  and row[0]["UTMALDG"] > 0 and row[0]["HMMA"] == 0,
-                  f"the bf16 flash forward at D = {d} (softcap {cap}) runs "
-                  f"on wgmma fed by TMA, without mma.sync: {row}")
+    for kernel in SASS_FLASH_KERNELS:
+        for d in SASS_FLASH_DIMS:
+            passes = ([None] if kernel != "flash_bwd_dkdv_bf16_kernel"
+                      else ["dK and dV"] if d <= 128 else ["dV", "dK"])
+            for cap in (False, True):
+                for pas in passes:
+                    row = [r for r in sass
+                           if r["kernel"] == kernel and r["head_dim"] == d
+                           and r["softcap"] == cap and r.get("pass") == pas]
+                    check(len(row) == 1 and row[0]["HGMMA"] > 0
+                          and row[0]["UTMALDG"] > 0 and row[0]["HMMA"] == 0,
+                          f"{kernel} at D = {d} (softcap {cap}"
+                          + (f", pass {pas}" if pas else "") + ") runs on "
+                          f"wgmma fed by TMA, without mma.sync: {row}")
     emit("build", seconds=build_s, library_seconds=_build.build_seconds,
          ptxas_flash=ptxas_flash(_build.ptxas_log()), sass_flash=sass)
 
@@ -4558,7 +4590,7 @@ def main() -> int:
          "bound_by": scan["bound_by"], "library_ms": None,
          "shape": scan["shape"], "ms_by": scan["ms_by"]},
         {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_bwd.cuh",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "backward_of": "flash_attention (the JAX package differentiates "
                         "plain jnp; no Pallas backward)",

@@ -1,18 +1,52 @@
-"""The two training backward kernels and variants of them side by side on
-one CUDA card.
+"""The two training backward kernels, their variants and earlier sources
+side by side on one CUDA card.
 
-    python3 scripts/bwd_variants.py [--baseline OLD.cu ...]
-                                    [--baseline-bf16-o OLD.cu ...]
+    python3 scripts/bwd_variants.py [--only flash|scan]
+        [--shape NAME ... | --shape all] [--baseline OLD.cu ...]
+        [--baseline-bf16-o OLD.cu ...] [--phases] [--rounds N]
 
-Builds ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu`` and
-``selective_scan_bwd.cu`` as they are and variants made from them by exact
-text substitutions, each into its own library under
-``build/bwd_variants/`` (all ``nvcc`` processes started together, the
-shared ``device_helpers.cuh`` on the include path):
+The flash backward (``--only flash``, or both): builds it as it is
+(``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, the
+``flash_bwd_d<D>.cu`` files and the headers they include) into its own
+library under ``build/bwd_variants/``, one ``nvcc`` a translation unit,
+all started together, beside
 
-* ``flash``       as built: P and dS as two bf16 terms each;
-* ``flash_1term`` P and dS as one bf16 term (the lo products dropped):
-  faster, but past the 2^-8 tolerance (reported, not gated);
+* ``flash_1term`` P and dS as one bf16 term (the lo products dropped from
+  ``flash_bwd.cuh``): what the second term costs; past the 2^-8 tolerance
+  (reported, not gated);
+
+and, with ``--baseline`` (repeatable), other single-file sources of the
+same entry point (earlier versions, such as ``git show
+9baf62b:src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, the
+``mma.sync`` design), each named by its file's stem, compiled beside the
+port's headers.  A flash source given by ``--baseline-bf16-o`` has the
+entry point of the sources before the float32 O (no ``o_f32``) and gets
+the bf16 output.  ``--shape`` (repeatable; default ``llama``; ``all`` for
+every one) picks ``PERF.md`` section 6's backward rows: ``llama`` (5b),
+``whisper_enc`` (5b'), ``whisper_cross`` (5b''), ``h2o`` (5b-h2o),
+``qwen`` (5b-qwen), ``g4`` (5b-g4), ``g4_local`` (5b-g4'), ``mixtral``
+(5b-mx), ``zamba2`` (5b-z), bf16 from the float32 O.  At each, every
+source but ``flash_1term`` is held to the plain version
+(``ref.attention_bwd``) on batch 0 and the first KV group (dq of its
+query heads, dk and dv of its KV head) within 2^-8 of each gradient's
+scale, and the source as built to itself bit for bit on a second call;
+then all are timed in turns (A B ... B A, ``--rounds`` rounds, default 3)
+by CUDA events around back-to-back launches (at least 3, about 100 ms of
+them), with SDPA's backward beside them (``torch.autograd.grad`` through
+``scaled_dot_product_attention``: causal with GQA, non-causal, or a
+boolean band mask over K/V expanded to the query heads for a window).
+``--phases`` also builds the source as it is with FLASH_BWD_PHASES defined
+and prints, at each shape and for each kernel (the dK/dV kernel, its dV
+and dK passes at D = 256, dQ), where a consumer warp's SM cycles go
+(``clock64``: ``BwdPhase`` in ``flash_bwd.cuh``) a tile, and from each
+CTA's ``%globaltimer`` stamps and SM the launch's makespan, the longest
+CTA's share of it, the mean CTA and the busiest SM's summed CTA time
+against the mean SM's.
+
+The scan backward (``--only scan``, or both): builds
+``selective_scan_bwd.cu`` as it is and variants made from it by exact text
+substitutions:
+
 * ``scan``        as built: 2 channels a lane, 128 channels a CTA,
   checkpoints every 16 steps, 8-step parts (2.5 exponentials per
   (b, t, d, n));
@@ -22,23 +56,17 @@ shared ``device_helpers.cuh`` on the include path):
   at most 128 registers (16 warps an SM, from 8);
 * ``scan_k1_c64`` 1 channel a lane, 64 channels a CTA, 2 CTAs an SM;
 
-and, with ``--baseline`` (repeatable), other sources of either entry
-point (earlier versions, such as ``git show
-<commit>:src/repro_torch/kernels/csrc/selective_scan_bwd.cu``), each named
-by its file's stem; a scan baseline's channels and checkpoint interval are
-read from its constants.  A flash source given by ``--baseline`` has the
-entry point of ``flash_attention_bwd.cu`` as it is (O in q's dtype or in
-float32, and the ``o_f32`` flag) and gets the forward's float32 output;
-one given by ``--baseline-bf16-o`` has the entry point of the sources
-before the float32 O (no ``o_f32``) and gets the bf16 output.  Each is
-held to the plain version (``ref.attention_bwd`` fed the same O,
-``ref.selective_scan_bwd``) at ``chip_smoke.py``'s
-train shapes and tolerances, and to itself bit for bit on a second call,
-then timed in turns (A B ... B A, three rounds): the kernels' device time
-from the profiler around 10 back-to-back calls.  The as-built kernels'
-time is also split by CUDA kernel.  Prints one JSON line per round and,
-before the last line, the card's name and power limit; the last line
-holds the medians.  Needs one card and ``nvcc``; exits 1 without a card.
+and ``--baseline`` sources of its entry point (channels and checkpoint
+interval read from their constants), each held to
+``ref.selective_scan_bwd`` at ``chip_smoke.py``'s train shape and to
+itself bit for bit, then timed in turns by the profiler (10 calls, three
+rounds).
+
+Prints one JSON line per check, shape and round and, before the last
+line, the card's name and power limit; the last line holds the medians
+(and, for flash, the bound from ``bwd_work`` at 3.35 TB/s and 989 TFLOP/s,
+its share of each source's time and each source's ratio to the
+baselines').  Needs one card and ``nvcc``; exits 1 without a card.
 """
 from __future__ import annotations
 
@@ -47,6 +75,7 @@ import ctypes
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,8 +90,27 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "bwd_variants"
 ITERS, ROUNDS = 10, 3
+TARGET_MS = 100.0                # launches timed back to back, about
+BYTES_PER_S, FLOPS_PER_S = 3.35e12, 989e12
 FLASH_ENTRY = "flash_attention_bwd_launch"
 SCAN_ENTRY = "selective_scan_bwd_launch"
+FLASH_TUS = ("flash_attention_bwd.cu", *(f"flash_bwd_d{d}.cu"
+                                         for d in (16, 32, 64, 80, 128, 256)))
+# name: (b, t, s, h, kv, d, causal, window), PERF.md section 6's rows
+SHAPES = {
+    "llama": (4, 512, 512, 32, 8, 64, True, None),
+    "whisper_enc": (4, 1500, 1500, 16, 16, 64, False, None),
+    "whisper_cross": (4, 448, 1500, 16, 16, 64, False, None),
+    "h2o": (1, 8192, 8192, 32, 8, 80, True, 4096),
+    "qwen": (4, 512, 512, 64, 8, 128, True, None),
+    "g4": (1, 4096, 4096, 8, 4, 256, True, None),
+    "g4_local": (1, 4096, 4096, 8, 4, 256, True, 1024),
+    "mixtral": (1, 8192, 8192, 48, 8, 128, True, 4096),
+    "zamba2": (1, 4096, 4096, 32, 32, 80, True, None),
+}
+PHASES = ("loop", "wait", "scores", "softmax", "grads", "epilogue")
+KERNEL_SLOTS = ("dkdv", "dkdv_dv_pass", "dkdv_dk_pass", "dq")
+MAX_CTAS = 1 << 14               # kBwdMaxCtas in flash_bwd.cuh
 
 
 def sub(src: str, old: str, new: str) -> str:
@@ -71,26 +119,43 @@ def sub(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def variants() -> dict[str, tuple[str, str]]:
-    """name -> (entry point, source)."""
-    flash = (CSRC / "flash_attention_bwd.cu").read_text()
+def flash_sources(phases: bool) -> dict[str, dict[str, str]]:
+    """name -> {file: text} of the flash backward as built, its one-term
+    variant and (``phases``) its FLASH_BWD_PHASES build."""
+    header = (CSRC / "flash_bwd.cuh").read_text()
+    tus = {f: (CSRC / f).read_text() for f in FLASH_TUS}
+    out = {
+        "flash": {**tus, "flash_bwd.cuh": header},
+        "flash_1term": {**tus, "flash_bwd.cuh": sub(
+            header, "    issue_pv_step<D, N>(acc, lo[kc], b_tile, kc);\n",
+            "")},
+    }
+    if phases:
+        accessor = ('\nextern "C" int flash_bwd_phases_d{d}(unsigned long '
+                    'long* sums, unsigned long long* stamps) {{\n  return '
+                    'bwd_phases_take(sums, stamps);\n}}\n')
+        out["phases"] = {
+            **{f: text + (accessor.format(d=f[11:-3])
+                          if f.startswith("flash_bwd_d") else "")
+               for f, text in tus.items()},
+            "flash_bwd.cuh": "#define FLASH_BWD_PHASES\n" + header}
+    return out
+
+
+def scan_sources() -> dict[str, str]:
     scan = (CSRC / "selective_scan_bwd.cu").read_text()
     k1 = sub(scan, "constexpr int kPerThread = 2;",
              "constexpr int kPerThread = 1;")
     return {
-        "flash": (FLASH_ENTRY, flash),
-        "flash_1term": (FLASH_ENTRY, sub(
-            flash, "      mma_bf16(acc[2 * np], lo, b[0], b[1]);\n"
-            "      mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);\n", "")),
-        "scan": (SCAN_ENTRY, scan),
-        "scan_steps8": (SCAN_ENTRY, sub(scan, "constexpr int kSteps = 16;",
-                                        "constexpr int kSteps = 8;")),
-        "scan_k1": (SCAN_ENTRY, k1),
-        "scan_k1_c64": (SCAN_ENTRY, sub(sub(
+        "scan": scan,
+        "scan_steps8": sub(scan, "constexpr int kSteps = 16;",
+                           "constexpr int kSteps = 8;"),
+        "scan_k1": k1,
+        "scan_k1_c64": sub(sub(
             k1, "constexpr int kChannels = 128;",
             "constexpr int kChannels = 64;"),
             "__launch_bounds__(threads_for_lanes(L), 4 / L)",
-            "__launch_bounds__(threads_for_lanes(L), 8 / L)")),
+            "__launch_bounds__(threads_for_lanes(L), 8 / L)"),
     }
 
 
@@ -108,96 +173,311 @@ def has_softcap(src: str) -> bool:
     return entry is not None and "float softcap" in entry[1]
 
 
-def build(sources: dict[str, tuple[str, str]], bf16_o: set[str]) -> dict:
-    """One library a variant, built with the port's nvcc flags; the flash
-    sources named in ``bf16_o`` have the entry point without ``o_f32``."""
+def build(sources: dict[str, dict[str, str]]) -> tuple[dict, dict]:
+    """One library a source (files -> text, compiled beside the port's
+    headers), built with the port's nvcc flags, every translation unit's
+    nvcc started together -> (libraries, ptxas output a source)."""
     from repro_torch.kernels import _build
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (_, text) in sources.items():
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC),
-             "-Xptxas", "-v", "-shared", "-o", str(OUT / f"lib{name}.so"),
-             str(cu), str(CSRC / "errors.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns, regs = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
+    procs = []
+    for name, files in sources.items():
+        where = OUT / name
+        shutil.rmtree(where, ignore_errors=True)
+        where.mkdir(parents=True)
+        for fname, text in files.items():
+            (where / fname).write_text(text)
+        for fname in [*files, "errors.cu"]:
+            if not fname.endswith(".cu"):
+                continue
+            src = where / fname if fname in files else CSRC / fname
+            obj = where / (Path(fname).stem + ".o")
+            procs.append((name, obj, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(where), "-I",
+                 str(CSRC), "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = {}
+    for name, obj, proc in procs:
+        out, _ = proc.communicate()
+        logs[name] = logs.get(name, "") + out
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        # the most registers any kernel of the library takes (ptxas)
-        regs[name] = max(map(int, re.findall(r"Used (\d+) registers", log)))
-        entry = sources[name][0]
-        fn = getattr(ctypes.CDLL(str(OUT / f"lib{name}.so")), entry)
-        n_int = 9 if name in bf16_o else 10
-        # sources since the softcap take it after the scale
-        n_float = 2 if has_softcap(sources[name][1]) else 1
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * n_float + [ctypes.c_void_p]
-                       if entry == FLASH_ENTRY else
-                       [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns, regs
+            raise RuntimeError(f"nvcc failed for {name} ({obj.name}):\n{out}")
+    libs = {}
+    for name in sources:
+        objs = sorted(str(p) for p in (OUT / name).glob("*.o"))
+        lib = OUT / name / f"lib{name}.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(lib), *objs], check=True, capture_output=True)
+        (OUT / name / "ptxas.log").write_text(logs[name])
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs, logs
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("bwd_variants: no CUDA device", file=sys.stderr)
-        return 1
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--baseline", action="append", default=[])
-    ap.add_argument("--baseline-bf16-o", action="append", default=[])
-    args = ap.parse_args()
-    import chip_smoke as cs
+class FlashSource:
+    """A built library's backward entry, called as the wrapper calls it."""
+
+    def __init__(self, lib, softcap: bool, f32_o: bool):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.fn = getattr(lib, FLASH_ENTRY)
+        self.fn.argtypes = ([p] * 10 + [i] * (10 if f32_o else 9)
+                            + [f] * (2 if softcap else 1) + [p])
+        self.fn.restype = i
+        self.softcap, self.f32_o = softcap, f32_o
+
+    def __call__(self, q, k, v, o, o32, lse, do, out, causal, window):
+        b, t, h, d = q.shape
+        s, kv = k.shape[1], k.shape[2]
+        ints = [b, t, s, h, kv, d, int(causal),
+                -1 if window is None else window, 1]
+        if self.f32_o:
+            ints.append(1)
+        code = self.fn(*(x.data_ptr() for x in (
+            q, k, v, o32 if self.f32_o else o, lse, do, *out)), *ints,
+            1.0 / math.sqrt(d), *((0.0,) if self.softcap else ()),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"launch failed ({code})")
+        return out[:3]
+
+
+def events_ms(fn, iters) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def flash_inputs(b, t, s, h, kv, d, causal, window):
+    """q, k, v, dO in bf16 from a seed; the forward's O (bf16 and float32)
+    and lse from the plain version, a KV group at a time."""
     from repro_torch.kernels import ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    sources = variants()
-    geometry = {n: scan_geometry(src) for n, (e, src) in sources.items()
-                if e == SCAN_ENTRY}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d),
+                                 (b, t, h, d)))
+    o32 = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    lse = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+    rep = h // kv
+    for gi in range(kv):
+        hs = slice(gi * rep, gi * rep + rep)
+        _, lse[:, hs], o32[:, :, hs] = ref.attention_lse(
+            q[:, :, hs].contiguous(), k[:, :, gi:gi + 1].contiguous(),
+            v[:, :, gi:gi + 1].contiguous(), causal=causal, window=window)
+    return q, k, v, do, o32.to(torch.bfloat16), o32, lse
+
+
+def flash_check(name, src, ins, out, causal, window, tol) -> dict:
+    """The source against ``ref.attention_bwd`` on batch 0 and the first
+    KV group: each gradient's max error as a share of its scale."""
+    from repro_torch.kernels import ref
+
+    q, k, v, do, o, o32, lse = ins
+    got = [x.clone() for x in src(q, k, v, o, o32, lse, do, out, causal,
+                                  window)]
+    rep = q.shape[2] // k.shape[2]
+    part = (slice(0, 1), slice(0, rep))
+    qp, dop, o32p = (x[part[0], :, part[1]].contiguous()
+                     for x in (q, do, o32 if src.f32_o else o))
+    kp, vp = (x[0:1, :, 0:1].contiguous() for x in (k, v))
+    want = ref.attention_bwd(qp.float(), kp.float(), vp.float(), o32p,
+                             lse[0:1, part[1]].contiguous(), dop.float(),
+                             causal=causal, window=window)
+    mine = [got[0][0:1, :, part[1]], got[1][0:1, :, 0:1],
+            got[2][0:1, :, 0:1]]
+    shares = [float((m.double() - w.double()).abs().max()
+                    / max(float(w.abs().max()), 1e-30))
+              for m, w in zip(mine, want)]
+    same = None
+    if name == "flash":
+        again = src(q, k, v, o, o32, lse, do, out, causal, window)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = max(shares) <= tol and same is not False
+    if name != "flash_1term" and not ok:
+        raise RuntimeError(f"{name}: shares {shares} > {tol} or second call "
+                           f"differs ({same})")
+    return {"share_of_scale": shares, "bit_equal_again": same}
+
+
+def phase_table(lib, src, ins, out, causal, window, d) -> dict:
+    """One launch of the FLASH_BWD_PHASES build: per kernel, a consumer
+    warp's cycles a tile in each phase (the epilogue's a warp), and the
+    CTAs' makespan, longest CTA, mean CTA and SM loads (ms)."""
+    take = getattr(lib, f"flash_bwd_phases_d{d}")
+    take.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    take.restype = ctypes.c_int
+    n_ph = len(PHASES) + 1
+    sums = (ctypes.c_ulonglong * (len(KERNEL_SLOTS) * n_ph))()
+    stamps = (ctypes.c_ulonglong * (len(KERNEL_SLOTS) * MAX_CTAS * 3))()
+    q, k, v, do, o, o32, lse = ins
+    src(q, k, v, o, o32, lse, do, out, causal, window)   # warm-up
+    torch.cuda.synchronize()
+    take(sums, stamps)
+    src(q, k, v, o, o32, lse, do, out, causal, window)
+    torch.cuda.synchronize()
+    if take(sums, stamps):
+        raise RuntimeError("flash_bwd_phases: copy failed")
+    table = {}
+    for slot, kernel in enumerate(KERNEL_SLOTS):
+        row = sums[slot * n_ph:(slot + 1) * n_ph]
+        base = slot * MAX_CTAS * 3
+        ctas = [(stamps[base + 3 * i], stamps[base + 3 * i + 1],
+                 stamps[base + 3 * i + 2]) for i in range(MAX_CTAS)
+                if stamps[base + 3 * i]]
+        if not ctas:
+            continue
+        tiles = row[len(PHASES)]
+        warps = 8 * len(ctas)
+        per = {p: row[i] / max(tiles, 1) for i, p in enumerate(PHASES)}
+        per["epilogue"] = row[PHASES.index("epilogue")] / warps
+        per["tiles_a_warp"] = tiles / warps
+        t0 = min(c[0] for c in ctas)
+        span = max(c[1] for c in ctas) - t0
+        durs = [c[1] - c[0] for c in ctas]
+        by_sm: dict[int, int] = {}
+        for (a, z, sm), dur in zip(ctas, durs):
+            by_sm[sm] = by_sm.get(sm, 0) + dur
+        table[kernel] = {
+            "cycles_a_warp_tile": per, "ctas": len(ctas),
+            "makespan_ms": span / 1e6,
+            "longest_cta_ms": max(durs) / 1e6,
+            "longest_cta_share": max(durs) / span,
+            "mean_cta_ms": statistics.mean(durs) / 1e6,
+            "busiest_sm_ms": max(by_sm.values()) / 1e6,
+            "mean_sm_ms": statistics.mean(by_sm.values()) / 1e6,
+            "sms": len(by_sm),
+            "ctas_truncated": len(ctas) >= MAX_CTAS}
+    return table
+
+
+def sdpa_backward(q, k, v, do, causal, window):
+    """A call of SDPA's backward on the same inputs (its forward run
+    once)."""
+    from repro_torch.kernels import ref
+
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    if window is None:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        kw = dict(is_causal=causal, enable_gqa=kv != h)
+    else:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k.repeat_interleave(h // kv, dim=2),
+                                v.repeat_interleave(h // kv, dim=2)))
+        kw = dict(attn_mask=ref._band(t, s, causal, window, "cuda"))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **kw)
+    do_t = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do_t,
+                                       retain_graph=True)
+
+
+def run_flash(args) -> dict:
+    from repro_torch.kernels import flash_attention
+
+    shapes = args.shape or ["llama"]
+    if shapes == ["all"]:
+        shapes = list(SHAPES)
+    unknown = [n for n in shapes if n not in SHAPES]
+    if unknown:
+        raise SystemExit(f"unknown shapes {unknown}; known: {list(SHAPES)}")
+    files = flash_sources(args.phases)
+    kinds = {name: (True, True) for name in files}
     bf16_o = {Path(p).stem for p in args.baseline_bf16_o}
     for path in map(Path, args.baseline + args.baseline_bf16_o):
         text = path.read_text()
-        entry = FLASH_ENTRY if FLASH_ENTRY in text else SCAN_ENTRY
-        if path.stem in bf16_o and entry != FLASH_ENTRY:
-            raise ValueError(f"--baseline-bf16-o {path}: not a flash source")
-        sources[path.stem] = (entry, text)
-        if entry == SCAN_ENTRY:
-            geometry[path.stem] = scan_geometry(text)
-    fns, regs = build(sources, bf16_o)
+        if FLASH_ENTRY not in text:
+            continue
+        files[path.stem] = {"flash_attention_bwd.cu": text}
+        kinds[path.stem] = (has_softcap(text), path.stem not in bf16_o)
+    libs, logs = build(files)
+    srcs = {name: FlashSource(libs[name], *kinds[name]) for name in files}
+    timed = [n for n in srcs if n != "phases"]
+    baselines = [n for n in timed if n not in ("flash", "flash_1term")]
+    result = {}
+    for shape in shapes:
+        b, t, s, h, kv, d, causal, window = SHAPES[shape]
+        ins = flash_inputs(b, t, s, h, kv, d, causal, window)
+        q, k, v, do = ins[:4]
+        out = [torch.empty_like(x) for x in (q, k, v)] + [
+            torch.empty((b, h, t), dtype=torch.float32, device="cuda")]
+        checks = {n: flash_check(n, srcs[n], ins, out, causal, window,
+                                 2 ** -8) for n in timed}
+        print(json.dumps({"shape": shape, "checks": checks}), flush=True)
+        if args.phases:
+            table = phase_table(libs["phases"], srcs["phases"], ins, out,
+                                causal, window, d)
+            print(json.dumps({"shape": shape, "phases": table}), flush=True)
+            result.setdefault("phases", {})[shape] = table
+        runs = {n: (lambda n=n: srcs[n](*ins[:3], ins[4], ins[5], ins[6],
+                                        ins[3], out, causal, window))
+                for n in timed}
+        runs["sdpa_bwd"] = sdpa_backward(q, k, v, do, causal, window)
+        iters = {n: max(3, min(200, round(TARGET_MS / events_ms(fn, 1))))
+                 for n, fn in runs.items()}
+        order = timed + timed[::-1] + ["sdpa_bwd"]
+        times = {n: [] for n in runs}
+        for rnd in range(args.rounds):
+            row = []
+            for n in order:
+                ms = events_ms(runs[n], iters[n])
+                times[n].append(ms)
+                row.append([n, ms])
+            print(json.dumps({"shape": shape, "round": rnd, "ms": row}),
+                  flush=True)
+        n_bytes, flops = flash_attention.bwd_work(q, k, causal, window)
+        bound = max(n_bytes / BYTES_PER_S, flops / FLOPS_PER_S) * 1e3
+        med = {n: statistics.median(x) for n, x in times.items()}
+        result[shape] = {
+            "median_ms": med, "bound_ms": bound,
+            "share_of_bound": {n: bound / med[n] for n in timed},
+            "speedup_over": {base: med[base] / med["flash"]
+                             for base in baselines},
+            "iters": iters}
+        del ins, q, k, v, do, out, runs
+        torch.cuda.empty_cache()
+    regs = {n: [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+            for n, log in logs.items()}
+    result["ptxas_wgmma_serialized"] = {
+        n: re.findall(r"C7512\).*?for the function '(\S+)'", log)
+        for n, log in logs.items()}
+    result["max_registers"] = {n: max(r) for n, r in regs.items() if r}
+    return result
+
+
+def run_scan(args) -> dict:
+    import chip_smoke as cs
+    from repro_torch.kernels import ref
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    texts = scan_sources()
+    for path in map(Path, args.baseline):
+        text = path.read_text()
+        if SCAN_ENTRY in text:
+            texts[path.stem] = text
+    geometry = {n: scan_geometry(src) for n, src in texts.items()}
+    libs, _ = build({n: {f"{n}.cu": text} for n, text in texts.items()})
+    fns = {}
+    for name, lib in libs.items():
+        fn = getattr(lib, SCAN_ENTRY)
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
     stream = torch.cuda.current_stream().cuda_stream
-
-    q, k, v = cs.attn_inputs(cs.TRAIN_BATCH, cs.TRAIN_SEQ, cs.TRAIN_SEQ, 32,
-                             8, 64, torch.bfloat16)
-    do = cs.upstream_grad(q)
-    o, lse, o32 = ref.attention_lse(q, k, v)
-    b, t, h, d = q.shape
-    fl_out = [torch.empty_like(x) for x in (q, k, v)] + [
-        torch.empty((b, h, t), dtype=torch.float32, device="cuda")]
-
-    def flash(name):
-        f32_o = name not in bf16_o
-        code = fns[name](*(x.data_ptr() for x in (q, k, v,
-                                                   o32 if f32_o else o, lse,
-                                                   do, *fl_out)),
-                         b, t, t, h, 8, d, 1, -1, 1, *((1,) if f32_o else ()),
-                         1.0 / math.sqrt(d),
-                         *((0.0,) if has_softcap(sources[name][1]) else ()),
-                         stream)
-        if code:
-            raise RuntimeError(f"{name}: launch failed ({code})")
-        return [x.clone() for x in fl_out[:3]]
-
     ins = cs.scan_inputs(cs.TRAIN_BATCH, cs.TRAIN_SEQ, 8192, 16)
     dy = cs.upstream_grad(ins[0])
     bs, ts, ds = ins[0].shape
     f32 = dict(dtype=torch.float32, device="cuda")
-    sc_out = [torch.empty_like(x) for x in (*ins[:4], ins[4])]
+    out = [torch.empty_like(x) for x in (*ins[:4], ins[4])]
     scratch = {}
 
     def scan(name):
@@ -209,66 +489,74 @@ def main() -> int:
                              torch.empty((bs, n_cb, ts, 16), **f32),
                              torch.empty((bs, ds, 16), **f32)]
         code = fns[name](*(x.data_ptr() for x in (*ins, dy)), None,
-                         *(x.data_ptr() for x in (*sc_out, *scratch[name])),
+                         *(x.data_ptr() for x in (*out, *scratch[name])),
                          bs, ts, ds, 16, stream)
         if code:
             raise RuntimeError(f"{name}: launch failed ({code})")
-        return [x.clone() for x in sc_out]
+        return [x.clone() for x in out]
 
-    want = {FLASH_ENTRY: ref.attention_bwd(q, k, v, o32, lse, do),
-            "flash_bf16_o": ref.attention_bwd(q, k, v, o, lse, do),
-            SCAN_ENTRY: ref.selective_scan_bwd(*ins, dy)}
-    tol = {FLASH_ENTRY: cs.FLASH_BWD_RTOL[torch.bfloat16],
-           SCAN_ENTRY: cs.SCAN_BWD_RTOL}
-    run = {n: (lambda n=n: flash(n)) if e == FLASH_ENTRY
-           else (lambda n=n: scan(n)) for n, (e, _) in sources.items()}
+    want = ref.selective_scan_bwd(*ins, dy)
     checks = {}
-    for name, (entry, _) in sources.items():
-        got, again = run[name](), run[name]()
+    for name in texts:
+        got, again = scan(name), scan(name)
         torch.cuda.synchronize()
-        ref_of = "flash_bf16_o" if name in bf16_o else entry
         share = max(cs.max_abs_err([g], [w]) / float(w.float().abs().max())
-                    for g, w in zip(got, want[ref_of]))
+                    for g, w in zip(got, want))
         same = all(torch.equal(x, y) for x, y in zip(got, again))
-        checks[name] = {"share_of_scale": share, "tol": tol[entry],
-                        "deterministic": same, "registers": regs[name]}
-        if name != "flash_1term" and not (share <= tol[entry] and same):
+        checks[name] = {"share_of_scale": share, "tol": cs.SCAN_BWD_RTOL,
+                        "deterministic": same}
+        if not (share <= cs.SCAN_BWD_RTOL and same):
             raise RuntimeError(f"{name}: {checks[name]}")
-    print(json.dumps({"checks": checks}), flush=True)
-
-    # the as-built kernels' time by CUDA kernel
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    split = {}
-    for name, match in (("flash", "flash_bwd"), ("scan", "scan_bwd")):
-        run[name]()
+    print(json.dumps({"scan_checks": checks}), flush=True)
+    scan("scan")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(cs.PROFILER_SETTLE_S)
+        for _ in range(ITERS):
+            scan("scan")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(cs.PROFILER_SETTLE_S)
-            for _ in range(ITERS):
-                run[name]()
-            torch.cuda.synchronize()
-        split[name] = {e.key[:48]: cs.device_us(e) / ITERS / 1e3
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and match in e.key}
-    print(json.dumps({"ms_by_kernel": split}), flush=True)
-
-    order = list(sources) + list(sources)[::-1]
-    times: dict[str, list[float]] = {n: [] for n in sources}
+    split = {e.key[:48]: cs.device_us(e) / ITERS / 1e3
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "scan_bwd" in e.key}
+    print(json.dumps({"scan_ms_by_kernel": split}), flush=True)
+    order = list(texts) + list(texts)[::-1]
+    times: dict[str, list[float]] = {n: [] for n in texts}
     for rnd in range(ROUNDS):
         row = {}
         for name in order:
-            match = "flash_bwd" if sources[name][0] == FLASH_ENTRY \
-                else "scan_bwd"
-            ms, clock = cs.device_ms(run[name], ITERS, match)
+            ms, clock = cs.device_ms(lambda n=name: scan(n), ITERS,
+                                     "scan_bwd")
             times[name].append(ms)
             row[name] = [ms, clock]
-        print(json.dumps({"round": rnd, "ms": row}), flush=True)
-    print(cs.nvidia_smi(), flush=True)
-    print(json.dumps({"median_ms": {n: statistics.median(x)
-                                    for n, x in times.items()}}), flush=True)
+        print(json.dumps({"scan_round": rnd, "ms": row}), flush=True)
+    return {"median_ms": {n: statistics.median(x) for n, x in times.items()}}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("bwd_variants: no CUDA device", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("flash", "scan"))
+    ap.add_argument("--shape", action="append", default=[])
+    ap.add_argument("--baseline", action="append", default=[])
+    ap.add_argument("--baseline-bf16-o", action="append", default=[])
+    ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--rounds", type=int, default=ROUNDS)
+    args = ap.parse_args()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+    if args.only != "scan":
+        result["flash"] = run_flash(args)
+    if args.only != "flash":
+        result["scan"] = run_scan(args)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(json.dumps(result), flush=True)
     return 0
 
 

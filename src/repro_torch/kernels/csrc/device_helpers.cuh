@@ -1,8 +1,7 @@
-// Device helpers shared by the tensor-core flash kernels
-// (flash_attention.cu, flash_attention_bwd.cu) and the scan backward
-// (selective_scan_bwd.cu): asynchronous copies into shared memory,
-// `ldmatrix`, `mma.sync.m16n8k16` bf16 -> float32, 2^x on the
-// special-function unit, sums across lanes, and a kernel's shared-memory
+// Device helpers shared by the flash kernels (flash_fwd.cuh,
+// flash_bwd.cuh) and the scans (selective_scan.cu, selective_scan_bwd.cu):
+// asynchronous copies into shared memory, 2^x on the special-function
+// unit, sums across lanes, bf16 packing, and a kernel's shared-memory
 // stage, static up to 48 KB and dynamic past it.
 #pragma once
 
@@ -87,30 +86,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x on the special-function unit (about 2 ulp; 0 for -inf and for

@@ -1,0 +1,8 @@
+// The flash backward at head dim 64 (flash_bwd.cuh; see
+// flash_attention_bwd.cu).
+#include "flash_bwd.cuh"
+
+template <>
+int flash_bwd_launch<64>(const BwdArgs& a) {
+  return bwd_launch<64>(a);
+}

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) device helpers of the bf16 flash forward
-// (flash_fwd.cuh): mbarriers, TMA tensor loads, warpgroup matrix
-// multiplies (`wgmma`) with their shared-memory descriptors, register
-// reallocation between warpgroups (`setmaxnreg`) and named barriers.
+// Hopper (sm_90a) device helpers of the bf16 flash forward and backward
+// (flash_fwd.cuh, flash_bwd.cuh): mbarriers, TMA tensor loads, warpgroup
+// matrix multiplies (`wgmma`) with their shared-memory descriptors,
+// register reallocation between warpgroups (`setmaxnreg`) and named
+// barriers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,6 +61,14 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   while (!mbar_try_wait(bar, parity)) {
   }
+}
+
+// An arrival on `bar` once this thread's earlier cp.async copies have
+// landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // --- TMA ------------------------------------------------------------------
@@ -178,6 +187,23 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  // d (64 x 32) = (scale_d ? d : 0) + A B, A and B K-major in shared
+  // memory (the backward's 32-row steps at D = 256)
+  static __device__ __forceinline__ void ss(float (&d)[4][4],
+                                            uint64_t a, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        "%14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
   // d[OFF, OFF + 4) (64 x 32) += A B, A (P) from registers and B
   // MN-major in shared memory
   template <int OFF, int NT>

@@ -26,20 +26,23 @@ output before its rounding (``flash_attention_lse_launch``; plain version
 ``ref.attention_lse``), and ``flash_attention_bwd`` is the backward
 (``csrc/flash_attention_bwd.cu``: a dot kernel for D = rowsum(dO * O), a
 dK/dV kernel and a dQ kernel, deterministic, no atomics; plain version
-``ref.attention_bwd``).  The backward reads O in q's dtype or in float32;
-the training path hands it the float32 O, since D from the bfloat16 O
-moves dQ and dK past the 2^-8 tolerance.  bfloat16 runs on the tensor
-cores (``mma.sync``):
-the dK/dV kernel holds a 64-key tile's K and V in registers and walks the
-group's q heads and the band's 64-row q tiles (S^T, P^T, dV += P^T dO,
-dP^T, dS^T, dK += dS^T Q), the dQ kernel holds a 64-row tile's Q and dO
-and walks the band's 64-key tiles (S, dP, dS, dQ += dS K); P and dS are
-rounded to bfloat16 before their products, the scale applied in float32
-at the store.  At head dim 256 the dK/dV kernel runs as two launches, a
-dV pass and a dK pass (each accumulator alone fills a thread's
-registers), and the forward reads q from shared memory at each k-step;
-a softcap is recomputed in the backward, dS taking its derivative.
-float32 runs on the CUDA cores in full float32.  The forward counts as a
+``ref.attention_bwd``; the kernels in ``csrc/flash_bwd.cuh``, built a
+head dim a file).  The backward reads O in q's dtype or in float32; the
+training path hands it the float32 O, since D from the bfloat16 O moves
+dQ and dK past the 2^-8 tolerance.  bfloat16 runs on the tensor cores as
+the forward does (``wgmma`` fed by TMA loads, warp-specialised): the
+dK/dV kernel loads a 64-key tile's K and V once and its two consumer
+warpgroups take every other tile of the walk over the group's q heads
+and the band's q tiles (S^T, P^T, dV += P^T dO, dP^T, dS^T, dK += dS^T
+Q), adding their partial sums in a fixed order at the end; the dQ kernel
+loads a 128-row tile's Q and dO once and walks the band's key tiles (S,
+dP, dS, dQ += dS K).  P and dS enter their products as two bfloat16 terms
+each (hi and the rest), the scale applied in float32 at the store.  At
+head dim 256 the dK/dV kernel runs as two launches, a dV pass and a dK
+pass (each accumulator alone fills a thread's registers); a softcap is
+recomputed in the backward, dS taking its derivative.  No atomics: a
+second call gives the same bits.  float32 runs on the CUDA cores in full
+float32.  The forward counts as a
 ``flash_attention`` launch, the backward as one ``flash_attention_bwd``
 launch, each also under its ``launch_key`` in ``_build.SHAPE_LAUNCHES``.
 

@@ -1,25 +1,26 @@
 """Plain models of the arithmetic of the two training backward kernels of
 the PyTorch port, held against the JAX package on the CPU.
 
-``csrc/flash_attention_bwd.cu`` runs bfloat16 on the tensor cores: a dK/dV
-kernel over 64-key tiles that walks the group's q heads and the band's
-64-row q tiles (at D = 128 and 256 each staged tile in two halves of 32
-rows, ``kSubB``; at D = 256 as two launches, a dV pass and a dK pass, each
-accumulating one of the two with the same arithmetic), and a dQ kernel
-over 64-row q tiles that walks the band's 64-key tiles (at D = 256 each
-in two halves of 32 keys, ``kSubQ``), at head dims 16 to 256
-(h2o-danube's 80, qwen2-vl's 128, gemma3's 256), under windows shorter
-than T and under gemma3's softcap c (S capped at c tanh(s/c), dS times
-1 - tanh^2).  ``_flash_bwd_bf16_model`` repeats that in torch: products of
-bf16 values accumulated in float32, P = 2^(S scale log2(e) - lse log2(e)),
-P and dS ROUNDED TO TWO bf16 TERMS each before their products (hi =
-bf16(x), lo = bf16(x - hi), one product each), the scale applied to dK and
-dQ in float32 at the store.  It must stay within 2^-8 of each gradient's
-scale of ``ref.attention_bwd`` and of ``jax.vjp`` of the JAX package's
-plain attention on the same bf16 inputs (``FLASH_BWD_RTOL[bfloat16]`` in
-``chip_smoke.py``, which holds the kernel to ``ref.attention_bwd`` on the
-card).  One bf16 term alone does not: ``_bf16_terms(x, 1)`` puts dV or dQ
-past 2^-8 of its scale at these shapes.
+``csrc/flash_bwd.cuh`` runs bfloat16 on the tensor cores (``wgmma`` fed
+by TMA, warp-specialised): a dK/dV kernel over 64-key tiles whose two
+consumer warpgroups take every other q tile of the walk (the group's q
+heads, the band's tiles of 64 rows, 32 at D = 256; at D = 256 as two
+launches, a dV pass and a dK pass, each accumulating one of the two with
+the same arithmetic) and add their partial sums in a fixed order, and a
+dQ kernel over 128-row q tiles of two 64-row consumers that walk the
+band's key tiles, at head dims 16 to 256 (h2o-danube's 80, qwen2-vl's
+128, gemma3's 256), under windows shorter than T and under gemma3's
+softcap c (S capped at c tanh(s/c), dS times 1 - tanh^2).
+``tests/_torch_flash_bwd_model.py`` repeats that in torch: products of
+bf16 values accumulated in float32, P = 2^(S scale log2(e) - lse
+log2(e)), P and dS ROUNDED TO TWO bf16 TERMS each before their products
+(hi = bf16(x), lo = bf16(x - hi), one product each), the scale applied to
+dK and dQ in float32 at the store.  It must stay within 2^-8 of each
+gradient's scale of ``ref.attention_bwd`` and of ``jax.vjp`` of the JAX
+package's plain attention on the same bf16 inputs
+(``FLASH_BWD_RTOL[bfloat16]`` in ``chip_smoke.py``, which holds the
+kernel to ``ref.attention_bwd`` on the card).  One bf16 term alone does
+not: ``terms=1`` puts dV or dQ past 2^-8 of its scale at these shapes.
 
 ``csrc/selective_scan_bwd.cu`` splits each channel's N states over L lanes
 (two channels a lane, 128 channels a CTA), checkpoints h every 16 steps,
@@ -34,13 +35,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import math  # noqa: E402
 import re  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import _torch_flash_bwd_model as model  # noqa: E402
 from repro.configs.base import AttnCfg as JAttnCfg  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -49,29 +50,6 @@ from repro_torch.kernels import _build, ref, selective_scan  # noqa: E402
 FLASH_BWD_RTOL = 2 ** -8    # chip_smoke.py, bf16 gradients
 SCAN_BWD_RTOL = 1e-4        # chip_smoke.py, the scan's gradients
 LOG2E = 1.4426950408889634
-TILE = 64           # keys (dK/dV) or rows (dQ) a CTA owns, and the step
-FLASH_BWD_SRC = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-
-
-def _sub_rule(name, d):
-    """The kernel's ``constexpr int <name> = D <= L ? A : B;`` rule at head
-    dim ``d``, read from the source."""
-    lim, small, large = map(int, re.search(
-        rf"constexpr int {name} = D <= (\d+) \? (\d+) : (\d+);",
-        FLASH_BWD_SRC).groups())
-    return small if d <= lim else large
-
-
-def _sub_rows(d):
-    """The q rows a dK/dV warp's S^T and dP^T span at once at head dim
-    ``d`` (``kSubB``)."""
-    return _sub_rule("kSubB", d)
-
-
-def _sub_keys(d):
-    """The keys a dQ warp's S and dP span at once at head dim ``d``
-    (``kSubQ``)."""
-    return _sub_rule("kSubQ", d)
 
 
 def _share(got, want):
@@ -85,155 +63,7 @@ def _share(got, want):
 # flash attention's backward in bf16 on the tensor cores
 # ---------------------------------------------------------------------------
 
-
-def _keep(rows, keys, causal, window):
-    m = torch.ones((len(rows), len(keys)), dtype=torch.bool)
-    r, k = rows[:, None], keys[None, :]
-    if causal:
-        m &= k <= r
-    if window:
-        m &= k > r - window
-    return m
-
-
-def _row_empty(r, s, causal, window):
-    k_max = min(r, s - 1) if causal else s - 1
-    k_min = max(r - window + 1, 0) if window else 0
-    return k_max < k_min
-
-
-def _tile(x, start, n):
-    """Rows [start, start + n) of x (..., R, D), zero past its end."""
-    out = x.new_zeros(x.shape[:-2] + (n, x.shape[-1]))
-    part = x[..., start:start + n, :]
-    out[..., :part.shape[-2], :] = part
-    return out
-
-
-def _cut(x, start, n):
-    """Entries [start, start + n) of the last axis, zero past its end."""
-    out = x.new_zeros(x.shape[:-1] + (n,))
-    part = x[..., start:start + n]
-    out[..., :part.shape[-1]] = part
-    return out
-
-
-def _bf16_terms(x, terms=2):
-    """x as the kernel feeds it to the tensor cores: hi = bf16(x), then
-    (with two terms) lo = bf16(x - hi)."""
-    hi = x.bfloat16().float()
-    return [hi] if terms == 1 else [hi, (x - hi).bfloat16().float()]
-
-
-def _mma(acc, x, b, terms):
-    for part in _bf16_terms(x, terms):
-        acc += part @ b
-
-
-def _capped(st, scale, softcap):
-    """(base-2 exponent of the scores before lse, the cap's derivative):
-    s scale log2(e) and 1, or c log2(e) tanh(s scale / c) and 1 - tanh^2,
-    in float32 as the kernels compute them."""
-    f32 = torch.float32
-    if not softcap:
-        return st * (scale * torch.tensor(LOG2E, dtype=f32)), 1.0
-    th = torch.tanh(st * (scale / torch.tensor(softcap, dtype=f32)))
-    return (torch.tensor(softcap, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
-            * th, 1 - th * th)
-
-
-def _flash_bwd_bf16_model(q, k, v, o, lse, do, *, causal, window,
-                          terms=2, softcap=None):
-    """What ``flash_bwd_dkdv_bf16_kernel`` and ``flash_bwd_dq_bf16_kernel``
-    compute, in plain torch, tile by tile (the kernels' walks and masks)."""
-    b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
-    rep = h // kvh
-    f32 = torch.float32
-    qg = q.float().reshape(b, t, kvh, rep, d).permute(0, 2, 3, 1, 4)
-    dog = do.float().reshape(b, t, kvh, rep, d).permute(0, 2, 3, 1, 4)
-    kg, vg = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B,G,S,D)
-    # the dot kernel: D = rowsum(dO * O) in float32
-    dsum = (do.float() * o.float()).sum(-1).reshape(b, t, kvh, rep) \
-        .permute(0, 2, 3, 1)                                     # (B,G,R,T)
-    lg = lse.reshape(b, kvh, rep, t)
-    scale = torch.tensor(1.0 / math.sqrt(d), dtype=f32)
-    l2 = lg * torch.tensor(LOG2E, dtype=f32)
-    empty = lg <= -0.5e30
-
-    dk = torch.zeros((b, kvh, s, d))
-    dv = torch.zeros((b, kvh, s, d))
-    n_qt = -(-t // TILE)
-    sub = _sub_rows(d)
-    for k0 in range(0, s, TILE):
-        k_hi = min(k0 + TILE, s) - 1
-        keys = torch.arange(k0, k0 + TILE)
-        kt, vt = _tile(kg, k0, TILE), _tile(vg, k0, TILE)
-        dka = torch.zeros((b, kvh, TILE, d))
-        dva = torch.zeros((b, kvh, TILE, d))
-        for r in range(rep):
-            for qt in range(n_qt):
-                q0 = qt * TILE
-                q_hi = min(q0 + TILE, t) - 1
-                pairs = (not causal or k0 <= q_hi) and \
-                    (not window or k_hi > q0 - window)
-                if not (pairs or _row_empty(q_hi, s, causal, window)):
-                    continue
-                rows = torch.arange(q0, q0 + TILE)
-                qt_, dot = _tile(qg[:, :, r], q0, TILE), _tile(dog[:, :, r],
-                                                                q0, TILE)
-                lt = _cut(l2[:, :, r], q0, TILE)[:, :, None, :]
-                et = _cut(empty[:, :, r], q0, TILE)[:, :, None, :]
-                dt = _cut(dsum[:, :, r], q0, TILE)[:, :, None, :]
-                kept = (_keep(rows, keys, causal, window)
-                        & (rows < t)[:, None]).T
-                st = kt @ qt_.transpose(-1, -2)                 # (keys, rows)
-                x, dcap = _capped(st, scale, softcap)
-                p = torch.exp2(x - lt)
-                p = torch.where(kept, p, torch.where(et, 1.0 / s, 0.0))
-                dpt = vt @ dot.transpose(-1, -2)
-                ds = torch.where(et, 0.0, p * (dpt - dt) * dcap)
-                for r0 in range(0, TILE, sub):      # the kernel's sub-steps
-                    part = slice(r0, r0 + sub)
-                    _mma(dva, p[..., part], dot[..., part, :], terms)
-                    _mma(dka, ds[..., part], qt_[..., part, :], terms)
-        n = min(TILE, s - k0)
-        dk[:, :, k0:k0 + n] = (dka * scale)[:, :, :n]
-        dv[:, :, k0:k0 + n] = dva[:, :, :n]
-
-    dq = torch.zeros((b, kvh, rep, t, d))
-    for q0 in range(0, t, TILE):
-        q_hi = min(q0 + TILE, t) - 1
-        rows = torch.arange(q0, q0 + TILE)
-        k_begin, k_end = 0, s
-        if causal:
-            k_end = min(s, q_hi + 1)
-        if window:
-            k_begin = max(q0 - window + 1, 0) // TILE * TILE
-        qt_, dot = _tile(qg, q0, TILE), _tile(dog, q0, TILE)
-        lt = _cut(l2, q0, TILE)[..., None]
-        live = ~_cut(empty, q0, TILE)[..., None] & (rows < t)[:, None]
-        dt = _cut(dsum, q0, TILE)[..., None]
-        dqa = torch.zeros((b, kvh, rep, TILE, d))
-        sub = _sub_keys(d)
-        for kb in range(k_begin, k_end, TILE):
-            keys = torch.arange(kb, kb + TILE)
-            kt = _tile(kg, kb, TILE)[:, :, None]
-            vt = _tile(vg, kb, TILE)[:, :, None]
-            sc = qt_ @ kt.transpose(-1, -2)                     # (rows, keys)
-            dp = dot @ vt.transpose(-1, -2)
-            kept = live & _keep(rows, keys, causal, window) & (keys < s)
-            x, dcap = _capped(sc, scale, softcap)
-            ds = torch.where(kept, torch.exp2(x - lt) * (dp - dt) * dcap,
-                             0.0)
-            for k0_ in range(0, TILE, sub):         # the kernel's sub-steps
-                part = slice(k0_, k0_ + sub)
-                _mma(dqa, ds[..., part], kt[..., part, :], terms)
-        n = min(TILE, t - q0)
-        dq[:, :, :, q0:q0 + n] = (dqa * scale)[:, :, :, :n]
-    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
-    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
-            dv.permute(0, 2, 1, 3).to(v.dtype))
+_flash_bwd_bf16_model = model.flash_bwd_bf16_model
 
 
 @pytest.mark.parametrize("t,s,h,kv,d,causal,window,softcap", [
@@ -313,25 +143,25 @@ def test_flash_bwd_bf16_design_is_inside_the_bf16_tolerance(
     (200, 50, True, 16), (70, 130, False, None), (257, 129, True, 1),
     (1024, 1024, True, 512), (1000, 1000, True, 300)])
 def test_dkdv_walk_covers_every_kept_pair(t, s, causal, window):
-    """The dK/dV kernel's walk (``visit``) reaches exactly the q tiles that
-    hold a kept pair of its key tile or a row with no key in its band, so
-    under a window shorter than T it skips the tiles outside the band
-    (h2o-danube trains on T = 2 windows)."""
+    """The dK/dV kernel's walk (``dkdv_visit``, 64-key tiles, q tiles of 64
+    rows or 32 at D = 256) reaches exactly the q tiles that hold a kept
+    pair of its key tile or a row with no key in its band, so under a
+    window shorter than T it skips the tiles outside the band (h2o-danube
+    trains on T = 2 windows)."""
     band = ref._band(t, s, causal, window, "cpu").numpy()
-    skipped = 0
-    for k0 in range(0, s, TILE):
-        k_hi = min(k0 + TILE, s) - 1
-        for q0 in range(0, t, TILE):
-            q_hi = min(q0 + TILE, t) - 1
-            pairs = (not causal or k0 <= q_hi) and \
-                (not window or k_hi > q0 - window)
-            visit = pairs or _row_empty(q_hi, s, causal, window)
-            needed = band[q0:q_hi + 1, k0:k_hi + 1].any() or \
-                not band[q0:q_hi + 1].any(1).all()
-            assert visit == needed, (k0, q0)
-            skipped += not visit
-    if causal and window and t == s and t >= 2 * window:
-        assert skipped > 0          # the tiles before the band
+    for n in sorted({model.step(d) for d in (64, 256)}):
+        skipped = 0
+        for k0 in range(0, s, model.KEYS):
+            k_hi = min(k0 + model.KEYS, s) - 1
+            walk = model.dkdv_walk(t, s, k0, n, causal, window)
+            for q0 in range(0, t, n):
+                q_hi = min(q0 + n, t) - 1
+                needed = band[q0:q_hi + 1, k0:k_hi + 1].any() or \
+                    not band[q0:q_hi + 1].any(1).all()
+                assert (q0 in walk) == needed, (n, k0, q0)
+                skipped += q0 not in walk
+        if causal and window and t == s and t >= 2 * window:
+            assert skipped > 0          # the tiles before the band
 
 
 @pytest.mark.parametrize("t,s,causal,window", [
@@ -339,19 +169,24 @@ def test_dkdv_walk_covers_every_kept_pair(t, s, causal, window):
     (200, 50, True, 16), (70, 130, False, None), (257, 129, True, 1),
     (1024, 1024, True, 512), (1000, 1000, True, 300)])
 def test_dq_walk_covers_every_kept_pair(t, s, causal, window):
-    """The dQ kernel's band of key tiles holds every kept pair of each q
-    tile (rows with no key in their band get dQ = 0 and need none)."""
+    """The dQ kernel's band of key tiles holds every kept pair of each
+    128-row q tile, and each 64-row consumer skips only key tiles with no
+    kept pair of its rows (rows with no key in their band get dQ = 0 and
+    need none)."""
     band = ref._band(t, s, causal, window, "cpu").numpy()
-    for q0 in range(0, t, TILE):
-        q_hi = min(q0 + TILE, t) - 1
-        k_begin, k_end = 0, s
-        if causal:
-            k_end = min(s, q_hi + 1)
-        if window:
-            k_begin = max(q0 - window + 1, 0) // TILE * TILE
-        cols = np.nonzero(band[q0:q_hi + 1].any(0))[0]
-        assert cols.size == 0 or (cols.min() >= k_begin
-                                  and cols.max() < k_end)
+    for n in sorted({model.step(d) for d in (64, 256)}):
+        for q0 in range(0, t, model.Q_TILE):
+            q_hi = min(q0 + model.Q_TILE, t) - 1
+            tiles = model.dq_band(q0, q_hi, s, causal, window, n)
+            cols = np.nonzero(band[q0:q_hi + 1].any(0))[0]
+            assert cols.size == 0 or (cols.min() >= tiles[0]
+                                      and cols.max() < tiles[-1] + n)
+            for qw0 in range(q0, q_hi + 1, model.HALF):
+                qw_hi = min(qw0 + model.HALF, t) - 1
+                for kb in tiles:
+                    if not model.dq_works(qw0, qw_hi, kb, n, t, causal,
+                                          window):
+                        assert not band[qw0:qw_hi + 1, kb:kb + n].any()
 
 
 # ---------------------------------------------------------------------------
@@ -537,23 +372,23 @@ def test_scan_bwd_constants_match_the_kernel():
 
 
 def test_flash_bwd_tiles_match_the_kernel():
-    """The model's tiles are the bf16 kernels' (read from the source)."""
-    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    assert int(re.search(r"constexpr int kTB = (\d+);", src)[1]) == TILE
-    assert int(re.search(r"constexpr int kStepB = (\d+);", src)[1]) == TILE
-    # the head dims the wrappers take, each with its sub-steps: the whole
-    # stage up to D = 64 (the design as it was), halves of it in dK/dV at
-    # 128 and 256, and in dQ at 256
+    """The model's tiles are the bf16 kernels' (read from the sources):
+    64-key dK/dV CTAs and 128-row dQ CTAs of two 64-row consumers, steps of
+    64 rows or keys (32 at D = 256), every head dim the wrappers take in
+    its own translation unit, and past D = 128 a dV pass and a dK pass."""
+    src = model.BWD_SRC
+    assert int(re.search(r"constexpr int kBwdM = (\d+);", src)[1]) == 64
+    assert model.KEYS == 64 and model.Q_TILE == 128 and model.HALF == 64
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     assert HEAD_DIMS == (16, 32, 64, 80, 128, 256)
-    subs = {d: _sub_rows(d) for d in HEAD_DIMS}
-    assert subs == {16: 64, 32: 64, 64: 64, 80: 64, 128: 32, 256: 32}
-    subq = {d: _sub_keys(d) for d in HEAD_DIMS}
-    assert subq == {16: 64, 32: 64, 64: 64, 80: 64, 128: 64, 256: 32}
-    assert all(TILE % sub == 0 and sub % 16 == 0
-               for sub in (*subs.values(), *subq.values()))
+    steps = {d: model.step(d) for d in HEAD_DIMS}
+    assert steps == {16: 64, 32: 64, 64: 64, 80: 64, 128: 64, 256: 32}
+    assert all(model.KEYS % n == 0 and n % 16 == 0 for n in steps.values())
+    entries = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     for d in HEAD_DIMS:
-        assert f"case {d}:" in src
+        assert f"case {d}:" in entries
+        assert f"return bwd_launch<{d}>(a);" in (
+            _build.CSRC / f"flash_bwd_d{d}.cu").read_text()
     # past D = 128 the dK/dV kernel runs as a dV pass and a dK pass
     assert re.search(r"if constexpr \(D <= 128\) \{\s*err = launch_dkdv_bf16"
                      r"<D, kDkdvBoth, kCap>", src)

@@ -252,10 +252,10 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def _tiles_visited(t, s, causal, window, kv_tile=64, q_step=64):
-    """The dK/dV kernels' q-tile walk, as flash_attention_bwd.cu writes it
-    (64-row q steps in bf16, 32-row in float32): a (q tile, key tile) pair
-    is visited when some (row, key) in it is kept or its last row keeps no
-    key."""
+    """The dK/dV kernels' q-tile walk, as flash_bwd.cuh writes it (64-key
+    tiles and 64-row q steps in bf16, 32-row at D = 256; 32-row steps in
+    float32, 16 at D = 256): a (q tile, key tile) pair is visited when
+    some (row, key) in it is kept or its last row keeps no key."""
     def empty(r):
         k_max = min(r, s - 1) if causal else s - 1
         k_min = max(r - window + 1, 0) if window else 0
@@ -278,10 +278,18 @@ def _tiles_visited(t, s, causal, window, kv_tile=64, q_step=64):
 def test_dkdv_tile_walk_covers_every_weighted_pair(t, s, causal, window):
     """Every (q tile, key tile) holding a pair with nonzero P (a kept pair,
     or any key of a row with no key in its band) is visited."""
+    import re
     band = ref._band(t, s, causal, window, "cpu").numpy()
     weighted = band | ~band.any(1, keepdims=True)
-    # the bf16 kernel, the float32 kernel, the float32 kernel at D = 256
-    for kv_tile, q_step in ((64, 64), (64, 32), (16, 16)):
+    src = (_build.CSRC / "flash_bwd.cuh").read_text()
+    keys = int(re.search(r"constexpr int kBwdM = (\d+);", src)[1])
+    lim, small, large = map(int, re.search(
+        r"constexpr int kBwdN = D <= (\d+) \? (\d+) : (\d+);", src).groups())
+    assert (keys, lim, small, large) == (64, 128, 64, 32)
+    # the bf16 kernel up to D = 128 and at 256, the float32 kernel, the
+    # float32 kernel at D = 256
+    for kv_tile, q_step in ((keys, small), (keys, large), (64, 32),
+                            (16, 16)):
         need = {(i // q_step, j // kv_tile)
                 for i, j in zip(*np.nonzero(weighted))}
         assert need <= _tiles_visited(t, s, causal, window, kv_tile, q_step)
