@@ -408,6 +408,14 @@ H2O_PLAIN_HEADS = 8
 # scan's is "scan_kernel", which no other name contains)
 KERNEL_NAMES = {"flash_attention": "flash_bf16_kernel",
                 "selective_scan": "selective_scan_lanes"}
+# the launch counter of each mixer kernel's forward with grad: the scan's
+# training forward also writes the backward's checkpoints
+TRAIN_FORWARD = {"flash_attention": "flash_attention",
+                 "selective_scan": "selective_scan_train"}
+# the training forward's checkpoints against the plain states, as a share
+# of the states' largest magnitude (float32 over up to 504 steps, exp2 on
+# the special-function unit against torch.exp)
+CKPT_RTOL = 1e-5
 # Kernel against plain version, max abs error: the JAX package's own
 # tolerances (tests/test_kernels.py): float32 attention 2e-5, bfloat16
 # attention 2e-2 (one bf16 step of outputs of magnitude < 4), scan 1e-4
@@ -604,6 +612,47 @@ def ptxas_flash(log: str) -> list:
     return sorted(rows, key=lambda r: (r["kernel"], r["head_dim"],
                                        r.get("pass", ""),
                                        r.get("softcap", False)))
+
+
+def short_kernel_name(mangled: str) -> str:
+    """A scan kernel's mangled name as name<template arguments>, e.g.
+    scan_bwd_tma<4, 4> or selective_scan_lanes<16, 1, 1>."""
+    import re
+
+    m = re.search(r"\d+(selective_scan_lanes|scan_bwd_\w+?)(I(?:L[ib]\d+E)+E)?"
+                  r"(?:E|v|$)", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m[2] or "")
+    return f"{m[1]}<{', '.join(args)}>" if args else m[1]
+
+
+def ptxas_scan(log: str) -> list:
+    """Registers and spills of every scan kernel instantiation (the
+    forward ``selective_scan_lanes`` and the backward ``scan_bwd``
+    kernels) as ``ptxas -v`` reported them in the build: [{"function" (the
+    mangled name), "registers", "spill_stores", "spill_loads"}]."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = None
+            if re.search(r"selective_scan_lanes|scan_bwd", entry[1]):
+                cur = {"function": entry[1]}
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            cur["spill_stores"], cur["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            cur["registers"] = int(used[1])
+    return sorted(rows, key=lambda r: r["function"])
 
 
 # The bf16 flash kernels' head dims on the paths, each built on Hopper's
@@ -1074,6 +1123,15 @@ def flash_bwd_bound(q, k, v, causal, window):
     return bound_ms(n_bytes, n_ops, rate)
 
 
+def scan_train_bound(delta, b):
+    """The scan module's ``train_work`` (``fwd_work`` and the checkpoints
+    written) at the CUDA cores' rate."""
+    from repro_torch.kernels import selective_scan
+
+    return bound_ms(*selective_scan.train_work(delta, b),
+                    HW["peak_f32_flops"])
+
+
 def scan_bwd_bound(delta, b, with_dh):
     """The scan module's ``bwd_work`` (about 12 float32 operations per
     (b, t, d, n)) at the CUDA cores' rate."""
@@ -1190,9 +1248,9 @@ def grads_part(part, grads):
 
 
 def phase_kernels(rng):
-    from repro_torch.kernels import (block_sort, flash_attention, hail_reader,
-                                     index_search, pax_scan, ref,
-                                     selective_scan)
+    from repro_torch.kernels import (_build, block_sort, flash_attention,
+                                     hail_reader, index_search, pax_scan,
+                                     ref, selective_scan)
 
     reader_cases = []
     # the server's batches read (visitDate, sourceIP, __rowid__): C = 3; then
@@ -1514,35 +1572,74 @@ def phase_kernels(rng):
                             "tol_share": FLASH_BWD_RTOL[torch.bfloat16]})
     del q, k, v, do, o, lse, got, want
     repair = bf16_grad_repair(flash_attention, ref)
-    # the scan's: every lane split (N = 1, 3, 5, 8, 16), D off the 128
-    # channels a CTA (8192 + 32, 40) and T off the 16-step interval
-    scan_bwd_cases = []
+    # the scan's, each through the training forward (y, h_final and the
+    # checkpoints against the plain versions) and then the backward from
+    # its checkpoints: every lane split (N = 1, 3, 5, 8, 12, 16; TMA takes
+    # B, C and the checkpoints at N = 8, 12, 16), D off the 128 channels a
+    # CTA (8192 + 32, 40, 130) and off 4 (the rows' cp.async route: 130,
+    # 70), T off the 8-step interval and inside one (5); the train shape
+    # twice, bit for bit
+    scan_bwd_cases, train_fwd_cases = [], []
     for b, t, d, n, with_dh in [(SERVE_BATCH, SERVE_PROMPT, 8192, 16, False),
                                 (SERVE_BATCH, SERVE_PROMPT, 8192, 16, True),
                                 (2, 100, 300, 8, True), (1, 70, 130, 5, True),
                                 (2, 37, 64, 1, True), (1, 33, 40, 3, False),
                                 (2, 64, 8192 + 32, 16, True),
-                                (2, 45, 40, 16, False)]:
+                                (2, 45, 40, 16, False),
+                                (2, 21, 130, 12, True), (1, 5, 70, 16, True)]:
         inputs = scan_inputs(b, t, d, n)
         dy = upstream_grad(inputs[0])
         dh = upstream_grad(inputs[0].new_empty((b, d, n))) if with_dh \
             else None
-        got = selective_scan.selective_scan_bwd(*inputs, dy, dh)
+        y, h, ckpt = selective_scan.selective_scan_train(*inputs)
+        want_fwd = ref.selective_scan(*inputs)
+        states = ref.selective_scan_states(*inputs,
+                                           selective_scan.CKPT_STEPS)
+        got = selective_scan.selective_scan_bwd(*inputs, dy, dh, ckpt)
         want = ref.selective_scan_bwd(*inputs, dy, dh)
         torch.cuda.synchronize()
+        fwd_err = max_abs_err((y, h), want_fwd)
+        fwd_tol = SCAN_RTOL * max(1.0, max(float(w.abs().max())
+                                           for w in want_fwd))
+        ckpt_rel = max_abs_err([ckpt], [states]) / max(
+            float(states.abs().max()), 1e-30)
+        check(fwd_err <= fwd_tol and ckpt_rel <= CKPT_RTOL,
+              f"selective_scan_train kernel == plain at {(b, t, d, n)}: "
+              f"y, h_final {fwd_err} > {fwd_tol} or checkpoints {ckpt_rel} "
+              f"of their scale > {CKPT_RTOL}")
+        train_fwd_cases.append({"shape": [b, t, d, n],
+                                "max_abs_err": fwd_err, "tol": fwd_tol,
+                                "ckpt_share_of_scale": ckpt_rel,
+                                "ckpt_tol_share": CKPT_RTOL})
         rel = [max_abs_err([g], [w]) / max(float(w.abs().max()), 1e-30)
                for g, w in zip(got, want)]
         check(max(rel) <= SCAN_BWD_RTOL, f"selective_scan_bwd kernel == "
               f"plain at {(b, t, d, n)} dh_final={with_dh}: ddelta, dx, "
               f"db, dc, da {rel} of their scale > {SCAN_BWD_RTOL}")
-        scan_bwd_cases.append({"shape": [b, t, d, n], "dh_final": with_dh,
-                               "max_abs_err": max_abs_err(got, want),
-                               "share_of_scale": rel,
-                               "tol_share": SCAN_BWD_RTOL})
-        del inputs, got, want
+        case = {"shape": [b, t, d, n], "dh_final": with_dh,
+                "max_abs_err": max_abs_err(got, want),
+                "share_of_scale": rel, "tol_share": SCAN_BWD_RTOL}
+        if (b, t, d, n) == (TRAIN_BATCH, TRAIN_SEQ, 8192, 16):
+            again = selective_scan.selective_scan_bwd(*inputs, dy, dh, ckpt)
+            torch.cuda.synchronize()
+            case["bit_equal_again"] = all(
+                torch.equal(bits(g), bits(x)) for g, x in zip(got, again))
+            check(case["bit_equal_again"], f"selective_scan_bwd at "
+                  f"{(b, t, d, n)}: a second call gives other bits")
+            del again
+        scan_bwd_cases.append(case)
+        del inputs, got, want, y, h, ckpt, states, want_fwd
+    # both scan kernels as ptxas built them: registers, no spills
+    scan_ptxas = [{**r, "function": short_kernel_name(r["function"])}
+                  for r in ptxas_scan(_build.ptxas_log())]
+    spilled = [r for r in scan_ptxas
+               if r.get("spill_stores") or r.get("spill_loads")]
+    check(scan_ptxas and not spilled,
+          f"scan kernels spill (ptxas): {spilled or 'no ptxas rows'}")
     emit("kernels", reader=reader_cases, sort=sort_cases,
          index_search=search_cases, pax_scan=pax_cases, flash=flash_cases,
          scan=scan_cases, flash_bwd=flash_bwd_cases, scan_bwd=scan_bwd_cases,
+         scan_train=train_fwd_cases, scan_ptxas=scan_ptxas,
          bf16_grad_repair=repair)
     return {name: max(c["max_abs_err"] for c in cases)
             for name, cases in (("hail_read", reader_cases),
@@ -1552,7 +1649,8 @@ def phase_kernels(rng):
                                 ("flash_attention", flash_cases),
                                 ("selective_scan", scan_cases),
                                 ("flash_attention_bwd", flash_bwd_cases),
-                                ("selective_scan_bwd", scan_bwd_cases))}
+                                ("selective_scan_bwd", scan_bwd_cases),
+                                ("selective_scan_train", train_fwd_cases))}
 
 
 def phase_small_slice():
@@ -2814,8 +2912,9 @@ def layer_grad_check(arch: str, kernel: str, seq: int = TRAIN_SEQ,
     shares = {n: share(on_kernels[n], plain[n])["share"] for n in plain}
     worst = max(shares, key=shares.get)
     calls = 2 if enc is not None else 1
-    check(launches == {kernel: calls, f"{kernel}_bwd": calls},
-          f"{arch} layer: launches {launches}, want {calls} {kernel} and "
+    fwd = TRAIN_FORWARD[kernel]
+    check(launches == {fwd: calls, f"{kernel}_bwd": calls},
+          f"{arch} layer: launches {launches}, want {calls} {fwd} and "
           f"{calls} {kernel}_bwd")
     check(shares[worst] <= SERVE_LAYER_TOL,
           f"{arch} layer: gradient {worst}, kernel route vs plain route, "
@@ -3125,9 +3224,10 @@ def train_run(cfg, batch, steps: int, kernel: str, opt,
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / steps for k, v in launches.items()}
     n_calls = kernel_calls(cfg)
-    check(per_step == {kernel: n_calls, f"{kernel}_bwd": n_calls},
+    fwd = TRAIN_FORWARD[kernel]
+    check(per_step == {fwd: n_calls, f"{kernel}_bwd": n_calls},
           f"{cfg.name}: launches a step {per_step}, want {n_calls} "
-          f"{kernel} and {n_calls} {kernel}_bwd")
+          f"{fwd} and {n_calls} {kernel}_bwd")
     check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses} finite")
     check(losses[-1] < losses[0], f"{cfg.name}: the loss on a repeated "
           f"batch falls: {losses}")
@@ -3159,9 +3259,9 @@ def train_run(cfg, batch, steps: int, kernel: str, opt,
         gc.collect()
         # remat re-runs the groups' forward in the backward, not the tail's
         n_fwd = n_calls + kernel_calls(cfg, tail=False)
-        check(got == {kernel: n_fwd, f"{kernel}_bwd": n_calls},
+        check(got == {fwd: n_fwd, f"{kernel}_bwd": n_calls},
               f"{cfg.name}: remat={name!r} launches {got}, want "
-              f"{n_fwd} {kernel} and {n_calls} {kernel}_bwd")
+              f"{n_fwd} {fwd} and {n_calls} {kernel}_bwd")
         check(got_loss == none_loss, f"{cfg.name}: remat={name!r} loss "
               f"{got_loss} != remat='none' loss {none_loss} from the same "
               f"state")
@@ -3209,7 +3309,7 @@ def phase_train(batch: dict) -> dict:
     from repro_torch.ckpt import checkpoint as ck
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import init_params
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, selective_scan
     from repro_torch.models.model import model_specs
     from repro_torch.train.optimizer import OptCfg
     from repro_torch.train.step import (StepCfg, init_train_state,
@@ -3301,6 +3401,14 @@ def phase_train(batch: dict) -> dict:
                     f"params, grads and moments, past the card's 80 GB"],
         "data": "numpy tokens below falcon-mamba's vocabulary of 65,024 "
                 "(the HAIL corpus draws from llama's 128,256)"}
+    # the scan backward's share of the profiled step's device time, and
+    # the checkpoints each layer's training forward keeps until its
+    # backward (peak_mem_bytes holds them)
+    fm = record["falcon-mamba-7b-train-8L"]
+    fm["scan_bwd_share_of_busy"] = fm["profile"]["kernel_share_of_busy"]
+    ssm = falcon.stack.pattern[0].ssm
+    fm["scan_ckpt_bytes_a_layer"] = 4 * TRAIN_BATCH * -(
+        -TRAIN_SEQ // selective_scan.CKPT_STEPS) * ssm.d_inner * ssm.d_state
     whisper = get_config(WHISPER)
     tok = torch.from_numpy(rng.integers(0, whisper.vocab, (
         TRAIN_BATCH, WHISPER_TRAIN_SEQ + 1)).astype(np.int32)).cuda()
@@ -3467,7 +3575,8 @@ def phase_train(batch: dict) -> dict:
 FULLWIDTH_KERNELS = {"attention": ("flash_attention",),
                      "train_attention": ("flash_attention_bwd",),
                      "mamba1": ("selective_scan",),
-                     "train_mamba1": ("selective_scan_bwd",)}
+                     "train_mamba1": ("selective_scan_train",
+                                      "selective_scan_bwd")}
 
 
 def rope_bits() -> dict:
@@ -4000,14 +4109,20 @@ def main() -> int:
     # are most of it); the same two for the plain version and the library
     # call.
     def case(shape, kernel, plain, bound, match, library=None,
-             plain_iters=3):
+             plain_iters=3, by_events=False):
+        """``by_events``: the kernel's "ms" by CUDA events around 20
+        back-to-back calls (its profiler time kept as "profiler_ms")."""
         ms, ms_by = device_ms(kernel, 20, match)
+        profiler_ms = None
+        if by_events:
+            profiler_ms, ms, ms_by = ms, cuda_ms(kernel, 20), "cuda_events"
         plain_ms, plain_by = device_ms(plain, plain_iters)
         library_ms, library_by = (None, None) if library is None else (
             device_ms(library, 20))
         return {"shape": shape,
                 "ms": ms,
-                "events_ms": cuda_ms(kernel, 20),
+                "events_ms": ms if by_events else cuda_ms(kernel, 20),
+                **({"profiler_ms": profiler_ms} if by_events else {}),
                 "plain_ms": plain_ms,
                 "plain_events_ms": cuda_ms(plain, plain_iters, warmup=1),
                 "library_ms": library_ms,
@@ -4405,16 +4520,28 @@ def main() -> int:
         torch.cuda.empty_cache()
     repair_cost = float32_o_cost(flash_attention)
     torch.cuda.empty_cache()
+    # the scan's training forward (with the checkpoints) and its backward
+    # from them, by CUDA events
     inputs = scan_inputs(TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
     dy = upstream_grad(inputs[0])
+    n_int = -(-TRAIN_SEQ // selective_scan.CKPT_STEPS)
+    timed["scan_train_falcon"] = case(
+        "delta/x (4,512,8192) b/c (4,512,16) a (8192,16) f32 -> y, "
+        f"h_final, ckpt (4,{n_int},8192,16)",
+        lambda: selective_scan.selective_scan_train(*inputs),
+        lambda: (ref.selective_scan(*inputs), ref.selective_scan_states(
+            *inputs, selective_scan.CKPT_STEPS)),
+        scan_train_bound(inputs[0], inputs[2]),
+        KERNEL_NAMES["selective_scan"], plain_iters=1, by_events=True)
+    ckpt = selective_scan.selective_scan_train(*inputs)[2]
     timed["scan_bwd_falcon_train"] = case(
-        "delta/x/dy (4,512,8192) b/c (4,512,16) a (8192,16) f32, "
-        "no dh_final",
-        lambda: selective_scan.selective_scan_bwd(*inputs, dy),
+        "delta/x/dy (4,512,8192) b/c (4,512,16) a (8192,16) ckpt "
+        f"(4,{n_int},8192,16) f32, no dh_final",
+        lambda: selective_scan.selective_scan_bwd(*inputs, dy, None, ckpt),
         lambda: ref.selective_scan_bwd(*inputs, dy),
         scan_bwd_bound(inputs[0], inputs[2], False), "scan_bwd",
-        plain_iters=1)
-    del inputs, dy
+        plain_iters=1, by_events=True)
+    del inputs, dy, ckpt
     torch.cuda.empty_cache()
 
     # the two primitives with their bounds on the card, as a caller that
@@ -4506,6 +4633,7 @@ def main() -> int:
     flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
     flash_bwd = timed["flash_bwd_llama_train"]
     scan_bwd = timed["scan_bwd_falcon_train"]
+    scan_train = timed["scan_train_falcon"]
     search, pax = timed["index_search_64x512"], timed["pax_scan_2^19x2"]
     kernels = [
         {"name": "hail_read", "route": "cuda",
@@ -4611,6 +4739,17 @@ def main() -> int:
                               "flash_bwd_gemma4_train_local",
                               "flash_bwd_mixtral_train",
                               "flash_bwd_zamba_train")}},
+        {"name": "selective_scan_train", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:28",
+         "training_forward_of": "selective_scan (the same kernel, also "
+                                "writing the backward's checkpoints)",
+         "launches": train_launches["selective_scan_train"],
+         "max_abs_err": errs["selective_scan_train"],
+         "ms": scan_train["ms"], "plain_ms": scan_train["plain_ms"],
+         "bound_ms": scan_train["bound_ms"],
+         "bound_by": scan_train["bound_by"], "library_ms": None,
+         "shape": scan_train["shape"], "ms_by": scan_train["ms_by"]},
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",

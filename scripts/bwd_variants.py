@@ -3,6 +3,7 @@ side by side on one CUDA card.
 
     python3 scripts/bwd_variants.py [--only flash|scan]
         [--shape NAME ... | --shape all] [--baseline OLD.cu ...]
+        [--baseline-fwd OLD_selective_scan.cu]
         [--baseline-bf16-o OLD.cu ...] [--phases] [--rounds N]
 
 The flash backward (``--only flash``, or both): builds it as it is
@@ -44,23 +45,34 @@ CTA's share of it, the mean CTA and the busiest SM's summed CTA time
 against the mean SM's.
 
 The scan backward (``--only scan``, or both): builds
-``selective_scan_bwd.cu`` as it is and variants made from it by exact text
-substitutions:
+``selective_scan.cu`` and ``selective_scan_bwd.cu`` as they are and the
+design's alternatives, made from them by exact text substitutions:
 
-* ``scan``        as built: 2 channels a lane, 128 channels a CTA,
-  checkpoints every 16 steps, 8-step parts (2.5 exponentials per
-  (b, t, d, n));
-* ``scan_steps8`` checkpoints every 8 steps (2 exponentials, twice the
-  checkpoint bytes);
-* ``scan_k1``     1 channel a lane, 128 channels a CTA: 512 threads with
-  at most 128 registers (16 warps an SM, from 8);
-* ``scan_k1_c64`` 1 channel a lane, 64 channels a CTA, 2 CTAs an SM;
+* ``scan``         as built: checkpoints every 8 steps from the training
+  forward, one 8-step part an interval (one exponential per
+  (b, t, d, n)), the factors in registers, butterflies four steps at a
+  time, 8 compute warps an SM;
+* ``scan_i16``     checkpoints every 16 steps (half the checkpoint bytes;
+  two parts an interval, part 1's start recomputed through part 0: 1.5
+  exponentials);
+* ``scan_batch8``  a part's eight steps' butterflies together;
+* ``scan_stages5`` a ring of 5 intervals (4 as built);
+* ``scan_regs232`` the producer warpgroup at 40 registers, the compute
+  warpgroups at 232 (224 as built);
 
 and ``--baseline`` sources of its entry point (channels and checkpoint
-interval read from their constants), each held to
-``ref.selective_scan_bwd`` at ``chip_smoke.py``'s train shape and to
-itself bit for bit, then timed in turns by the profiler (10 calls, three
-rounds).
+interval read from their constants; one that makes its own forward sweep,
+such as ``git show d233239:src/repro_torch/kernels/csrc/
+selective_scan_bwd.cu``, pairs with the prefill's forward of
+``--baseline-fwd``, else of the forward as built).  Each is held to
+``ref.selective_scan_bwd`` at ``chip_smoke.py``'s train shape, its
+checkpoints to ``ref.selective_scan_states``, and to itself bit for bit;
+then every backward, training forward and prefill forward is timed in
+turns by CUDA events.  ``--phases`` also builds the source with
+SCAN_BWD_PHASES defined and prints where a compute warp's cycles go a
+time step (``ScanPhase`` in ``selective_scan_bwd.cu``), each CTA's span
+and SM, and the two kernels' times by events; ``ptxas -v``'s registers
+and spills of every scan kernel are printed for each build.
 
 Prints one JSON line per check, shape and round and, before the last
 line, the card's name and power limit; the last line holds the medians
@@ -142,21 +154,60 @@ def flash_sources(phases: bool) -> dict[str, dict[str, str]]:
     return out
 
 
-def scan_sources() -> dict[str, str]:
-    scan = (CSRC / "selective_scan_bwd.cu").read_text()
-    k1 = sub(scan, "constexpr int kPerThread = 2;",
-             "constexpr int kPerThread = 1;")
+SCAN_FWD, SCAN_BWD = "selective_scan.cu", "selective_scan_bwd.cu"
+SCAN_PHASES = ("fwd_sweep", "wait", "recompute", "reverse", "butterfly",
+               "stores", "partials")
+SCAN_MAX_CTAS = 1 << 12          # kMaxCtas in selective_scan_bwd.cu
+
+
+def scan_variants(fwd: str, bwd: str) -> dict[str, dict[str, str]]:
+    """The design's own alternatives, made from the sources as built by
+    exact text substitutions (name -> {file: text})."""
+    if "selective_scan_ckpt_launch" not in fwd:
+        return {}
     return {
-        "scan": scan,
-        "scan_steps8": sub(scan, "constexpr int kSteps = 16;",
-                           "constexpr int kSteps = 8;"),
-        "scan_k1": k1,
-        "scan_k1_c64": sub(sub(
-            k1, "constexpr int kChannels = 128;",
-            "constexpr int kChannels = 64;"),
-            "__launch_bounds__(threads_for_lanes(L), 4 / L)",
-            "__launch_bounds__(threads_for_lanes(L), 8 / L)"),
+        # checkpoints every 16 steps: half the checkpoint bytes, two parts
+        # an interval, part 1's start recomputed through part 0 (1.5
+        # exponentials an element)
+        "scan_i16": {
+            SCAN_FWD: sub(fwd, "constexpr int kCkptSteps = 8;",
+                          "constexpr int kCkptSteps = 16;"),
+            SCAN_BWD: sub(bwd, "constexpr int kSteps = 8;",
+                          "constexpr int kSteps = 16;")},
+        # the part's eight steps' butterflies together (more registers)
+        "scan_batch8": {SCAN_FWD: fwd, SCAN_BWD: sub(
+            bwd, "constexpr int kBatch = 4;", "constexpr int kBatch = 8;")},
+        # a ring of 5 intervals
+        "scan_stages5": {SCAN_FWD: fwd, SCAN_BWD: sub(
+            bwd, "constexpr int kStages = kSteps == 8 ? 4 : 3;",
+            "constexpr int kStages = kSteps == 8 ? 5 : 3;")},
+        # the producer warpgroup at 40 registers, the compute ones at 232
+        "scan_regs232": {SCAN_FWD: fwd, SCAN_BWD: sub(sub(
+            bwd, "constexpr int kProducerRegs = 56;",
+            "constexpr int kProducerRegs = 40;"),
+            "constexpr int kComputeRegs = 224;",
+            "constexpr int kComputeRegs = 232;")},
     }
+
+
+def scan_sources(phases: bool, baselines: list[Path],
+                 baseline_fwd: Path | None) -> dict[str, dict[str, str]]:
+    """name -> {file: text}: the scan as built, its variants, its
+    SCAN_BWD_PHASES build (``phases``) and the baselines' backward sources
+    (one that makes its own forward sweep beside ``baseline_fwd``, else
+the forward as built)."""
+    fwd, bwd = (CSRC / SCAN_FWD).read_text(), (CSRC / SCAN_BWD).read_text()
+    out = {"scan": {SCAN_FWD: fwd, SCAN_BWD: bwd}, **scan_variants(fwd, bwd)}
+    if phases:
+        out["scan_phases"] = {SCAN_FWD: fwd,
+                              SCAN_BWD: "#define SCAN_BWD_PHASES\n" + bwd}
+    old_fwd = fwd if baseline_fwd is None else baseline_fwd.read_text()
+    for path in baselines:
+        text = path.read_text()
+        if SCAN_ENTRY in text:
+            out[path.stem] = {SCAN_FWD: fwd if takes_ckpt(text) else old_fwd,
+                              SCAN_BWD: text}
+    return out
 
 
 def scan_geometry(src: str) -> tuple[int, int]:
@@ -165,6 +216,13 @@ def scan_geometry(src: str) -> tuple[int, int]:
     ch = re.search(r"constexpr int (?:kChannels|kCh) = (\d+);", src)
     st = re.search(r"constexpr int (?:kSteps|kT) = (\d+);", src)
     return int(ch[1]), int(st[1])
+
+
+def takes_ckpt(src: str) -> bool:
+    """Whether a backward source's entry point reads the training
+    forward's checkpoints (else it makes its own forward sweep)."""
+    entry = re.search(rf"{SCAN_ENTRY}\((.*?)\)", src, re.S)
+    return entry is not None and "const void* ckpt" in entry[1]
 
 
 def has_softcap(src: str) -> bool:
@@ -452,85 +510,188 @@ def run_flash(args) -> dict:
     return result
 
 
+class ScanSource:
+    """A built library's training forward and backward, called as the
+    wrappers call them.  A backward that reads checkpoints pairs with
+    ``selective_scan_ckpt_launch``; one that makes its own forward sweep
+    with the prefill's ``selective_scan_launch``."""
+
+    def __init__(self, lib, files: dict[str, str]):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.new = takes_ckpt(files[SCAN_BWD])
+        self.channels, self.steps = scan_geometry(files[SCAN_BWD])
+        self.prefill = lib.selective_scan_launch
+        self.prefill.argtypes = [p] * 7 + [i] * 4 + [p]
+        self.prefill.restype = i
+        if self.new:
+            self.fwd = lib.selective_scan_ckpt_launch
+            self.fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+            self.fwd.restype = i
+        self.bwd = getattr(lib, SCAN_ENTRY)
+        self.bwd.argtypes = [p] * 16 + [i] * 4 + [p]
+        self.bwd.restype = i
+        self.take = getattr(lib, "selective_scan_bwd_phases", None)
+        self.scratch = None
+
+    def setup(self, ins):
+        bs, ts, ds = ins[0].shape
+        n = ins[4].shape[1]
+        f32 = dict(dtype=torch.float32, device="cuda")
+        n_cb = -(-ds // self.channels)
+        self.y = torch.empty_like(ins[0])
+        self.h = torch.empty((bs, ds, n), **f32)
+        self.ckpt = torch.empty((bs, -(-ts // self.steps), ds, n), **f32)
+        self.scratch = [torch.empty((bs, n_cb, ts, n), **f32),
+                        torch.empty((bs, n_cb, ts, n), **f32),
+                        torch.empty((bs, ds, n), **f32)]
+        self.out = [torch.empty_like(x) for x in (*ins[:4], ins[4])]
+
+    def _dims(self, ins):
+        bs, ts, ds = ins[0].shape
+        return bs, ts, ds, ins[4].shape[1], \
+            torch.cuda.current_stream().cuda_stream
+
+    def run_prefill(self, ins):
+        code = self.prefill(*(x.data_ptr() for x in ins),
+                            self.y.data_ptr(), self.h.data_ptr(),
+                            *self._dims(ins))
+        if code:
+            raise RuntimeError(f"selective_scan_launch failed ({code})")
+
+    def run_fwd(self, ins):
+        """The training forward (the prefill's for a source that makes its
+        own forward sweep)."""
+        if not self.new:
+            return self.run_prefill(ins)
+        code = self.fwd(*(x.data_ptr() for x in ins), self.y.data_ptr(),
+                        self.h.data_ptr(), self.ckpt.data_ptr(),
+                        *self._dims(ins))
+        if code:
+            raise RuntimeError(f"selective_scan_ckpt_launch failed ({code})")
+
+    def run_bwd(self, ins, dy):
+        ptr = [x.data_ptr() for x in ins]
+        outs = [x.data_ptr() for x in self.out]
+        part = [x.data_ptr() for x in self.scratch]
+        if self.new:   # delta..a, ckpt, dy, dh, outputs, part_b/c/a
+            args = [*ptr, self.ckpt.data_ptr(), dy.data_ptr(), None, *outs,
+                    *part]
+        else:          # delta..a, dy, dh, outputs, ckpt scratch, part_b/c/a
+            args = [*ptr, dy.data_ptr(), None, *outs, self.ckpt.data_ptr(),
+                    *part]
+        code = self.bwd(*args, *self._dims(ins))
+        if code:
+            raise RuntimeError(f"{SCAN_ENTRY} failed ({code})")
+        return self.out
+
+
+def scan_phase_table(src: ScanSource, ins, dy) -> dict:
+    """One launch of the SCAN_BWD_PHASES build: a warp's cycles a time step
+    in each phase, the CTAs' makespan, longest and mean CTA and SM loads,
+    and the scan and reduce kernels' times by CUDA events (ms)."""
+    n_ph = len(SCAN_PHASES) + 1
+    sums = (ctypes.c_ulonglong * n_ph)()
+    stamps = (ctypes.c_ulonglong * (SCAN_MAX_CTAS * 3))()
+    ms = (ctypes.c_float * 2)()
+    src.take.argtypes = [ctypes.c_void_p] * 3
+    src.take.restype = ctypes.c_int
+    src.run_fwd(ins)
+    src.run_bwd(ins, dy)
+    torch.cuda.synchronize()
+    src.take(sums, stamps, ms)
+    src.run_bwd(ins, dy)
+    torch.cuda.synchronize()
+    if src.take(sums, stamps, ms):
+        raise RuntimeError("selective_scan_bwd_phases: copy failed")
+    warp_intervals = sums[len(SCAN_PHASES)]
+    steps = warp_intervals * src.steps
+    ctas = [(stamps[3 * i], stamps[3 * i + 1], stamps[3 * i + 2])
+            for i in range(SCAN_MAX_CTAS) if stamps[3 * i]]
+    t0 = min(c[0] for c in ctas)
+    span = max(c[1] for c in ctas) - t0
+    durs = [c[1] - c[0] for c in ctas]
+    by_sm: dict[int, int] = {}
+    for (_, _, sm), dur in zip(ctas, durs):
+        by_sm[sm] = by_sm.get(sm, 0) + dur
+    per = {p: sums[i] / max(steps, 1) for i, p in enumerate(SCAN_PHASES)}
+    return {"cycles_a_warp_step": per,
+            "cycles_a_warp_step_total": sum(per.values()),
+            "warp_intervals": warp_intervals, "ctas": len(ctas),
+            "makespan_ms": span / 1e6, "longest_cta_ms": max(durs) / 1e6,
+            "mean_cta_ms": statistics.mean(durs) / 1e6,
+            "busiest_sm_ms": max(by_sm.values()) / 1e6,
+            "mean_sm_ms": statistics.mean(by_sm.values()) / 1e6,
+            "sms": len(by_sm), "scan_kernel_events_ms": ms[0],
+            "reduce_kernel_events_ms": ms[1]}
+
+
 def run_scan(args) -> dict:
     import chip_smoke as cs
-    from repro_torch.kernels import ref
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref, selective_scan
 
-    texts = scan_sources()
-    for path in map(Path, args.baseline):
-        text = path.read_text()
-        if SCAN_ENTRY in text:
-            texts[path.stem] = text
-    geometry = {n: scan_geometry(src) for n, src in texts.items()}
-    libs, _ = build({n: {f"{n}.cu": text} for n, text in texts.items()})
-    fns = {}
-    for name, lib in libs.items():
-        fn = getattr(lib, SCAN_ENTRY)
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    stream = torch.cuda.current_stream().cuda_stream
+    files = scan_sources(args.phases, list(map(Path, args.baseline)),
+                         Path(args.baseline_fwd) if args.baseline_fwd
+                         else None)
+    libs, logs = build(files)
+    srcs = {n: ScanSource(libs[n], files[n]) for n in files}
+    ptxas = {n: cs.ptxas_scan(log) for n, log in logs.items()}
+    print(json.dumps({"scan_ptxas": ptxas}), flush=True)
     ins = cs.scan_inputs(cs.TRAIN_BATCH, cs.TRAIN_SEQ, 8192, 16)
     dy = cs.upstream_grad(ins[0])
-    bs, ts, ds = ins[0].shape
-    f32 = dict(dtype=torch.float32, device="cuda")
-    out = [torch.empty_like(x) for x in (*ins[:4], ins[4])]
-    scratch = {}
-
-    def scan(name):
-        if name not in scratch:
-            ch, st = geometry[name]
-            n_cb = -(-ds // ch)
-            scratch[name] = [torch.empty((bs, -(-ts // st), ds, 16), **f32),
-                             torch.empty((bs, n_cb, ts, 16), **f32),
-                             torch.empty((bs, n_cb, ts, 16), **f32),
-                             torch.empty((bs, ds, 16), **f32)]
-        code = fns[name](*(x.data_ptr() for x in (*ins, dy)), None,
-                         *(x.data_ptr() for x in (*out, *scratch[name])),
-                         bs, ts, ds, 16, stream)
-        if code:
-            raise RuntimeError(f"{name}: launch failed ({code})")
-        return [x.clone() for x in out]
-
     want = ref.selective_scan_bwd(*ins, dy)
     checks = {}
-    for name in texts:
-        got, again = scan(name), scan(name)
+    for name, src in srcs.items():
+        src.setup(ins)
+        src.run_fwd(ins)
+        got = [x.clone() for x in src.run_bwd(ins, dy)]
+        again = src.run_bwd(ins, dy)
         torch.cuda.synchronize()
         share = max(cs.max_abs_err([g], [w]) / float(w.float().abs().max())
                     for g, w in zip(got, want))
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         checks[name] = {"share_of_scale": share, "tol": cs.SCAN_BWD_RTOL,
                         "deterministic": same}
+        if src.new:
+            states = ref.selective_scan_states(*ins, src.steps)
+            checks[name]["ckpt_share_of_scale"] = cs.max_abs_err(
+                [src.ckpt], [states]) / float(states.abs().max())
+            same = same and checks[name]["ckpt_share_of_scale"] <= 1e-5
         if not (share <= cs.SCAN_BWD_RTOL and same):
             raise RuntimeError(f"{name}: {checks[name]}")
+        del got, again
     print(json.dumps({"scan_checks": checks}), flush=True)
-    scan("scan")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(cs.PROFILER_SETTLE_S)
-        for _ in range(ITERS):
-            scan("scan")
-        torch.cuda.synchronize()
-    split = {e.key[:48]: cs.device_us(e) / ITERS / 1e3
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "scan_bwd" in e.key}
-    print(json.dumps({"scan_ms_by_kernel": split}), flush=True)
-    order = list(texts) + list(texts)[::-1]
-    times: dict[str, list[float]] = {n: [] for n in texts}
-    for rnd in range(ROUNDS):
-        row = {}
+    result = {"checks": checks, "ptxas": ptxas}
+    if "scan_phases" in srcs:
+        result["phases"] = scan_phase_table(srcs["scan_phases"], ins, dy)
+        print(json.dumps({"scan_phases": result["phases"]}), flush=True)
+    for name in [n for n in srcs if n != "scan" and srcs[n].take]:
+        del srcs[name]     # only the phases build has the accessor
+    runs = {}
+    for name, src in srcs.items():
+        runs[f"{name}:bwd"] = lambda s=src: s.run_bwd(ins, dy)
+        runs[f"{name}:fwd"] = lambda s=src: s.run_fwd(ins)
+        runs[f"{name}:prefill"] = lambda s=src: s.run_prefill(ins)
+    iters = {n: max(3, min(200, round(TARGET_MS / events_ms(fn, 1))))
+             for n, fn in runs.items()}
+    order = list(runs) + list(runs)[::-1]
+    times: dict[str, list[float]] = {n: [] for n in runs}
+    for rnd in range(args.rounds):
+        row = []
         for name in order:
-            ms, clock = cs.device_ms(lambda n=name: scan(n), ITERS,
-                                     "scan_bwd")
+            ms = events_ms(runs[name], iters[name])
             times[name].append(ms)
-            row[name] = [ms, clock]
+            row.append([name, ms])
         print(json.dumps({"scan_round": rnd, "ms": row}), flush=True)
-    return {"median_ms": {n: statistics.median(x) for n, x in times.items()}}
+    med = {n: statistics.median(x) for n, x in times.items()}
+    spread = {n: [min(x), max(x)] for n, x in times.items()}
+    n_bytes, flops = selective_scan.bwd_work(ins[0], ins[2], False)
+    bound = max(n_bytes / BYTES_PER_S, flops / cs.HW["peak_f32_flops"]) * 1e3
+    pairs = {n: med[f"{n}:fwd"] + med[f"{n}:bwd"] for n in srcs}
+    result.update({
+        "median_ms": med, "min_max_ms": spread, "iters": iters,
+        "fwd_plus_bwd_ms": pairs, "bwd_bound_ms": bound,
+        "bwd_share_of_bound": {n: bound / med[f"{n}:bwd"] for n in srcs}})
+    return result
 
 
 def main() -> int:
@@ -542,6 +703,7 @@ def main() -> int:
     ap.add_argument("--shape", action="append", default=[])
     ap.add_argument("--baseline", action="append", default=[])
     ap.add_argument("--baseline-bf16-o", action="append", default=[])
+    ap.add_argument("--baseline-fwd")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--rounds", type=int, default=ROUNDS)
     args = ap.parse_args()

@@ -4,8 +4,6 @@
 // points and the design note.
 #pragma once
 
-#include <cuda.h>          // CUtensorMap and its enums (types only)
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -824,26 +822,6 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_wide,
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
-// query (so the library links no -lcuda); null where it is missing.
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A (batch, len, heads, d) bf16 tensor as a 4-D map (d, heads, len,
 // batch), innermost first, in boxes of `cols` columns of one head and

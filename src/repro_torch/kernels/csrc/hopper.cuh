@@ -1,10 +1,13 @@
 // Hopper (sm_90a) device helpers of the bf16 flash forward and backward
-// (flash_fwd.cuh, flash_bwd.cuh): mbarriers, TMA tensor loads, warpgroup
-// matrix multiplies (`wgmma`) with their shared-memory descriptors,
-// register reallocation between warpgroups (`setmaxnreg`) and named
-// barriers.
+// (flash_fwd.cuh, flash_bwd.cuh) and the scan backward
+// (selective_scan_bwd.cu): mbarriers, TMA tensor loads and the host's
+// encoder of their maps, warpgroup matrix multiplies (`wgmma`) with their
+// shared-memory descriptors, register reallocation between warpgroups
+// (`setmaxnreg`) and named barriers.
 #pragma once
 
+#include <cuda.h>          // CUtensorMap and its enums (types only)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,6 +89,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The box of a 3-D tensor map at coordinates (c0, c1, c2), innermost
+// first, -> shared memory at dst, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (so the library links no -lcuda); null where it is missing.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 // Orders this thread's generic-proxy shared-memory accesses with the async

@@ -38,6 +38,14 @@
 // a relative error of about |delta * a| * 2^-23 * ln 2 + 2^-22 per factor,
 // 2e-6 at |delta * a| = 20 (where the factor is already 2e-9), far below
 // the 1e-4 tolerance the kernel is held to.
+//
+// The training forward (`selective_scan_ckpt_launch`, the kCkpt
+// instantiations) also writes h at the start of every kCkptSteps-step
+// interval into ckpt (B, ceil(T/kCkptSteps), D, N), interval 0's the zero
+// state: the states are in registers there anyway, and the backward
+// (selective_scan_bwd.cu) starts each interval's recompute from them
+// instead of making its own forward sweep.  The prefill (no grad) keeps
+// the launch without them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,6 +55,9 @@ constexpr int kChannels = 64;  // channels a CTA owns
 constexpr int kPerThread = 2;  // channels a lane works on (sharing B, C)
 constexpr int kSteps = 16;     // time steps a ring stage holds
 constexpr int kStages = 3;
+constexpr int kCkptSteps = 8;  // the training forward's checkpoint interval
+static_assert(kSteps % kCkptSteps == 0 && kCkptSteps % 4 == 0,
+              "an interval starts at a step group of every lane split");
 constexpr float kLog2e = 1.4426950408889634f;
 
 // lanes per channel: 4 from N = 10 (every lane keeps a state), 2 from 5
@@ -216,15 +227,15 @@ __device__ __forceinline__ float reduce_steps(float (&p)[L], int lane) {
 // Up to 128 registers a thread: at the falcon-mamba shape a launch puts 4
 // CTAs on an SM anyway (512 CTAs on 132 SMs), and the room lets the
 // compiler keep more of the next steps' loads in flight.
-template <int N, bool kVec>
+template <int N, bool kVec, bool kCkpt>
 __global__ void __launch_bounds__(threads_for(N), 512 / threads_for(N))
 selective_scan_lanes(const float* __restrict__ delta,
                      const float* __restrict__ x,
                      const float* __restrict__ bm,
                      const float* __restrict__ cm,
                      const float* __restrict__ a, float* __restrict__ y,
-                     float* __restrict__ h_final, bool vec_bc, int t_len,
-                     int d_len) {
+                     float* __restrict__ h_final, float* __restrict__ ckpt,
+                     bool vec_bc, int t_len, int d_len) {
   constexpr int L = lanes_for(N);
   constexpr int S = (N + L - 1) / L;  // states a lane keeps
   constexpr int K = kPerThread;
@@ -266,6 +277,25 @@ selective_scan_lanes(const float* __restrict__ delta,
     Stage<N>& st = ring[c % kStages];
 #pragma unroll
     for (int g = 0; g < kSteps; g += L) {
+      if constexpr (kCkpt) {
+        const int t = c * kSteps + g;
+        if (g % kCkptSteps == 0 && t < t_len) {
+          const int n_int = (t_len + kCkptSteps - 1) / kCkptSteps;
+          float* row = ckpt + (((int64_t)bi * n_int + t / kCkptSteps) *
+                                   d_len + d0 + ch) * N;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            if (d0 + ch + k >= d_len) continue;
+            if constexpr (kExact) {
+              store_k<S>(row + k * N + n0, h[k]);
+            } else {
+#pragma unroll
+              for (int s = 0; s < S; ++s)
+                if (n0 + s < N) row[k * N + n0 + s] = h[k][s];
+            }
+          }
+        }
+      }
       float p[K][L];
 #pragma unroll
       for (int u = 0; u < L; ++u) {
@@ -326,20 +356,21 @@ selective_scan_lanes(const float* __restrict__ delta,
   }
 }
 
-template <int N>
+template <int N, bool kCkpt>
 int launch(const void* delta, const void* x, const void* b, const void* c,
-           const void* a, void* y, void* h_final, int batch, int t_len,
-           int d_len, cudaStream_t stream) {
+           const void* a, void* y, void* h_final, void* ckpt, int batch,
+           int t_len, int d_len, cudaStream_t stream) {
   const dim3 grid((d_len + kChannels - 1) / kChannels, batch);
   const int threads = threads_for(N);
   const bool vec = d_len % 4 == 0 && (uintptr_t)delta % 16 == 0 &&
                    (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
   const bool vec_bc = (uintptr_t)b % 16 == 0 && (uintptr_t)c % 16 == 0;
-  auto kernel = vec ? selective_scan_lanes<N, true>
-                    : selective_scan_lanes<N, false>;
+  auto kernel = vec ? selective_scan_lanes<N, true, kCkpt>
+                    : selective_scan_lanes<N, false, kCkpt>;
   kernel<<<grid, threads, 0, stream>>>(
       (const float*)delta, (const float*)x, (const float*)b, (const float*)c,
-      (const float*)a, (float*)y, (float*)h_final, vec_bc, t_len, d_len);
+      (const float*)a, (float*)y, (float*)h_final, (float*)ckpt, vec_bc,
+      t_len, d_len);
   return (int)cudaGetLastError();
 }
 
@@ -347,8 +378,17 @@ int launch(const void* delta, const void* x, const void* b, const void* c,
 
 #define SCAN_CASE(n)                                                      \
   case n:                                                                 \
-    return launch<n>(delta, x, b, c, a, y, h_final, batch, t_len, d_len, \
-                     (cudaStream_t)stream);
+    return ckpt == nullptr                                                \
+               ? launch<n, false>(delta, x, b, c, a, y, h_final, nullptr, \
+                                  batch, t_len, d_len,                    \
+                                  (cudaStream_t)stream)                   \
+               : launch<n, true>(delta, x, b, c, a, y, h_final, ckpt,     \
+                                 batch, t_len, d_len, (cudaStream_t)stream);
+#define SCAN_CASES                                                        \
+  SCAN_CASE(1) SCAN_CASE(2) SCAN_CASE(3) SCAN_CASE(4)                     \
+  SCAN_CASE(5) SCAN_CASE(6) SCAN_CASE(7) SCAN_CASE(8)                     \
+  SCAN_CASE(9) SCAN_CASE(10) SCAN_CASE(11) SCAN_CASE(12)                  \
+  SCAN_CASE(13) SCAN_CASE(14) SCAN_CASE(15) SCAN_CASE(16)
 
 // delta, x, y (B,T,D); b, c (B,T,N); a (D,N); h_final (B,D,N); float32,
 // contiguous, 1 <= N <= 16.  Returns the cudaGetLastError() of the launch.
@@ -357,11 +397,26 @@ extern "C" int selective_scan_launch(const void* delta, const void* x,
                                      const void* a, void* y, void* h_final,
                                      int batch, int t_len, int d_len,
                                      int d_state, void* stream) {
+  void* const ckpt = nullptr;
   switch (d_state) {
-    SCAN_CASE(1) SCAN_CASE(2) SCAN_CASE(3) SCAN_CASE(4)
-    SCAN_CASE(5) SCAN_CASE(6) SCAN_CASE(7) SCAN_CASE(8)
-    SCAN_CASE(9) SCAN_CASE(10) SCAN_CASE(11) SCAN_CASE(12)
-    SCAN_CASE(13) SCAN_CASE(14) SCAN_CASE(15) SCAN_CASE(16)
+    SCAN_CASES
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The training forward: as selective_scan_launch, and ckpt
+// (B, ceil(T/8), D, N) float32, contiguous: h at the start of every
+// 8-step interval (kCkptSteps), the first the zero state.
+extern "C" int selective_scan_ckpt_launch(const void* delta, const void* x,
+                                          const void* b, const void* c,
+                                          const void* a, void* y,
+                                          void* h_final, void* ckpt,
+                                          int batch, int t_len, int d_len,
+                                          int d_state, void* stream) {
+  if (ckpt == nullptr) return (int)cudaErrorInvalidValue;
+  switch (d_state) {
+    SCAN_CASES
     default:
       return (int)cudaErrorInvalidValue;
   }

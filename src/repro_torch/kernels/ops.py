@@ -306,23 +306,26 @@ class AttentionFn(torch.autograd.Function):
 
 class SelectiveScanFn(torch.autograd.Function):
     """The Mamba1 scan with its backward kernel (plain versions of both on
-    a CPU tensor); a gradient for ``h_final`` too, None read as zeros."""
+    a CPU tensor); a gradient for ``h_final`` too, None read as zeros.  The
+    forward is the training forward, which also keeps the states at the
+    start of every 8 steps (``ckpt``, 4 B per (b, interval, d, n), held
+    until the backward), so the backward kernel makes no forward sweep."""
 
     @staticmethod
     def forward(ctx, delta, x, b, c, a):
-        y, h_final = _scan.selective_scan(delta, x, b, c, a)
-        ctx.save_for_backward(delta, x, b, c, a)
+        y, h_final, ckpt = _scan.selective_scan_train(delta, x, b, c, a)
+        ctx.save_for_backward(delta, x, b, c, a, ckpt)
         ctx.set_materialize_grads(False)   # an unused output's grad: None
         return y, h_final
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        delta, x, b, c, a = ctx.saved_tensors
+        delta, x, b, c, a, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(delta)
         return _scan.selective_scan_bwd(
             delta, x, b, c, a, dy.contiguous(),
-            None if dh_final is None else dh_final.contiguous())
+            None if dh_final is None else dh_final.contiguous(), ckpt)
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None):

@@ -110,6 +110,25 @@ def selective_scan(delta, x, b, c, a):
     return torch.stack(ys, dim=1).to(delta.dtype), h
 
 
+def selective_scan_states(delta, x, b, c, a, interval: int):
+    """The states of ``selective_scan`` at the start of every ``interval``
+    steps, as the training forward checkpoints them: (B, ceil(T/interval),
+    D, N) float32, the first the zero state."""
+    bs, t, d = delta.shape
+    h = torch.zeros((bs, d, a.shape[-1]), dtype=torch.float32,
+                    device=delta.device)
+    starts = []
+    for i in range(t):
+        if i % interval == 0:
+            starts.append(h)
+        at = torch.exp(delta[:, i, :, None].float() * a.float())
+        h = at * h + (delta[:, i] * x[:, i]).float()[..., None] \
+            * b[:, i, None, :].float()
+    if not starts:
+        return h.new_zeros((bs, 0, d, a.shape[-1]))
+    return torch.stack(starts, dim=1)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               softcap: float | None = None):
     """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D), float32 softmax; query and

@@ -23,12 +23,18 @@ kernel to ``ref.attention_bwd`` on the card).  One bf16 term alone does
 not: ``terms=1`` puts dV or dQ past 2^-8 of its scale at these shapes.
 
 ``csrc/selective_scan_bwd.cu`` splits each channel's N states over L lanes
-(two channels a lane, 128 channels a CTA), checkpoints h every 16 steps,
-recomputes 8-step parts with exp2 of the prescaled A, and sums over N and
+(two channels a lane, 128 channels a CTA), starts every 8-step interval
+from the training forward's checkpoint (``csrc/selective_scan.cu`` writes
+h there with the forward's own arithmetic), recomputes the interval's
+states and factors with exp2 of the prescaled A once, and sums over N and
 over channels by transposing shuffle butterflies, then over warps and CTAs
-in order.  ``_scan_bwd_model`` repeats that order in float32 numpy and is
-held to ``ref.selective_scan_bwd`` at the backward's tolerance, 1e-4 of
-each gradient's scale (``SCAN_BWD_RTOL``).
+in order, walking the intervals once from the last.  ``_scan_train_model``
+repeats the training forward's checkpoints and ``_scan_bwd_model`` the
+backward's order in float32 numpy; they are held to
+``ref.selective_scan_states`` within 1e-5 of the states' scale and to
+``ref.selective_scan_bwd`` at the backward's tolerance, 1e-4 of each
+gradient's scale (``SCAN_BWD_RTOL``), at the interval as built and at
+16 steps (the variant with two 8-step parts an interval).
 
 The kernels themselves run only on the card (``chip_smoke.py``)."""
 import pytest
@@ -212,16 +218,36 @@ def _tree(v, axis):
     return v[..., 0]
 
 
-def _scan_bwd_model(delta, x, bm, cm, a, dy, dh_final=None, *, channels=128,
-                    steps=16, sub=8):
-    """What ``scan_bwd_lanes`` and ``scan_bwd_reduce_kernel`` compute, in
-    float32 numpy: time padded to whole intervals of ``steps``, channels to
-    whole CTAs of ``channels``, states to L lanes of S (padding states have
-    a = B = C = 0); h recomputed from the checkpoints with exp2 of the
-    prescaled A and the factors kept for the reverse step; each lane's sums
-    over its states in order, then over its two channels; the transposing
-    butterflies' pairings (over the L lanes for dx, ddelta; over the warp's
-    channel pairs for dB, dC), the warps and the CTAs in order."""
+def _scan_train_model(delta, x, bm, cm, a, *, steps=8):
+    """The training forward's checkpoints (``selective_scan_lanes`` with
+    kCkpt), in float32 numpy: h at the start of every ``steps`` steps,
+    from the zero state, by exp2 of the prescaled A and one multiply-add
+    a state and step -> (B, ceil(T/steps), D, N)."""
+    bs, t, d = delta.shape
+    a2 = (a * LOG2E32).astype(F32)
+    h = np.zeros((bs, d, a.shape[1]), F32)
+    starts = []
+    for ti in range(t):
+        if ti % steps == 0:
+            starts.append(h.copy())
+        e = np.exp2((delta[:, ti, :, None] * a2).astype(F32)).astype(F32)
+        h = (e * h + (delta[:, ti] * x[:, ti])[..., None]
+             * bm[:, ti, None, :]).astype(F32)
+    return np.stack(starts, axis=1)
+
+
+def _scan_bwd_model(delta, x, bm, cm, a, ckpt, dy, dh_final=None, *,
+                    channels=128, steps=8, sub=8):
+    """What ``scan_bwd_tma`` and ``scan_bwd_reduce_kernel`` compute, in
+    float32 numpy: the intervals of ``steps`` from the last, each started
+    from its checkpoint (no forward sweep; steps past T and channels past D
+    arrive as zeros), its ``sub``-step parts from the last, each part's
+    states and factors recomputed from the interval's start with exp2 of
+    the prescaled A and kept for the reverse step; states padded to L
+    lanes of S (padding states have a = B = C = 0); each lane's sums over
+    its states in order, then over its two channels; the transposing
+    butterflies' pairings (over the L lanes for dx, ddelta; over the
+    warp's channel pairs for dB, dC), the warps and the CTAs in order."""
     bs, t, d = delta.shape
     n = a.shape[1]
     lanes = _lanes_for(n)
@@ -239,17 +265,9 @@ def _scan_bwd_model(delta, x, bm, cm, a, dy, dh_final=None, *, channels=128,
     dl, xl, gyl = (pad(v, (bs, tp, dp)) for v in (delta, x, dy))
     bl, cl = (pad(v, (bs, tp, ns)) for v in (bm, cm))
     a2 = (pad(a, (dp, ns)) * LOG2E32).astype(F32)
+    starts = pad(ckpt, (bs, tp // steps, dp, ns))
     carry = np.zeros((bs, dp, ns), F32) if dh_final is None \
         else pad(dh_final, (bs, dp, ns))
-    # the forward sweep: h at the start of every interval
-    h = np.zeros((bs, dp, ns), F32)
-    starts = []
-    for ti in range(tp):
-        if ti % steps == 0:
-            starts.append(h.copy())
-        e = np.exp2((dl[:, ti, :, None] * a2).astype(F32)).astype(F32)
-        h = (e * h + (dl[:, ti] * xl[:, ti])[..., None]
-             * bl[:, ti, None, :]).astype(F32)
     ddelta = np.zeros((bs, tp, dp), F32)
     dx = np.zeros((bs, tp, dp), F32)
     # per step, CTA and warp: dB and dC summed over the warp's channels
@@ -258,7 +276,7 @@ def _scan_bwd_model(delta, x, bm, cm, a, dy, dh_final=None, *, channels=128,
     da = np.zeros((bs, dp, ns), F32)
     for c in reversed(range(tp // steps)):
         for j in reversed(range(steps // sub)):
-            h = starts[c].copy()
+            h = starts[:, c].copy()
             hist, at = [], []
             for u in range(j * sub + sub):
                 ti = c * steps + u
@@ -323,20 +341,32 @@ def _scan_arrays(seed, b, t, d, n):
     return delta, x, bm, cm, a, dy, dh
 
 
-@pytest.mark.parametrize("t,d,n,with_dh", [
-    (37, 40, 1, True),      # one lane a channel, one state; D < a CTA
-    (40, 70, 5, False),     # 2 lanes of 3 states, one padded; ragged T
-    (48, 160, 16, True),    # 4 lanes of 4 states; D = a CTA + 32
-    (33, 136, 16, False),   # one checkpoint interval and a part of one
+@pytest.mark.parametrize("t,d,n,with_dh,steps", [
+    (37, 40, 1, True, 8),      # one lane a channel, one state; D < a CTA
+    (40, 70, 5, False, 8),     # 2 lanes of 3 states, one padded; ragged T
+    (48, 160, 16, True, 8),    # 4 lanes of 4 states; D = a CTA + 32
+    (33, 136, 16, False, 8),   # T one past whole intervals
+    (5, 24, 4, True, 8),       # T inside one interval; N = 4 (rows on TMA)
+    (21, 130, 12, True, 8),    # 4 lanes of 3 states; D % 4 != 0
+    (40, 70, 9, True, 8),      # 2 lanes of 5 states, one padded
+    (33, 136, 16, False, 16),  # 16-step intervals: two parts each
+    (21, 130, 12, True, 16),   # the same, D % 4 != 0
 ])
-def test_scan_bwd_model_matches_the_plain_backward(t, d, n, with_dh):
-    """N = 1, 5 and 16, D not a multiple of the CTA's 128 channels, T not a
-    multiple of the 16-step interval nor of the 8-step part, with and
-    without dh_final: every gradient within 1e-4 of its scale of
-    ``ref.selective_scan_bwd``."""
+def test_scan_bwd_model_matches_the_plain_backward(t, d, n, with_dh, steps):
+    """N = 1, 4, 5, 9, 12 and 16, D not a multiple of the CTA's 128
+    channels nor of 4, T not a multiple of the interval nor of the 8-step
+    part (and shorter than one), with and without dh_final, at the
+    interval as built and at 16 steps: the model's checkpoints within 1e-5
+    of ``ref.selective_scan_states``, every gradient within 1e-4 of its
+    scale of ``ref.selective_scan_bwd``."""
     arrays = _scan_arrays(t + d + n, 2, t, d, n)
     dh = arrays[6] if with_dh else None
-    got = _scan_bwd_model(*arrays[:6], dh)
+    ckpt = _scan_train_model(*arrays[:5], steps=steps)
+    states = ref.selective_scan_states(*map(torch.from_numpy, arrays[:5]),
+                                       steps).numpy()
+    assert ckpt.shape == states.shape
+    assert _share(ckpt, states) <= 1e-5
+    got = _scan_bwd_model(*arrays[:5], ckpt, arrays[5], dh, steps=steps)
     want = ref.selective_scan_bwd(*map(torch.from_numpy, arrays[:6]),
                                   None if dh is None else torch.from_numpy(dh))
     for g, w in zip(got, want):
@@ -349,7 +379,8 @@ def test_scan_bwd_model_is_not_the_float64_backward():
     change of arithmetic: the model differs from the backward in float64,
     by far less than the tolerance."""
     arrays = _scan_arrays(5, 2, 40, 136, 16)
-    got = _scan_bwd_model(*arrays[:6], arrays[6])
+    ckpt = _scan_train_model(*arrays[:5])
+    got = _scan_bwd_model(*arrays[:5], ckpt, arrays[5], arrays[6])
     want = ref.selective_scan_bwd(*(torch.from_numpy(v).double()
                                     for v in arrays))
     shares = [_share(g, w.numpy()) for g, w in zip(got, want)]
@@ -357,18 +388,25 @@ def test_scan_bwd_model_is_not_the_float64_backward():
 
 
 def test_scan_bwd_constants_match_the_kernel():
-    """The model's CTA width, interval and part are the kernel's, and the
-    scratch the wrapper allocates is sized by the same numbers (read from
-    the source: nothing compiles here)."""
+    """The model's CTA width, interval and part are the kernels' (read
+    from the sources: nothing compiles here): the training forward's
+    checkpoint interval is the backward's, and the wrapper sizes the
+    checkpoints and the scratch by the same numbers; both kernels split
+    states over lanes by one rule."""
     src = (_build.CSRC / "selective_scan_bwd.cu").read_text()
+    fwd = (_build.CSRC / "selective_scan.cu").read_text()
     channels = int(re.search(r"constexpr int kChannels = (\d+);", src)[1])
     steps = int(re.search(r"constexpr int kSteps = (\d+);", src)[1])
     sub = int(re.search(r"constexpr int kSub = (\d+);", src)[1])
-    assert (channels, steps, sub) == (128, 16, 8)
+    ckpt_steps = int(re.search(r"constexpr int kCkptSteps = (\d+);",
+                               fwd)[1])
+    assert (channels, steps, sub) == (128, 8, 8)
+    assert ckpt_steps == steps == selective_scan.CKPT_STEPS
     assert selective_scan._BWD_CHANNELS == channels
-    assert selective_scan._BWD_STEPS == steps
-    rule = re.search(r"lanes_for\(int n\) \{\s*return ([^;]+);", src).group(1)
-    assert rule == "n >= 10 ? 4 : (n >= 5 ? 2 : 1)"
+    for text in (src, fwd):
+        rule = re.search(r"lanes_for\(int n\) \{\s*return ([^;]+);",
+                         text).group(1)
+        assert rule == "n >= 10 ? 4 : (n >= 5 ? 2 : 1)"
 
 
 def test_flash_bwd_tiles_match_the_kernel():

@@ -409,10 +409,25 @@ def test_scan_meta_route_shapes():
     _like(ss.selective_scan(*meta), ss.selective_scan(*cpu))
     _like(ss.selective_scan_bwd(*meta, dy.to("meta"), dh.to("meta")),
           ss.selective_scan_bwd(*cpu, dy, dh))
+    # the training forward: y, h_final and the checkpoints, one at the
+    # start of every CKPT_STEPS steps, which the backward takes
+    n_int = -(-t // ss.CKPT_STEPS)
+    train_meta = ss.selective_scan_train(*meta)
+    train_cpu = ss.selective_scan_train(*cpu)
+    _like(train_meta, train_cpu)
+    assert train_meta[2].shape == (b, n_int, d, n)
+    _like(ss.selective_scan_bwd(*meta, dy.to("meta"), dh.to("meta"),
+                                train_meta[2]),
+          ss.selective_scan_bwd(*cpu, dy, dh, train_cpu[2]))
     with ca.CostTrace() as trace:
         ss.selective_scan(*meta)
+        ss.selective_scan_train(*meta)
     assert trace.kernels["selective_scan"]["flops"] == 7 * b * t * d * n
     assert trace.kernels["selective_scan"]["dot_flops"] == 0
+    assert trace.kernels["selective_scan_train"]["flops"] == \
+        7 * b * t * d * n
+    assert trace.kernels["selective_scan_train"]["bytes"] == \
+        trace.kernels["selective_scan"]["bytes"] + 4 * b * n_int * d * n
 
 
 # ---------------------------------------------------------------------------

@@ -304,6 +304,8 @@ def test_dkdv_tile_walk_covers_every_weighted_pair(t, s, causal, window):
      "_BWD_ARGTYPES"),
     (selective_scan, "selective_scan_bwd.cu", "selective_scan_bwd_launch",
      "_BWD_ARGTYPES"),
+    (selective_scan, "selective_scan.cu", "selective_scan_ckpt_launch",
+     "_CKPT_ARGTYPES"),
 ])
 def test_ctypes_signature_matches_the_new_c_entry_points(module, src, entry,
                                                          argtypes):
