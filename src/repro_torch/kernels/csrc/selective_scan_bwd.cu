@@ -35,11 +35,11 @@
 //   turns on the card, the sum of the training forward's and this
 //   kernel's times chose 8-step checkpoints over 16-step ones (two parts
 //   an interval, part 1's start recomputed through part 0: 1.5
-//   exponentials): 0.471 against 0.496 ms at the falcon shape, the
-//   forward writing 134 MB of checkpoints against 67 MB.  (Part 0's
-//   states and factors kept in shared memory instead would need 128 KB
-//   beside the 16-step ring's 104 KB and the sums' 48 KB; a_t there for
-//   every part was slower than in registers.)
+//   exponentials): 0.418 against 0.436 ms at the falcon shape on an
+//   H100, the forward writing 134 MB of checkpoints against 67 MB.
+//   (Part 0's states and factors kept in shared memory instead would
+//   need 128 KB beside the 16-step ring's 104 KB and the sums' 48 KB;
+//   a_t there for every part was slower than in registers.)
 // - One producer thread feeds a ring of kStages intervals through TMA: the
 //   (kSteps x 128-channel) boxes of delta, x and dy from (B, T, D) maps,
 //   the kSteps rows of B_t and C_t from (B, T, N) maps and the checkpoint
@@ -55,7 +55,11 @@
 //   L = 1, 2 or 4 neighbouring lanes (4 lanes of 4 states at N = 16), and
 //   each lane works on 2 neighbouring channels that share its reads of B_t
 //   and C_t.  A CTA owns 128 channels of one sequence (256 compute threads
-//   at N = 16).
+//   at N = 16).  One kernel a state count N: with N a constant the rows of
+//   N floats in shared memory are addressed by immediates (a kernel a
+//   lane split, N read at run time, had about one integer instruction,
+//   mostly address arithmetic, for every two floating-point ones in its
+//   SASS, and took 15% longer).
 // - The reverse step of a part runs kBatch steps' arithmetic first,
 //   keeping each step's partial sums, then their butterflies together,
 //   whose shuffle chains are independent of each other:
@@ -362,10 +366,11 @@ __device__ __forceinline__ void produce(
   cp_async_mbar_arrive(full);
 }
 
-// L lanes a channel, S states a lane (N <= L S: states past N are padding
-// with a = B = C = 0, whose h and g stay 0).  The compute threads come
-// first, then the producer warpgroup.
-template <int L, int S>
+// N states a channel, split over L lanes of S (N <= L S: states past N are
+// padding with a = B = C = 0, whose h and g stay 0); N is a constant so
+// that the shared-memory rows of N floats are addressed by immediates.
+// The compute threads come first, then the producer warpgroup.
+template <int N, int L = lanes_for(N), int S = (N + L - 1) / L>
 __global__ void __launch_bounds__(threads_for_lanes(L) + kProducer, 1)
 scan_bwd_tma(const __grid_constant__ Maps maps,
              const float* __restrict__ delta, const float* __restrict__ x,
@@ -376,7 +381,8 @@ scan_bwd_tma(const __grid_constant__ Maps maps,
              float* __restrict__ ddelta, float* __restrict__ dx,
              float* __restrict__ part_b, float* __restrict__ part_c,
              float* __restrict__ part_a, bool tma_rows, bool tma_n,
-             int t_len, int d_len, int n) {
+             int t_len, int d_len) {
+  constexpr int n = N;
   constexpr int LS = L * S;
   constexpr int K = kPerThread;
   constexpr int kThreads = threads_for_lanes(L);
@@ -488,7 +494,7 @@ scan_bwd_tma(const __grid_constant__ Maps maps,
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
   const int ch = threadIdx.x / L * K, lane = threadIdx.x % L;
   const int n0 = lane * S;
-  const bool exact = LS == n;  // no lane keeps a padding state
+  constexpr bool exact = LS == n;  // no lane keeps a padding state
   float a2[K][S], carry[K][S], da[K][S];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -691,12 +697,13 @@ int float_map(CUtensorMap* map, const void* base, int rank,
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-template <int L, int S>
+template <int N>
 int launch(const float* delta, const float* x, const float* b, const float* c,
            const float* a, const float* ckpt, const float* dy,
            const float* dh_final, float* ddelta, float* dx, float* db,
            float* dc, float* da, float* part_b, float* part_c, float* part_a,
-           int batch, int t_len, int d_len, int n, cudaStream_t stream) {
+           int batch, int t_len, int d_len, cudaStream_t stream) {
+  constexpr int L = lanes_for(N), S = (N + L - 1) / L, n = N;
   constexpr int kThreads = threads_for_lanes(L);
   const int n_cb = (d_len + kChannels - 1) / kChannels;
   const int chunks = (t_len + kSteps - 1) / kSteps;
@@ -728,7 +735,7 @@ int launch(const float* delta, const float* x, const float* b, const float* c,
   }
   if (err) return err;
   constexpr int smem = (int)sizeof(BwdSmem<L, S>) + 128;
-  err = allow_dynamic_smem<scan_bwd_tma<L, S>, smem>();
+  err = allow_dynamic_smem<scan_bwd_tma<N>, smem>();
   if (err) return err;
 #ifdef SCAN_BWD_PHASES
   if (!scan_events_made) {
@@ -737,10 +744,10 @@ int launch(const float* delta, const float* x, const float* b, const float* c,
   }
   cudaEventRecord(scan_events[0], stream);
 #endif
-  scan_bwd_tma<L, S><<<dim3(n_cb, batch), kThreads + kProducer, smem,
-                       stream>>>(maps, delta, x, b, c, a, ckpt, dy, dh_final,
-                                 ddelta, dx, part_b, part_c, part_a,
-                                 tma_rows, tma_n, t_len, d_len, n);
+  scan_bwd_tma<N><<<dim3(n_cb, batch), kThreads + kProducer, smem,
+                    stream>>>(maps, delta, x, b, c, a, ckpt, dy, dh_final,
+                              ddelta, dx, part_b, part_c, part_a, tma_rows,
+                              tma_n, t_len, d_len);
   err = (int)cudaGetLastError();
   if (err) return err;
 #ifdef SCAN_BWD_PHASES
@@ -773,14 +780,14 @@ extern "C" int selective_scan_bwd_launch(
     int d_state, void* stream) {
 #define SCAN_BWD(n)                                                       \
   case n:                                                                 \
-    return launch<lanes_for(n), (n + lanes_for(n) - 1) / lanes_for(n)>(   \
-        (const float*)delta, (const float*)x, (const float*)b,            \
-        (const float*)c, (const float*)a, (const float*)ckpt,             \
-        (const float*)dy, (const float*)dh_final, (float*)ddelta,         \
-        (float*)dx, (float*)db, (float*)dc, (float*)da, (float*)part_b,   \
-        (float*)part_c, (float*)part_a, batch, t_len, d_len, d_state,     \
-        (cudaStream_t)stream);
-  // one kernel a (lanes, states a lane): N = 5 and 6 share (2, 3), ...
+    return launch<n>((const float*)delta, (const float*)x,                \
+                     (const float*)b, (const float*)c, (const float*)a,   \
+                     (const float*)ckpt, (const float*)dy,                \
+                     (const float*)dh_final, (float*)ddelta, (float*)dx,  \
+                     (float*)db, (float*)dc, (float*)da, (float*)part_b,  \
+                     (float*)part_c, (float*)part_a, batch, t_len, d_len, \
+                     (cudaStream_t)stream);
+  // one kernel a state count
   switch (d_state) {
     SCAN_BWD(1) SCAN_BWD(2) SCAN_BWD(3) SCAN_BWD(4)
     SCAN_BWD(5) SCAN_BWD(6) SCAN_BWD(7) SCAN_BWD(8)
