@@ -131,6 +131,20 @@ step on 1 x 4,096 tokens and h2o-danube-1.8b's prefill_32k on 1 x 32,768.
             walls, tokens/s,
             parameter bytes, peak memory, and one profiled prefill and
             decode step (with the kernel's share of the device time);
+7b. sharded the serving steps sharded over meshes of four positions on
+            the first min(4, count) cards (four streams on one card), as
+            (2, 2) and (1, 4): llama3.2-1b and falcon-mamba-7b at
+            published widths in float32, cut as ``fullwidth.CUTS``,
+            against the JAX package's serving readings at
+            ``fullwidth.LIMITS``; then both at full width and depth in
+            bf16, 4 x 512 tokens and 8 greedy steps, llama's cache split
+            by sequence (576 slots) on (2, 2) and by heads (543) on
+            (1, 4): per-slot parameter bytes equal to ``shard_bytes``,
+            flash and scan launched layers x slots times at the slots'
+            local shapes, the bf16 logits within twice the one-device
+            bf16 route's error of the one-device float32 route, a second
+            prefill bit-equal; walls beside the one-device route's, the
+            collectives a step by kind, axes and bytes;
 8. times    each kernel's own device time (from the CUDA profiler) against
             its bound, its plain version's and, where one exists, a library
             call's, each beside CUDA events around back-to-back calls (the
@@ -144,7 +158,8 @@ step on 1 x 4,096 tokens and h2o-danube-1.8b's prefill_32k on 1 x 32,768.
             shapes, at qwen2-vl's prefill shape, at gemma3's prefill (4b
             and 12b) and training (4b) shapes, global and local, at the
             prefill shapes of mixtral, arctic and zamba2 and the training
-            shapes of mixtral and zamba2, beside SDPA and its backward);
+            shapes of mixtral and zamba2, beside SDPA and its backward;
+            flash and the scan at phase 7b's local shapes);
 9. train    gradients through the kernels: one llama attention layer,
             one falcon-mamba Mamba1 layer, one whisper decoder layer, one
             h2o-danube layer on 6,144 tokens (past its window), one
@@ -256,6 +271,21 @@ INT32_MAX = 2**31 - 1
 SERVE = (("llama3.2-1b", "flash_attention"),
          ("falcon-mamba-7b", "selective_scan"))
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# sharded serving (phase 7b): llama3.2-1b and falcon-mamba-7b at full
+# width and depth over four mesh positions, as (2, 2) and (1, 4), each
+# with a cache length that splits llama's cache by sequence (576, which
+# "model" divides) or by heads (543, which it does not); 8 greedy steps
+SHARDED_MESHES = {"(2, 2)": ((2, 2), 576), "(1, 4)": ((1, 4), 543)}
+SHARDED_GEN = 8
+SHARDED_PHASE_S = 120.0
+# the slots' local shapes there: flash on the local heads of llama's
+# prefill, the scan on falcon-mamba's local channels
+SHARDED_ATTN = {"(2, 2)": (2, SERVE_PROMPT, SERVE_PROMPT, 16, 4, 64, True,
+                           None, torch.bfloat16),
+                "(1, 4)": (4, SERVE_PROMPT, SERVE_PROMPT, 8, 2, 64, True,
+                           None, torch.bfloat16)}
+SHARDED_SCAN = {"(2, 2)": (2, SERVE_PROMPT, 4096, 16),
+                "(1, 4)": (4, SERVE_PROMPT, 2048, 16)}
 # h2o-danube-1.8b (arXiv:2401.16818: 24 layers, width 2,560, 32 heads over
 # 8 KV heads of 80, sliding window 4,096): prompts of twice the window, so
 # prefill keeps a ring of the last 4,096 positions a layer and every decode
@@ -773,6 +803,58 @@ def device_ms(fn, iters: int, match: str | None = None) -> tuple[float, str]:
         seen.append(sorted(e.key[:80] for e in device)[:4])
     PROFILER_MISSES.append({"match": match, "device_events_seen": seen})
     return cuda_ms(fn, iters), "cuda_events"
+
+
+def queued_ms(fn, iters: int) -> dict:
+    """Device time per call of ``fn`` in ms, by CUDA events around
+    ``iters`` calls queued behind a spin kernel (``torch.cuda._sleep``):
+    the host queues every call while the card spins, so the calls run
+    back to back and the time leaves out both the host's time between
+    launches (which ``cuda_ms`` counts) and the profiler.  The spin
+    doubles until the host has queued the calls before it ends."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(6):
+        spin, start, stop = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        t0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < spin.elapsed_time(start):
+            return {"ms": start.elapsed_time(stop) / iters,
+                    "spin_ms": spin.elapsed_time(start), "host_ms": host_ms}
+        cycles *= 4
+    raise RuntimeError(f"queued_ms: the host took {host_ms} ms to queue "
+                       f"{iters} calls, longer than a spin of {cycles} "
+                       f"cycles")
+
+
+def cold_ms(make, call, set_bytes: int, match: str) -> dict:
+    """``call(*inputs)``'s device time per call with its inputs taken in
+    turn from enough sets made by ``make()`` that the sets hold,
+    together, twice the card's L2 cache: a call does not find its inputs
+    left in L2 by the calls before it, so the time may be held to the
+    HBM bound.  By the profiler (``device_ms``) and by events around calls
+    queued behind a spin (``queued_ms``).  ``set_bytes`` is one call's
+    inputs and output."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    n = max(2, -(-2 * l2 // set_bytes) + 1)
+    sets = [make() for _ in range(n)]
+    turn = iter(range(1 << 62))
+
+    def one():
+        return call(*sets[next(turn) % n])
+    ms, by = device_ms(one, max(20, n), match)
+    return {"cold_ms": ms, "cold_ms_by": by,
+            "cold_queued_ms": queued_ms(one, 2 * n)["ms"], "cold_sets": n,
+            "l2_bytes": l2}
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -1398,7 +1480,9 @@ def phase_kernels(rng):
             # GQA 48/8, 56/8 and 32/32 (mixtral, arctic, zamba2's shared
             # block), then the three models' prefill shapes
             *MOE_HYBRID_CASES, MIXTRAL_PREFILL_ATTN, ARCTIC_PREFILL_ATTN,
-            ZAMBA_PREFILL_ATTN]:
+            ZAMBA_PREFILL_ATTN,
+            # the local shapes of llama's sharded prefill (phase 7b)
+            *SHARDED_ATTN.values()]:
         b, t, s, h, kv, d, causal, window, dtype, *cap = shape
         cap = cap[0] if cap else None
         q, k, v = attn_inputs(b, t, s, h, kv, d, dtype)
@@ -1423,6 +1507,7 @@ def phase_kernels(rng):
         del q, k, v, got
     scan_cases = []
     for b, t, d, n in [(SERVE_BATCH, SERVE_PROMPT, 8192, 16),  # falcon-mamba
+                       *SHARDED_SCAN.values(),     # its sharded prefill's
                        (2, 100, 300, 8), (1, 70, 130, 5)]:
         inputs = scan_inputs(b, t, d, n)
         got = selective_scan.selective_scan(*inputs)
@@ -3572,6 +3657,332 @@ def phase_train(batch: dict) -> dict:
 # run for real at full width and depth, their batch cut to fit one card.
 # which kernels each family's full-width run must launch on the kernel
 # route (flash: attention; the scan: Mamba1)
+def sharded_devices() -> list:
+    """Four mesh positions over the first min(4, count) cards, repeated:
+    four streams on one card where there is one."""
+    n = min(4, torch.cuda.device_count())
+    return [torch.device("cuda", i % n) for i in range(4)]
+
+
+def placed_params(specs, mesh, dtype):
+    """The parameters ``init_params`` draws from SEED (float32 draws
+    stored in ``dtype``), placed on ``mesh`` a leaf at a time: the whole
+    leaf is freed once its shards are made, so the whole model never sits
+    on the card beside its shards."""
+    from repro_torch.dist.sharding import init_params, place
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def walk(node):
+        out = {}
+        for k in sorted(node):     # init_params' order: the same draws
+            if isinstance(node[k], dict):
+                out[k] = walk(node[k])
+                continue
+            whole = init_params({k: node[k]}, gen, "cuda", dtype=dtype)[k]
+            out[k] = place(whole, node[k], mesh)
+            del whole
+        return out
+    return walk(specs)
+
+
+def sharded_launch_key(kernel: str, mesh_name: str) -> str:
+    """"kernel: launch key" of a slot's launch in phase 7b on a mesh:
+    flash at SHARDED_ATTN's local shape, the scan at SHARDED_SCAN's."""
+    from repro_torch.kernels import flash_attention, selective_scan
+
+    if kernel == "flash_attention":
+        b, t, s, h, kv, d, causal, window, dtype = SHARDED_ATTN[mesh_name]
+        q = torch.empty((b, t, h, d), dtype=dtype, device="meta")
+        k = torch.empty((b, s, kv, d), dtype=dtype, device="meta")
+        return "flash_attention: " + flash_attention.launch_key(
+            "fwd", q, k, causal, window)
+    b, t, d, n = SHARDED_SCAN[mesh_name]
+    return "selective_scan: " + selective_scan.launch_key(
+        torch.empty((b, t, d), device="meta"),
+        torch.empty((d, n), device="meta"))
+
+
+def logits_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def phase_sharded_serve(rng) -> dict:
+    """Phase 7b: sharded serving over meshes of four positions on the first
+    min(4, count) cards (four streams on one card where there is one), as
+    (2, 2) and (1, 4), through ``train.step``'s sharded prefill and decode
+    steps (one thread a slot, collectives in torch).
+
+    * Held to the JAX package: llama3.2-1b and falcon-mamba-7b at
+      published widths in float32 compute, cut by ``fullwidth.CUTS``, on
+      the kernel route over each mesh against ``fullwidth_jax.npz``'s
+      serving readings at ``fullwidth.LIMITS``.
+    * Full width and depth in bf16: SERVE_BATCH x SERVE_PROMPT tokens and
+      SHARDED_GEN steps, llama's cache split by sequence on (2, 2) (576
+      slots) and by heads on (1, 4) (543).  The one-device float32
+      route's last-position prefill logits and the logits of each of its
+      greedy decode steps are the reference; every route's decode is fed
+      the float32 route's greedy tokens, and at prefill and at every
+      decode step the sharded bf16 logits must be within twice the
+      one-device bf16 route's error of them.  Each slot's parameter bytes equal
+      ``shard_bytes`` and no shard is larger than ``shard_shape``; the
+      kernel launches in prefill are layers x slots at the local shapes
+      (SHARDED_ATTN, SHARDED_SCAN), none in decode; a second prefill
+      gives the same bits.  Readings: the walls of both routes on the
+      same card, the collectives a step by kind, axes and bytes, and the
+      step at which the sharded route's greedy token first differs from
+      the one-device bf16 route's (both fed the same tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist.sharding import init_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fullwidth as fw
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import model_specs
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    devices = sharded_devices()
+    meshes = {name: mesh_mod.make_mesh(shape, ("data", "model"), devices)
+              for name, (shape, _) in SHARDED_MESHES.items()}
+    emit("sharded_devices", devices=sorted({str(d) for d in devices}),
+         positions=[str(d) for d in devices],
+         meshes={k: m.shape for k, m in meshes.items()})
+    ops.use_kernels(True)
+
+    # --- held to the JAX package's readings at published widths ----------
+    ref = fw.load_fixture()
+    held = {}
+    for arch, kernel in SERVE:
+        for name, mesh in meshes.items():
+            torch.cuda.empty_cache()
+            clear_launches()
+            t0 = time.perf_counter()
+            got = fw.run(arch, "cuda", ref, mesh=mesh)
+            torch.cuda.synchronize()
+            readings, fails = fw.compare(arch, got, fw.serving(ref))
+            launches = dict(ops.KERNEL_LAUNCHES)
+            rec = {"arch": arch, "mesh": name, "cut": fw.CUTS[arch].meta(),
+                   "readings": readings,
+                   "limits": {k: fw.LIMITS[k] for k in readings},
+                   "launches": launches,
+                   "seconds": time.perf_counter() - t0}
+            emit("sharded_fullwidth", **rec)
+            check(not fails, f"sharded fullwidth {arch} on {name}: {fails}")
+            check(set(readings) == {"prefill_logits", "prefill_top",
+                                    "cache", "decode_logits"},
+                  f"sharded fullwidth {arch} on {name}: readings "
+                  f"{sorted(readings)}")
+            check(launches.get(kernel, 0) > 0,
+                  f"sharded fullwidth {arch} on {name}: {kernel} not "
+                  f"launched")
+            held[f"{arch} {name}"] = rec
+            del got
+
+    # --- full width and depth in bf16 --------------------------------------
+    out = {"held_to_jax": held}
+    for arch, kernel in SERVE:
+        cfg = get_config(arch)
+        specs = model_specs(cfg)
+        layers = cfg.n_layers
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+        batch = {"tokens": tokens}
+        torch.cuda.empty_cache()
+        # the one-device routes first (float32, then bf16), then freed
+        cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = init_params(specs, gen, "cuda")
+        max_len = max(length for _, length in SHARDED_MESHES.values())
+        ref32, cache32 = make_prefill_step(cfg32, max_len=max_len)(params,
+                                                                   batch)
+        # the float32 route's greedy tokens feed every route's decode
+        decode32 = make_decode_step(cfg32)
+        feed, ref_steps = [ref32.argmax(-1)], []
+        for i in range(SHARDED_GEN - 1):
+            lg, cache32 = decode32(params, cache32, {"tokens": feed[-1],
+                                                     "pos": SERVE_PROMPT + i})
+            ref_steps.append(lg)
+            feed.append(lg.argmax(-1))
+        del params, cache32
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = init_params(specs, gen, "cuda", dtype=torch.bfloat16)
+        one = {}
+        for name, (shape, length) in SHARDED_MESHES.items():
+            prefill = make_prefill_step(cfg, max_len=length)
+            decode = make_decode_step(cfg)
+            logits, cache = prefill(params, batch)            # warm-up
+            decode(params, cache, {"tokens": logits.argmax(-1),
+                                   "pos": SERVE_PROMPT})
+            del logits, cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            toks = [logits.argmax(-1)]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            steps = []
+            t0 = time.perf_counter()
+            for i in range(SHARDED_GEN - 1):
+                lg, cache = decode(params, cache, {"tokens": feed[i],
+                                                   "pos": SERVE_PROMPT + i})
+                steps.append(lg)
+                toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            one[name] = {"logits": logits, "tokens": torch.stack(toks, 1),
+                         "steps": steps, "prefill_s": prefill_s,
+                         "decode_ms_per_step": (time.perf_counter() - t0)
+                         / (SHARDED_GEN - 1) * 1e3}
+            del cache
+        del params
+        torch.cuda.empty_cache()
+        bf16_specs = sh.map_specs(lambda x: sh.TensorSpec(
+            x.shape, x.axes, torch.bfloat16 if x.dtype.is_floating_point
+            else x.dtype, x.init, x.scale), specs)
+        for name, (shape, length) in SHARDED_MESHES.items():
+            mesh = meshes[name]
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            placed = placed_params(specs, mesh, torch.bfloat16)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() - base
+            per_slot = {}
+            for pos in np.ndindex(shape):
+                per_slot[str(pos)] = sum(
+                    x.shards[pos].numel() * x.shards[pos].element_size()
+                    for x in fw.flat(placed).values())
+            want_bytes = sh.shard_bytes(bf16_specs, mesh)
+            check(all(v == want_bytes for v in per_slot.values()),
+                  f"sharded {arch} on {name}: slot parameter bytes "
+                  f"{per_slot} != shard_bytes {want_bytes}")
+            flat_specs = fw.flat(bf16_specs)
+            for path, x in fw.flat(placed).items():
+                want_shape = sh.shard_shape(flat_specs[path], mesh)
+                check(all(tuple(t.shape) == want_shape
+                          for t in x.shards.flat),
+                      f"sharded {arch} on {name}: {path}'s shards "
+                      f"{[tuple(t.shape) for t in x.shards.flat][:2]} != "
+                      f"{want_shape}")
+            prefill = make_prefill_step(cfg, mesh=mesh, max_len=length)
+            decode = make_decode_step(cfg, mesh=mesh)
+            logits, cache = prefill(placed, batch)             # warm-up
+            decode(placed, cache, {"tokens": logits.argmax(-1),
+                                   "pos": SERVE_PROMPT})
+            del logits, cache
+            torch.cuda.synchronize()
+            clear_launches()
+            mesh_mod.clear_collectives()
+            t0 = time.perf_counter()
+            logits, cache = prefill(placed, batch)
+            toks = [logits.argmax(-1)]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            prefill_launches = dict(ops.KERNEL_LAUNCHES)
+            prefill_shapes = shape_launches()
+            prefill_coll = mesh_mod.collective_counts()
+            first_cache = sh.gather(cache)
+            mesh_mod.clear_collectives()
+            steps = []
+            t0 = time.perf_counter()
+            for i in range(SHARDED_GEN - 1):
+                lg, cache = decode(placed, cache, {"tokens": feed[i],
+                                                   "pos": SERVE_PROMPT + i})
+                steps.append(lg)
+                toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) / (SHARDED_GEN - 1) * 1e3
+            decode_coll = {k: {f: v[f] / (SHARDED_GEN - 1) for f in v}
+                           for k, v in mesh_mod.collective_counts().items()}
+            launches = dict(ops.KERNEL_LAUNCHES)
+            toks = torch.stack(toks, 1)
+            # the same bits from a second prefill
+            logits2, cache2 = prefill(placed, batch)
+            same_bits = torch.equal(bits(logits2), bits(logits)) and all(
+                torch.equal(a.view(torch.int16) if a.element_size() == 2
+                            else bits(a), b.view(torch.int16)
+                            if b.element_size() == 2 else bits(b))
+                for a, b in zip(fw.flat(sh.gather(cache2)).values(),
+                                fw.flat(first_cache).values()))
+            cache_layout = {p: list(map(list, x.layout)) for p, x in
+                            fw.flat(cache2).items()}
+            del logits2, cache2, cache, first_cache
+            key = sharded_launch_key(kernel, name)
+            err_one = logits_err(one[name]["logits"], ref32)
+            err_sh = logits_err(logits, ref32)
+            step_err_one = [logits_err(a, w) for a, w in
+                            zip(one[name]["steps"], ref_steps)]
+            step_err_sh = [logits_err(a, w) for a, w in
+                           zip(steps, ref_steps)]
+            del steps
+            differ = (toks != one[name]["tokens"]).any(0).nonzero()
+            rec = {"arch": arch, "mesh": name, "mesh_shape": list(shape),
+                   "max_len": length, "layers": layers,
+                   "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+                   "generated": SHARDED_GEN, "cache_layout": cache_layout,
+                   "param_bytes_per_slot": per_slot,
+                   "shard_bytes": want_bytes,
+                   "resident_bytes_all_slots": resident,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "prefill_s": prefill_s, "decode_ms_per_step": decode_ms,
+                   "one_device_prefill_s": one[name]["prefill_s"],
+                   "one_device_decode_ms_per_step":
+                   one[name]["decode_ms_per_step"],
+                   "logits_err_vs_f32": {"sharded_bf16": err_sh,
+                                         "one_device_bf16": err_one},
+                   "decode_logits_err_vs_f32": {
+                       "sharded_bf16": step_err_sh,
+                       "one_device_bf16": step_err_one},
+                   "first_token_step_differing": (int(differ[0]) if
+                                                  len(differ) else None),
+                   "launches_prefill": prefill_launches,
+                   "launches_prefill_by_shape": prefill_shapes,
+                   "launch_key": key, "launches": launches,
+                   "collectives_prefill": prefill_coll,
+                   "collectives_per_decode_step": decode_coll,
+                   "same_bits_second_prefill": same_bits}
+            emit("sharded_serve", **rec)
+            check(err_sh <= 2 * err_one,
+                  f"sharded {arch} on {name}: bf16 logits error {err_sh} > "
+                  f"twice the one-device bf16 error {err_one}")
+            check(len(step_err_sh) == SHARDED_GEN - 1 and all(
+                e <= 2 * e1 for e, e1 in zip(step_err_sh, step_err_one)),
+                  f"sharded {arch} on {name}: bf16 decode logits errors "
+                  f"{step_err_sh} not within twice the one-device bf16 "
+                  f"errors {step_err_one}")
+            check(prefill_shapes == {key: layers * len(devices)},
+                  f"sharded {arch} on {name}: prefill launched "
+                  f"{prefill_shapes}, want {layers} x {len(devices)} at "
+                  f"{key}")
+            check(launches == prefill_launches,
+                  f"sharded {arch} on {name}: decode launched kernels")
+            check(same_bits, f"sharded {arch} on {name}: a second prefill "
+                  f"gives other bits")
+            if kernel == "flash_attention":    # k, v (L, B, S, KV, Dh)
+                split = -3 if length % mesh.shape["model"] == 0 else -2
+                kv_lays = [lay for p, lay in cache_layout.items()
+                           if p.rsplit("/", 1)[-1] in ("k", "v")]
+                check(bool(kv_lays) and all("model" in lay[split]
+                                            for lay in kv_lays),
+                      f"sharded {arch} on {name}: the cache split by "
+                      f"{'sequence' if split == -3 else 'heads'} over "
+                      f"\"model\", got {cache_layout}")
+            check(bool(torch.isfinite(logits).all()) and
+                  tuple(logits.shape) == (SERVE_BATCH, cfg.vocab),
+                  f"sharded {arch} on {name}: logits finite, (B, V)")
+            out[f"{arch} {name}"] = rec
+            del placed, logits
+            torch.cuda.empty_cache()
+        del one, ref32, ref_steps
+    seconds = time.perf_counter() - t_phase
+    emit("sharded_serve_done", seconds=seconds, limit_s=SHARDED_PHASE_S)
+    check(seconds <= SHARDED_PHASE_S,
+          f"phase 7b took {seconds} s > {SHARDED_PHASE_S}")
+    out["seconds"] = seconds
+    return out
+
+
 FULLWIDTH_KERNELS = {"attention": ("flash_attention",),
                      "train_attention": ("flash_attention_bwd",),
                      "mamba1": ("selective_scan",),
@@ -4101,6 +4512,10 @@ def main() -> int:
                                prompt=ZAMBA_PROMPT,
                                check_batch=ZAMBA_CHECK_BATCH)
 
+    # --- 7b. sharded serving over meshes of four positions ------------------
+    sharded = phase_sharded_serve(rng)
+    torch.cuda.empty_cache()
+
     # --- 8. times at main-path shapes ---------------------------------------
     # Each case: the kernel's own device time per call from the profiler
     # ("ms", the table's number) and CUDA events around back-to-back calls
@@ -4205,7 +4620,54 @@ def main() -> int:
         lambda: selective_scan.selective_scan(*inputs),
         lambda: ref.selective_scan(*inputs),
         scan_bound(inputs[0], inputs[2]), KERNEL_NAMES["selective_scan"])
+    flash_keys["scan_falcon_prefill"] = (
+        "selective_scan: " + selective_scan.launch_key(inputs[0], inputs[4]))
     del inputs
+    # the slots' local shapes of phase 7b, flash beside SDPA, each kernel
+    # also by CUDA events around back-to-back calls ("events_ms"), around
+    # calls queued behind a spin ("queued_ms": no host gaps, no
+    # profiler), and with its inputs rotated through sets larger than L2
+    # ("cold_ms", "cold_queued_ms"): back-to-back calls on the same inputs
+    # re-read them from L2
+    for mesh_name in SHARDED_MESHES:
+        b, t, s_len, h, kv, d, causal, window, dtype = SHARDED_ATTN[mesh_name]
+        q, k, v = attn_inputs(b, t, s_len, h, kv, d, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        name = f"flash_llama_prefill_sharded_{mesh_name}"
+        timed[name] = case(
+            f"q {(b, t, h, d)} k/v {(b, s_len, kv, d)} bf16 causal: a "
+            f"slot's heads of llama's sharded prefill on {mesh_name}",
+            lambda: flash_attention.flash_attention(q, k, v),
+            lambda: ref.attention(q, k, v), attn_bound(q, k, v, True, None),
+            "flash_bf16_kernel",
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        timed[name]["queued_ms"] = queued_ms(
+            lambda: flash_attention.flash_attention(q, k, v), 20)["ms"]
+        timed[name].update(cold_ms(
+            lambda: attn_inputs(b, t, s_len, h, kv, d, dtype),
+            flash_attention.flash_attention,
+            attn_bound_terms(q, k, v, causal, window)[0],
+            "flash_bf16_kernel"))
+        flash_keys[name] = sharded_launch_key("flash_attention", mesh_name)
+        del q, k, v, qt, kt, vt
+        b, t, d, n = SHARDED_SCAN[mesh_name]
+        inputs = scan_inputs(b, t, d, n)
+        name = f"scan_falcon_prefill_sharded_{mesh_name}"
+        timed[name] = case(
+            f"delta/x {(b, t, d)} b/c {(b, t, n)} a {(d, n)} f32: a slot's "
+            f"channels of falcon-mamba's sharded prefill on {mesh_name}",
+            lambda: selective_scan.selective_scan(*inputs),
+            lambda: ref.selective_scan(*inputs),
+            scan_bound(inputs[0], inputs[2]), KERNEL_NAMES["selective_scan"])
+        timed[name]["queued_ms"] = queued_ms(
+            lambda: selective_scan.selective_scan(*inputs), 20)["ms"]
+        timed[name].update(cold_ms(
+            lambda: scan_inputs(b, t, d, n), selective_scan.selective_scan,
+            selective_scan.fwd_work(inputs[0], inputs[2])[0],
+            KERNEL_NAMES["selective_scan"]))
+        flash_keys[name] = sharded_launch_key("selective_scan", mesh_name)
+        del inputs
     # the backward kernels at the train shapes; the library call for flash
     # is PyTorch's SDPA backward (its graph kept, so only the backward runs)
     q, k, v = attn_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64,
@@ -4606,7 +5068,13 @@ def main() -> int:
                                "gemma3-4b-train-16L", "zamba2-2.7b-train",
                                "mixtral-8x22b-train-1L")},
                "qwen2-vl-72b one layer's bf16 gradients (phase 9)":
-               qwen_layer["launches_by_shape"]}
+               qwen_layer["launches_by_shape"],
+               "falcon-mamba-7b prefill":
+               served["selective_scan"]["launches_prefill_by_shape"],
+               **{f"{name} sharded prefill (phase 7b)":
+                  sharded[name]["launches_prefill_by_shape"]
+                  for arch, _ in SERVE for name in
+                  (f"{arch} {m}" for m in SHARDED_MESHES)}}
     for name, key in flash_keys.items():
         timed[name]["launch_key"] = key
         timed[name]["launches_on_path"] = {
@@ -4617,6 +5085,13 @@ def main() -> int:
     flash_fields = ("shape", "ms", "events_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_events_ms", "ms_by",
                     "launch_key", "launches_on_path")
+    # timed at the slots' local shapes alone
+    cold_fields = ("queued_ms", "cold_ms", "cold_ms_by", "cold_queued_ms",
+                   "cold_sets", "l2_bytes")
+
+    def shape_fields(k: str) -> dict:
+        return {f: timed[k].get(f) for f in flash_fields
+                + tuple(f for f in cold_fields if f in timed[k])}
 
     reader, sort = timed["full_scan_q1"], timed["sort_1x2^19"]
     reader_shapes = {k: {f: timed[k].get(f) for f in (
@@ -4631,6 +5106,8 @@ def main() -> int:
                    for k in ("sort_1x2^19", "sort_16x2^19",
                              f"sort_{BLOCKS}x2^19")}
     flash, scan = timed["flash_llama_prefill"], timed["scan_falcon_prefill"]
+    sharded_runs = [sharded[f"{arch} {m}"] for arch, _ in SERVE
+                    for m in SHARDED_MESHES]
     flash_bwd = timed["flash_bwd_llama_train"]
     scan_bwd = timed["scan_bwd_falcon_train"]
     scan_train = timed["scan_train_falcon"]
@@ -4681,7 +5158,7 @@ def main() -> int:
          "launches": sum(r["launches"].get("flash_attention", 0) for r in (
              served["flash_attention"], whisper, h2o_served, qwen_served,
              gemma4_served, gemma12_served, mixtral_served, arctic_served,
-             zamba_served))
+             zamba_served, *sharded_runs))
          + train_launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
@@ -4689,7 +5166,7 @@ def main() -> int:
          "shape": flash["shape"], "ms_by": flash["ms_by"],
          "launch_key": flash["launch_key"],
          "launches_on_path": flash["launches_on_path"],
-         "shapes": {k: {f: timed[k].get(f) for f in flash_fields}
+         "shapes": {k: shape_fields(k)
                     for k in ("flash_fwd_llama_train",
                               "flash_whisper_encoder",
                               "flash_fwd_whisper_encoder",
@@ -4706,17 +5183,25 @@ def main() -> int:
                               "flash_mixtral_prefill",
                               "flash_arctic_prefill", "flash_zamba_prefill",
                               "flash_fwd_mixtral_train",
-                              "flash_fwd_zamba_train")},
+                              "flash_fwd_zamba_train",
+                              *(f"flash_llama_prefill_sharded_{m}"
+                                for m in SHARDED_MESHES))},
          "float32_o_cost": repair_cost},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",
          "launches": served["selective_scan"]["launches"].get(
-             "selective_scan", 0) + train_launches["selective_scan"],
+             "selective_scan", 0) + train_launches["selective_scan"]
+         + sum(r["launches"].get("selective_scan", 0) for r in sharded_runs),
          "max_abs_err": errs["selective_scan"], "ms": scan["ms"],
          "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
          "bound_by": scan["bound_by"], "library_ms": None,
-         "shape": scan["shape"], "ms_by": scan["ms_by"]},
+         "shape": scan["shape"], "ms_by": scan["ms_by"],
+         "launch_key": scan["launch_key"],
+         "launches_on_path": scan["launches_on_path"],
+         "shapes": {k: shape_fields(k)
+                    for k in (f"scan_falcon_prefill_sharded_{m}"
+                              for m in SHARDED_MESHES)}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_bwd.cuh",
          "replaces": "src/repro/kernels/flash_attention.py:25",
@@ -4731,7 +5216,7 @@ def main() -> int:
          "shape": flash_bwd["shape"], "ms_by": flash_bwd["ms_by"],
          "launch_key": flash_bwd["launch_key"],
          "launches_on_path": flash_bwd["launches_on_path"],
-         "shapes": {k: {f: timed[k].get(f) for f in flash_fields}
+         "shapes": {k: shape_fields(k)
                     for k in ("flash_bwd_whisper_encoder",
                               "flash_bwd_whisper_cross_train",
                               "flash_bwd_h2o_train", "flash_bwd_qwen",

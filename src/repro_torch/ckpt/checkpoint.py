@@ -13,8 +13,11 @@ either package restores what the other saves:
   never shadows the latest good step;
 * corruption detection — each leaf file's CRC32 is checked at restore, and
   a step that fails is skipped for the one before it;
-* restore onto a mesh — leaves are stored whole, and ``reshard`` places
-  them on the mesh's device (the port's parameters are not sharded).
+* restore onto a mesh — leaves are stored whole, and ``reshard`` puts
+  them whole on the mesh's first device: checkpoints serve training,
+  which runs on one device (the serving steps' sharded layout is made
+  from whole leaves by ``dist.sharding.place``; resharding a restore onto
+  the slots comes with sharded training).
 
 numpy has no bfloat16: a bfloat16 leaf is stored as its raw 16-bit
 pattern, a 2-byte void array, which is what ``np.save`` writes for the JAX
@@ -192,9 +195,10 @@ def restore_latest(ckpt_dir: str, template: Any, *, specs: Any = None,
 
 
 def reshard(state: Any, specs: Any, mesh) -> Any:
-    """Every leaf on the mesh's device.  The port's parameters are not
-    sharded, so each leaf's spec resolves to a whole copy on the mesh's
-    first device (its "data" x "model" slots share it)."""
+    """Every leaf whole on the mesh's first device.  Training runs on one
+    device, so a train state is not split over the slots here (placing
+    whole leaves on a mesh's slots, as the sharded serving steps take
+    them, is ``dist.sharding.place``)."""
     device = mesh.devices.reshape(-1)[0]
     flat_specs = _flatten(specs)
     missing = [k for k in _flatten(state) if k not in flat_specs]

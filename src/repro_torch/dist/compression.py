@@ -10,8 +10,11 @@ Over a ``launch.mesh.DeviceMesh`` the semantics are the JAX package's for
 the inputs it takes there (``in_specs=P()``): every slot along ``axis``
 holds the same replicated leaf, so the mean of their identical bfloat16
 copies is the rounded value itself, which is returned without a
-collective.  (The port runs one process; a collective across processes
-comes with a sharded parameter layout, which the port does not have yet.)
+collective.  The port's serving steps run sharded over a mesh
+(``train.step.sharded_forward``, with the collectives of
+``launch.mesh``), but training does not yet: gradients are not split over
+"data", so this mean stays the replicated case, and a real collective
+over the slots comes with sharded training.
 """
 from __future__ import annotations
 

@@ -18,27 +18,55 @@ fallbacks:
 
 The port has no ``PartitionSpec``: a resolved spec is a plain tuple with
 one entry per dimension (None, a mesh axis name, or a tuple of names),
-its trailing Nones trimmed as the JAX package trims them.  The port's
-parameters live on one device, so nothing is placed by a spec:
+its trailing Nones trimmed as the JAX package trims them.
 ``shard_shape`` / ``shard_bytes`` (the per-device counterparts of the JAX
-package's ``shardings`` / ``shape_structs``) size a device's part for the
-dry-run, and ``sharding_ctx`` / ``constrain`` record, inside a step traced
-by the dry-run, the constraints the JAX package's steps put on their
+package's ``shardings`` / ``shape_structs``) size a device's part, and
+``sharding_ctx`` / ``constrain`` record, inside a step traced by the
+dry-run, the constraints the JAX package's steps put on their
 activations.  Outside a context ``constrain`` is the identity and records
-nothing, and inside one it returns its input unchanged: no number changes.
+nothing; inside the dry-run's it returns its input unchanged.
 ``scan_mesh_axes`` / ``scan_device_count`` give the wave dispatch the
 "batch" rule's mesh axes.  Meshes are a ``launch.mesh.DeviceMesh`` or any
 object with ``axis_names`` and ``devices.shape``.
+
+**Sharded execution** (the serving steps over a mesh of more than one
+slot, ``train.step``).  ``place`` splits whole tensors into per-slot
+shards (``Sharded``) exactly where ``resolve_pspec`` puts them, each on its
+slot's device, the slots along an axis a leaf does not split holding equal
+copies; ``gather`` puts them back together.  A *layout* names, for each
+dimension of a tensor a slot holds, the mesh axes it is split over (``()``
+whole).  Inside ``DeviceMesh.run_spmd`` each slot enters ``slot_ctx``:
+its coordinates, the axes the activations' batch is split over, and the
+layouts of the tensors it holds (``register`` / ``slot_layout``).  There
+``constrain`` is where a product's partial sums meet: its ``weight``'s
+layout says which dimensions the product summed over (the weight's
+leading ``w.dim() - (x.dim() - 2)``: a product's output is (batch, seq)
+and the weight's other dimensions), and where those are split, the
+output is all-reduced over their axes (``reduce_partials``).
+``gather_tree`` all-gathers a tensor, or every leaf of a tree, over one
+axis (a layer's weights over "data" before the layer), and
+``reshard_many`` moves tensors from one layout to another by one
+all-to-all over their axes (or by a slice, where every slot already holds
+what it needs).  The models reach the mesh's collectives
+(``all_reduce``, ``all_gather``, ``all_to_all`` of ``launch.mesh``)
+through this module alone.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
+import weakref
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.mesh import (all_gather, all_reduce,  # noqa: F401
+                                     all_to_all)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,7 +321,7 @@ def sharding_ctx(mesh, rules: Optional[dict] = None, observer=None):
     prev = getattr(_CTX, "state", None)
     records: list[Constraint] = []
     _CTX.state = (mesh, DEFAULT_RULES if rules is None else rules, records,
-                  observer)
+                  observer, None)
     try:
         yield records
     finally:
@@ -313,11 +341,16 @@ def constrain(x: torch.Tensor, axes: Sequence[Optional[str]], *,
               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The JAX package's ``with_sharding_constraint`` site: the identity.
     Inside ``sharding_ctx`` it records a ``Constraint``; ``weight`` is the
-    weight of the product that made ``x``, as that product read it."""
+    weight of the product that made ``x``, as that product read it.  In a
+    slot's context (``slot_ctx``) it all-reduces the partial sums of a
+    product whose summed dimensions ``weight`` holds split
+    (``reduce_partials``), and records nothing."""
     state = getattr(_CTX, "state", None)
     if state is None:
         return x
-    mesh, rules, records, observer = state
+    mesh, rules, records, observer, slot = state
+    if slot is not None:
+        return x if weight is None else reduce_partials(x, weight)
     wspec = None
     if observer is not None:
         if weight is not None:
@@ -353,3 +386,418 @@ def scan_device_count(mesh, axes: Sequence[str]) -> int:
     """Number of slots the scan grid spans on ``axes`` of ``mesh``."""
     sizes = _mesh_sizes(mesh)
     return int(math.prod(sizes[a] for a in axes)) if axes else 1
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution: leaves placed on a mesh's slots
+# ---------------------------------------------------------------------------
+
+
+def layout_of(spec: tuple, ndim: int) -> tuple:
+    """A resolved spec as a layout: for each of ``ndim`` dimensions the
+    mesh axes it is split over, ``()`` where it is whole."""
+    return tuple(spec_axes(spec[i]) if i < len(spec) else ()
+                 for i in range(ndim))
+
+
+def _split_index(axes: tuple, sizes: dict, coords: dict) -> tuple[int, int]:
+    """(the slot's part, the number of parts) of a dimension split over
+    ``axes``, the first axis major."""
+    k, n = 0, 1
+    for a in axes:
+        k, n = k * sizes[a] + coords[a], n * sizes[a]
+    return k, n
+
+
+def region(shape: Sequence[int], layout: tuple, sizes: dict,
+           coords: dict) -> tuple:
+    """The (start, stop) of each dimension of a whole tensor of ``shape``
+    that the slot at ``coords`` holds under ``layout``."""
+    out = []
+    for dim, axes in zip(shape, layout):
+        k, n = _split_index(axes, sizes, coords)
+        out.append((k * (dim // n), (k + 1) * (dim // n)))
+    return tuple(out)
+
+
+def whole_shape(local: Sequence[int], layout: tuple, sizes: dict) -> tuple:
+    """The whole tensor's shape from a slot's part and its layout."""
+    return tuple(d * math.prod(sizes[a] for a in axes)
+                 for d, axes in zip(local, layout))
+
+
+def _slices(reg, base=None) -> tuple:
+    """A region as slices, relative to the start of region ``base``."""
+    base = base or [(0, 0)] * len(reg)
+    return tuple(slice(a - b[0], z - b[0]) for (a, z), b in zip(reg, base))
+
+
+def _within(inner, outer) -> bool:
+    return all(o0 <= i0 and i1 <= o1 for (i0, i1), (o0, o1)
+               in zip(inner, outer))
+
+
+def _meet(r1, r2) -> tuple:
+    return tuple((max(a0, b0), max(max(a0, b0), min(a1, b1)))
+                 for (a0, a1), (b0, b1) in zip(r1, r2))
+
+
+@dataclasses.dataclass(eq=False)
+class Sharded:
+    """One leaf placed on a mesh: ``shards``, an object array shaped like
+    the mesh, holds each slot's part (on the slot's device); ``shape`` is
+    the whole leaf's and ``layout`` the split (``layout_of`` its resolved
+    spec)."""
+    shards: np.ndarray
+    shape: tuple
+    layout: tuple
+    mesh: Any
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards.reshape(-1)[0].dtype
+
+    def shard(self, coords: dict) -> torch.Tensor:
+        return self.shards[tuple(coords[a] for a in self.mesh.axis_names)]
+
+
+def is_sharded(x) -> bool:
+    return isinstance(x, Sharded)
+
+
+def _zip_specs(fn, tree, specs):
+    if isinstance(specs, dict):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(specs):
+            raise ValueError(f"a tree with keys {sorted(specs)} expected")
+        return {k: _zip_specs(fn, tree[k], specs[k]) for k in sorted(specs)}
+    return fn(tree, specs)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def place(tree, specs, mesh, rules: Optional[dict] = None):
+    """A tree of whole tensors -> the same tree of ``Sharded`` leaves on
+    ``mesh``: each slot gets a copy of its region of each leaf under the
+    leaf's spec in ``specs`` (``resolve_pspec``), on the slot's device."""
+    sizes = _mesh_sizes(mesh)
+
+    def one(x: torch.Tensor, spec: TensorSpec) -> Sharded:
+        if tuple(x.shape) != tuple(spec.shape):
+            raise ValueError(f"place: a leaf of shape {tuple(x.shape)} for "
+                             f"a spec of shape {spec.shape}")
+        lay = layout_of(resolve_pspec(spec.shape, spec.axes, mesh, rules),
+                        x.dim())
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        for pos in np.ndindex(mesh.devices.shape):
+            reg = region(x.shape, lay, sizes, dict(zip(mesh.axis_names, pos)))
+            part = x[_slices(reg)]
+            shards[pos] = torch.empty(part.shape, dtype=x.dtype,
+                                      device=mesh.devices[pos]).copy_(part)
+        return Sharded(shards, tuple(x.shape), lay, mesh)
+
+    return _zip_specs(one, tree, specs)
+
+
+def assemble(parts: np.ndarray, specs, mesh, rules: Optional[dict] = None):
+    """Each slot's tree of parts (an object array shaped like the mesh, as
+    ``run_spmd`` returns it) -> one tree of ``Sharded`` leaves, each laid
+    out as its spec in ``specs`` resolves; a part of another shape
+    raises."""
+    sizes = _mesh_sizes(mesh)
+
+    def leaf(path: tuple, spec: TensorSpec) -> Sharded:
+        lay = layout_of(resolve_pspec(spec.shape, spec.axes, mesh, rules),
+                        len(spec.shape))
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        for pos in np.ndindex(mesh.devices.shape):
+            t = parts[pos]
+            for k in path:
+                t = t[k]
+            reg = region(spec.shape, lay, sizes,
+                         dict(zip(mesh.axis_names, pos)))
+            if tuple(t.shape) != tuple(b - a for a, b in reg):
+                raise RuntimeError(f"assemble: {'/'.join(path)} is "
+                                   f"{tuple(t.shape)} on slot {pos}, its "
+                                   f"layout {lay} gives {reg}")
+            shards[pos] = t
+        return Sharded(shards, tuple(spec.shape), lay, mesh)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(node[k], path + (k,)) for k in sorted(node)}
+        return leaf(path, node)
+
+    return walk(specs, ())
+
+
+def gather(tree, device=None):
+    """A tree of ``Sharded`` leaves -> whole tensors on ``device`` (the
+    mesh's first device by default), each region copied once."""
+    def one(x: Sharded) -> torch.Tensor:
+        mesh = x.mesh
+        dev = mesh.devices.reshape(-1)[0] if device is None else device
+        sizes = _mesh_sizes(mesh)
+        out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        done = set()
+        for pos in np.ndindex(mesh.devices.shape):
+            reg = region(x.shape, x.layout, sizes,
+                         dict(zip(mesh.axis_names, pos)))
+            if reg not in done:
+                done.add(reg)
+                out[_slices(reg)] = x.shards[pos]
+        return out
+
+    return _map(one, tree)
+
+
+def shard_tree(tree, coords: dict):
+    """A slot's tree of parts of a tree of ``Sharded`` leaves, each part
+    registered with its layout (inside ``slot_ctx``)."""
+    return _map(lambda x: register(x.shard(coords), x.layout), tree)
+
+
+# ---------------------------------------------------------------------------
+# A slot's context inside DeviceMesh.run_spmd
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _SlotState:
+    coords: dict
+    sizes: dict
+    batch: tuple                      # the activations' batch split
+    layouts: dict = dataclasses.field(default_factory=dict)
+
+
+@contextlib.contextmanager
+def slot_ctx(mesh, rules: Optional[dict] = None, batch_axes: tuple = ()):
+    """The calling slot's sharding context, inside ``run_spmd``: the
+    slot's coordinates on ``mesh``, the axes the activations' batch is
+    split over, and the layouts of the tensors it registers."""
+    coords = mesh_mod.spmd_coords()
+    if coords is None:
+        raise RuntimeError("slot_ctx outside DeviceMesh.run_spmd")
+    prev = getattr(_CTX, "state", None)
+    slot = _SlotState(coords, _mesh_sizes(mesh), tuple(batch_axes))
+    _CTX.state = (mesh, DEFAULT_RULES if rules is None else rules, [],
+                  None, slot)
+    try:
+        yield slot
+    finally:
+        _CTX.state = prev
+
+
+def _slot() -> Optional[_SlotState]:
+    state = getattr(_CTX, "state", None)
+    return None if state is None else state[4]
+
+
+def in_slot() -> bool:
+    """True inside a slot's context (sharded execution)."""
+    return _slot() is not None
+
+
+def batch_axes() -> tuple:
+    """The mesh axes the activations' batch is split over."""
+    return _slot().batch
+
+
+def register(t: torch.Tensor, layout: tuple) -> torch.Tensor:
+    """Record ``t``'s layout in the slot's context; returns ``t``."""
+    slot = _slot()
+    if len(layout) != t.dim():
+        raise ValueError(f"register: a layout of {len(layout)} dimensions "
+                         f"for a tensor of {t.dim()}")
+    slot.layouts[id(t)] = (weakref.ref(t), tuple(layout))
+    return t
+
+
+def slot_layout(t: torch.Tensor) -> tuple:
+    """The layout ``t`` was registered with in the slot's context."""
+    entry = _slot().layouts.get(id(t))
+    if entry is None or entry[0]() is not t:
+        raise RuntimeError(f"no layout is registered for a tensor of shape "
+                           f"{tuple(t.shape)}: a product site whose weight "
+                           f"the sharded step did not place")
+    return entry[1]
+
+
+def slot_region(shape: Sequence[int], layout: tuple) -> tuple:
+    """The calling slot's (start, stop) a dimension of a whole tensor of
+    ``shape`` under ``layout``."""
+    slot = _slot()
+    return region(shape, layout, slot.sizes, slot.coords)
+
+
+def slot_whole_shape(local: Sequence[int], layout: tuple) -> tuple:
+    """The whole tensor's shape from the calling slot's part."""
+    return whole_shape(local, layout, _slot().sizes)
+
+
+def spec_layout(spec: TensorSpec) -> tuple:
+    """The layout ``spec`` resolves to on the slot context's mesh and
+    rules."""
+    mesh, rules = _CTX.state[:2]
+    return layout_of(resolve_pspec(spec.shape, spec.axes, mesh, rules),
+                     len(spec.shape))
+
+
+def slot_index(axes: tuple) -> tuple[int, int]:
+    """(the calling slot's index, the count) along ``axes``."""
+    slot = _slot()
+    return _split_index(tuple(axes), slot.sizes, slot.coords)
+
+
+def group_view(tree, g: int):
+    """The views ``[g]`` of a group-stacked tree a slot holds, each
+    registered with its leaf's layout past the stacking axis."""
+    def one(x):
+        lay = slot_layout(x)
+        if lay[0]:
+            raise NotImplementedError("a stacked leaf split over its "
+                                      "layers axis")
+        return register(x[g], lay[1:])
+    return _map(one, tree)
+
+
+def _ordered_axes(layout, mesh) -> tuple:
+    """The mesh axes a layout uses, in the mesh's order."""
+    used = {a for d in layout for a in d}
+    return tuple(a for a in mesh.axis_names if a in used)
+
+
+def reshard_many(moves: list) -> list:
+    """For each ``(x, have, want)`` of ``moves``, the slot's part of a
+    tensor under layout ``want`` from its part ``x`` under ``have`` (every
+    slot calls it alike), registered with ``want``: a slice where every
+    slot already holds what it needs, else one all-to-all for all the
+    moves over the same axes, in which each slot sends each peer the
+    region of its part the peer needs.  A move's group is the axes
+    ``have`` splits, less those that split a dimension the same way in
+    ``want`` (a peer that differs there holds none of what the slot
+    needs)."""
+    slot = _slot()
+    mesh = mesh_mod.spmd_mesh()
+    names, shape = tuple(mesh.axis_names), tuple(mesh.devices.shape)
+    pos = tuple(slot.coords[a] for a in names)
+    out: list = [None] * len(moves)
+    swaps: dict = {}
+    for i, (x, have, want) in enumerate(moves):
+        plan = _reshard_plan(tuple(x.shape), tuple(have), tuple(want), names,
+                             shape, pos)
+        if plan is None:
+            out[i] = x
+        elif plan[0] == "slice":
+            out[i] = register(x[plan[1]], tuple(want))
+        else:
+            _, axes, cat_dim, sends, parts, need = plan
+            swaps.setdefault(axes, []).append(
+                (i, x, tuple(want), cat_dim, [x[sl] for sl in sends], parts,
+                 need))
+    for axes, swap in swaps.items():
+        kind = ("all_gather" if all(m[3] is not None for m in swap)
+                else "all_to_all")
+        recv = mesh_mod._exchange(
+            kind, [tuple(m[4][j] for m in swap)
+                   for j in range(len(swap[0][4]))], axes)
+        for k, (i, x, want, cat_dim, _, parts, need) in enumerate(swap):
+            if cat_dim is not None:     # whole parts, end to end
+                res = torch.cat([got[k] for got in recv], dim=cat_dim)
+            else:
+                res = x.new_empty(need)
+                for sl, got in zip(parts, recv):
+                    if got[k].numel():
+                        res[sl] = got[k]
+            out[i] = register(res, want)
+    return out
+
+
+@functools.lru_cache(maxsize=1 << 14)
+def _reshard_plan(local: tuple, have: tuple, want: tuple, names: tuple,
+                  mesh_shape: tuple, pos: tuple):
+    """How the slot at ``pos`` moves its part (shape ``local``) from
+    layout ``have`` to ``want``: None (the same layout); ("slice", its
+    slices) where every slot already holds what it needs; else ("swap",
+    the group's axes, the dimension along which the members' whole parts
+    lie end to end in member order where they do (an all-gather: the
+    result is their concatenation) else None, the slices of its part it
+    sends each member, the slices of the result each member's piece
+    fills, the result's shape).  A function of shapes and positions only,
+    so it is computed once a slot and shape."""
+    if have == want:
+        return None
+    sizes = dict(zip(names, mesh_shape))
+    shape = whole_shape(local, have, sizes)
+
+    def reg(lay, p):
+        return region(shape, lay, sizes, dict(zip(names, p)))
+
+    everywhere = list(np.ndindex(mesh_shape))
+    mine, need = reg(have, pos), reg(want, pos)
+    if all(_within(reg(want, p), reg(have, p)) for p in everywhere):
+        return ("slice", _slices(need, mine))
+    kept = {a for h, w in zip(have, want) if h == w for a in h}
+    used = {a for d in have for a in d}
+    axes = tuple(a for a in names if a in used and a not in kept)
+    members = mesh_mod.group_positions(pos, axes, names, mesh_shape)
+    parts = [_meet(reg(have, q), need) for q in members]
+    cat_dim = None
+    if all(_within(reg(have, p), reg(want, q)) for p in everywhere
+           for q in mesh_mod.group_positions(p, axes, names, mesh_shape)):
+        split = [d for d in range(len(local))
+                 if any(r[d] != need[d] for r in parts)]
+        if len(split) == 1 and all(
+                a[split[0]][1] == b[split[0]][0]
+                for a, b in zip(parts, parts[1:])):
+            cat_dim = split[0]
+    return ("swap", axes, cat_dim,
+            tuple(_slices(_meet(mine, reg(want, q)), mine) for q in members),
+            tuple(_slices(part, need) for part in parts),
+            tuple(b - a for a, b in need))
+
+
+def gather_tree(tree, axis: str):
+    """A tensor, or every leaf of a tree in one all-gather, gathered over
+    mesh axis ``axis`` wherever its layout splits it there (itself where
+    it does not); the results are registered."""
+    paths, moves = [], []
+
+    def collect(node, path):
+        if isinstance(node, dict):
+            for k in node:
+                collect(node[k], path + (k,))
+            return
+        have = slot_layout(node)
+        paths.append(path)
+        moves.append((node, have, tuple(tuple(a for a in d if a != axis)
+                                        for d in have)))
+
+    collect(tree, ())
+    done = reshard_many(moves)
+    if not isinstance(tree, dict):
+        return done[0]
+    out: dict = {}
+    for path, t in zip(paths, done):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+def reduce_partials(x: torch.Tensor,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """The output ``x`` (batch, seq, ...) of a product with ``weight``,
+    all-reduced over the mesh axes that split the dimensions the product
+    summed over (``weight``'s leading ``weight.dim() - (x.dim() - 2)``);
+    ``x`` itself outside a slot's context or where none is split."""
+    if not in_slot():
+        return x
+    lay = slot_layout(weight)
+    summed = lay[:weight.dim() - (x.dim() - 2)]
+    axes = _ordered_axes(summed, mesh_mod.spmd_mesh())
+    return mesh_mod.all_reduce(x, axes) if axes else x

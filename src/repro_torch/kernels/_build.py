@@ -44,6 +44,7 @@ SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 COST_HOOK = None
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _VARIANTS: set = set()
 build_seconds: float | None = None   # wall of the build that loaded _LIB
@@ -141,18 +142,20 @@ def check(kernel: str, code: int, shape: str | None = None):
     if code != 0:
         msg = library().repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed ({code}: {msg})")
-    KERNEL_LAUNCHES[kernel] += 1
-    if shape is not None:
-        SHAPE_LAUNCHES[kernel, shape] += 1
+    with _COUNT_LOCK:      # the slots of a sharded step launch at once
+        KERNEL_LAUNCHES[kernel] += 1
+        if shape is not None:
+            SHAPE_LAUNCHES[kernel, shape] += 1
 
 
 def note_variant(kernel: str, key) -> int:
     """1 the first time this process launches ``kernel`` as variant ``key``
     (the port's counterpart of a jit retrace), else 0."""
-    if (kernel, key) in _VARIANTS:
-        return 0
-    _VARIANTS.add((kernel, key))
-    return 1
+    with _COUNT_LOCK:
+        if (kernel, key) in _VARIANTS:
+            return 0
+        _VARIANTS.add((kernel, key))
+        return 1
 
 
 def noted(kernel: str, work, run, inputs=()):

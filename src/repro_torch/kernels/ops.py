@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -58,6 +59,7 @@ _USE_KERNELS = True
 
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
 TRACE_COUNTS: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 
 def use_kernels(on: bool):
@@ -276,6 +278,13 @@ def pax_scan(key_col, proj, lo, hi):
     return _pax.pax_scan(key_col, proj, lo, hi)
 
 
+def _tally(counts: collections.Counter, key: str, n: int = 1):
+    """``counts[key] += n`` under a lock: the slots of a sharded step call
+    the LM kernels from their threads at once."""
+    with _COUNT_LOCK:
+        counts[key] += n
+
+
 def _wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
@@ -333,14 +342,14 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None):
     capped at ``softcap`` c tanh(s/c) where it is set: the flash kernel on
     a CUDA tensor, the plain version on a CPU tensor or under
     ``use_kernels(False)``; with grad, through ``AttentionFn``."""
-    DISPATCH_COUNTS["attention"] += 1
+    _tally(DISPATCH_COUNTS, "attention")
     if not _USE_KERNELS:
         return ref.attention(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     if q.is_cuda:
-        TRACE_COUNTS["attention"] += _build.note_variant(
+        _tally(TRACE_COUNTS, "attention", _build.note_variant(
             "flash_attention", (q.dtype, q.shape[-1], causal, window,
-                                softcap or None))
+                                softcap or None)))
     if _wants_grad(q, k, v):
         return AttentionFn.apply(q, k, v, causal, window, softcap)
     return flash_attention.flash_attention(q, k, v, causal=causal,
@@ -351,12 +360,12 @@ def selective_scan(delta, x, b, c, a):
     """Mamba1 recurrence from a zero state -> (y (B,T,D), h_final (B,D,N)):
     the fused kernel on a CUDA tensor, the plain version on a CPU tensor or
     under ``use_kernels(False)``; with grad, through ``SelectiveScanFn``."""
-    DISPATCH_COUNTS["selective_scan"] += 1
+    _tally(DISPATCH_COUNTS, "selective_scan")
     if not _USE_KERNELS:
         return ref.selective_scan(delta, x, b, c, a)
     if delta.is_cuda:
-        TRACE_COUNTS["selective_scan"] += _build.note_variant(
-            "selective_scan", a.shape[-1])
+        _tally(TRACE_COUNTS, "selective_scan", _build.note_variant(
+            "selective_scan", a.shape[-1]))
     if _wants_grad(delta, x, b, c, a):
         return SelectiveScanFn.apply(delta, x, b, c, a)
     return _scan.selective_scan(delta, x, b, c, a)

@@ -160,8 +160,14 @@ def _launch(delta, x, b, c, a, train: bool = False):
     if train:
         _build.check("selective_scan_train", code)
         return y, h_final, ckpt
-    _build.check("selective_scan", code)
+    _build.check("selective_scan", code, launch_key(delta, a))
     return y, h_final
+
+
+def launch_key(delta, a) -> str:
+    """The key a prefill launch is counted under in
+    ``_build.SHAPE_LAUNCHES``: delta's shape and the state count."""
+    return f"delta/x {tuple(delta.shape)} n {a.shape[1]}"
 
 
 def selective_scan(delta, x, b, c, a):

@@ -14,6 +14,10 @@ and the tokens whose own routing differs are counted against the
 reference's margins.  ``compare`` holds one arch's readings to the
 reference's at the limits of ``LIMITS``.
 
+Over a mesh (``run(..., mesh=)``) the weights are placed on the mesh's
+slots and only the serving readings are taken (``serving``), so the same
+fixture holds the sharded serving path too.
+
 The reference's readings are made by ``tests/_torch_fullwidth.py --make``
 (the JAX package on the CPU) into ``FIXTURE``; the CPU tests and
 ``chip_smoke.py``'s ``fullwidth`` phase (the kernel route on the card) hold
@@ -300,18 +304,37 @@ def port_params(cfg, device) -> dict:
 
 
 def run(arch: str, device, ref: Optional[dict] = None,
-        reduced: bool = False, params: Optional[dict] = None) -> dict:
+        reduced: bool = False, params: Optional[dict] = None,
+        mesh=None) -> dict:
     """The port's readings of ``arch`` at its cut on ``device`` (on the
     route ``kernels.ops.use_kernels`` selects: a CPU tensor takes the
     plain versions), keyed ``{arch}/...`` as the fixture is.  ``ref``, the
     reference's readings, gives the top-16 ids and, for an MoE arch, the
-    routing to force; ``params`` reuses drawn weights."""
+    routing to force; ``params`` reuses drawn weights.  With a ``mesh`` of
+    more than one slot the weights are placed on it and the
+    serving readings alone are taken (prefill, cache, decode), through
+    ``train.step.sharded_forward``, the caches gathered whole."""
     from repro_torch.models.model import decode_positions, forward
+    from repro_torch.train import step as step_mod
 
     cfg, cut = port_config(arch, reduced)
     p = f"{arch}/"
     if params is None:
         params = port_params(cfg, device)
+    sharded = step_mod.is_sharded_mesh(mesh)
+    run_model = forward
+    if sharded:
+        from repro_torch.dist import sharding as sh
+
+        step_mod.check_sharded_serving(cfg, mesh)
+        placed = sh.place(params, model_mod.model_specs(cfg), mesh)
+
+        def run_model(params, cfg, x, *, mode, cache=None, positions=None,
+                      cache_len=None):
+            return step_mod.sharded_forward(
+                placed, cfg, mesh, None, x, mode=mode, cache=cache,
+                pos=None if positions is None else positions[0, 0],
+                cache_len=cache_len)
     inp = draw_inputs(cfg, cut, device)
     moe = is_moe(cfg)
     ref = ref or {}
@@ -333,24 +356,25 @@ def run(arch: str, device, ref: Optional[dict] = None,
     cache_len = cut.seq + DECODE_STEPS
     with torch.no_grad():
         with forced("prefill"):
-            logits, cache = forward(params, cfg, x, mode="prefill",
-                                    cache_len=cache_len, **kw)
+            logits, cache = run_model(params, cfg, x, mode="prefill",
+                                      cache_len=cache_len, **kw)
         out.update(logit_readings(logits, p + "prefill/",
                                   ref.get(p + "prefill/top_ids")))
         del logits
-        out.update(cache_readings(cache, p + "cache/"))
+        out.update(cache_readings(sh.gather(cache) if sharded else cache,
+                                  p + "cache/"))
         steps = []
         for i in range(DECODE_STEPS):
             tok = inp["decode"][i][:, None]
             pos = decode_positions(cut.seq + i, cut.batch, device,
                                    _mrope(cfg))
             with forced(f"decode{i}"):
-                logits, cache = forward(params, cfg, tok, mode="decode",
-                                        cache=cache, positions=pos)
+                logits, cache = run_model(params, cfg, tok, mode="decode",
+                                          cache=cache, positions=pos)
             steps.append(logit_readings(logits, "")["proj"][:, 0])
         out[p + "decode/proj"] = np.stack(steps)
         del cache, logits
-    if cut.train:
+    if cut.train and not sharded:
         from repro_torch.train.step import StepCfg, loss_and_grads
 
         ts = cut.train_seq or cut.seq
@@ -370,6 +394,13 @@ def run(arch: str, device, ref: Optional[dict] = None,
         out[p + "route_gap"] = max((g for f in flips
                                     for g in f["gap_shares"]), default=0.0)
     return out
+
+
+def serving(ref: dict) -> dict:
+    """The serving readings of a fixture (prefill, cache, decode, the
+    metadata): what a sharded run takes."""
+    return {k: v for k, v in ref.items()
+            if k.split("/", 2)[1] in ("meta", "prefill", "cache", "decode")}
 
 
 def meta(arch: str, cfg, cut: Cut) -> dict:

@@ -13,7 +13,10 @@ embeddings, (B, T, D); its decode steps embed the generated tokens), and
 for an encoder-decoder (whisper) also ``prompt_len`` frame embeddings for
 the encoder, normal draws from numpy in bfloat16.  A sliding-window model
 (h2o-danube) whose prompt and generation outrun the window decodes
-through ring caches of the window's length.  Prints the prefill and
+through ring caches of the window's length.  The mesh is the JAX
+launcher's: the production mesh over the first 256 cards where there are
+that many (the parameters placed on it, ``dist.sharding.place``, and the
+steps sharded), else the host mesh of one device.  Prints the prefill and
 decode walls and tokens per second.
 """
 from __future__ import annotations
@@ -25,9 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config, get_reduced
-from repro_torch.dist.sharding import init_params
+from repro_torch.dist.sharding import init_params, place
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.model import model_specs
-from repro_torch.train.step import make_decode_step, make_prefill_step
+from repro_torch.train.step import (is_sharded_mesh, make_decode_step,
+                                    make_prefill_step)
 
 
 def _sync(device: torch.device):
@@ -52,11 +57,17 @@ def main(argv=None) -> dict:
         raise RuntimeError("serve: no CUDA device (pass --device cpu to run "
                            "on the CPU)")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    mesh = (make_production_mesh(devices=[torch.device("cuda", i)
+                                          for i in range(256)])
+            if n_dev >= 256 else make_host_mesh(device))
+    max_len = args.prompt_len + args.gen
+    prefill = make_prefill_step(cfg, mesh=mesh, max_len=max_len)
+    decode = make_decode_step(cfg, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(model_specs(cfg), gen, device, dtype=torch.bfloat16)
-    max_len = args.prompt_len + args.gen
-    prefill = make_prefill_step(cfg, max_len=max_len)
-    decode = make_decode_step(cfg)
+    if is_sharded_mesh(mesh):
+        params = place(params, model_specs(cfg), mesh)
 
     rng = np.random.default_rng(args.seed + 1)
     shape = (args.batch, args.prompt_len)
@@ -103,12 +114,14 @@ def main(argv=None) -> dict:
     n_prefill = args.batch * args.prompt_len
     n_decode = args.batch * (args.gen - 1)
     out = {"arch": cfg.name, "batch": args.batch, "device": str(device),
+           "mesh": mesh.shape,
            "prefill_s": t_prefill,
            "prefill_tok_s": n_prefill / max(t_prefill, 1e-9),
            "decode_s": t_decode,
            "decode_tok_s": n_decode / max(t_decode, 1e-9),
            "tokens": torch.stack(toks, 1).cpu().numpy()}
-    print(f"arch={cfg.name} batch={args.batch} device={device}")
+    print(f"arch={cfg.name} batch={args.batch} device={device} "
+          f"mesh={n_dev if is_sharded_mesh(mesh) else 1}dev")
     print(f"prefill: {t_prefill * 1e3:.0f} ms "
           f"({out['prefill_tok_s']:.0f} tok/s)")
     print(f"decode:  {t_decode * 1e3:.0f} ms "

@@ -45,6 +45,16 @@ does the masking and the cache bookkeeping, as in the JAX package.
   (``cross_cache_specs``).  Decode reads that cache through ``_sdpa_full``
   and never writes it.
 
+* **Sharded** (inside a slot's context, ``dist.sharding.slot_ctx``): q,
+  k and v are column-parallel over the heads, and the flash kernel runs
+  on the slot's heads at their local shape; ``wo`` is row-parallel, its
+  partial sums all-reduced at its ``constrain``.  Prefill writes the cache
+  in its ``resolve_pspec`` layout (``_slot_prefill_cache``: split by
+  sequence where "kv_seq" takes an axis, by heads where
+  "act_kv_heads" does); decode writes the new row on the slot holding its
+  slot index and, on a cache split by sequence, combines each slot's
+  partial softmax (``_slot_decode``, split-KV).
+
 * **qk-norm** (``cfg.qk_norm``, gemma3): q and k pass through ``rmsnorm``
   over the head dim (``q_norm``, ``k_norm``, shape (Dh,), ones at init) at
   its default eps of 1e-6, not ``cfg.norm_eps``, before RoPE, as in the
@@ -62,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import AttnCfg
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import (TensorSpec, constrain, ctx_axis_size,
                                        tspec)
 from repro_torch.kernels import ops
@@ -207,18 +218,23 @@ def attention(params, x, cfg: AttnCfg, *, positions, mode: str,
     if mode == "decode":
         if cache is None or t != 1:
             raise ValueError("attention: decode takes T == 1 and a cache")
-        slot = mask_pos[:, 0].long() % cache["k"].shape[1]   # ring or full
-        _write_slot(cache["k"], k[:, 0], slot)
-        _write_slot(cache["v"], v[:, 0], slot)
-        _write_slot(cache["pos"], mask_pos[:, 0], slot)
         new_cache = cache
-        out = _sdpa_full(q, cache["k"], cache["v"], mask_pos, cache["pos"],
-                         cfg)
+        if sh.in_slot():
+            out = _slot_decode(params, q, k, v, mask_pos, cache, cfg)
+        else:
+            slot = mask_pos[:, 0].long() % cache["k"].shape[1]  # ring/full
+            _write_slot(cache["k"], k[:, 0], slot)
+            _write_slot(cache["v"], v[:, 0], slot)
+            _write_slot(cache["pos"], mask_pos[:, 0], slot)
+            out = _sdpa_full(q, cache["k"], cache["v"], mask_pos,
+                             cache["pos"], cfg)
     else:
         new_cache = None
         if mode == "prefill":
-            new_cache = _prefill_cache(
-                k, v, mask_pos, cache_len_for(cfg, max(cache_len or t, t)))
+            clen = cache_len_for(cfg, max(cache_len or t, t))
+            new_cache = (_slot_prefill_cache(params, k, v, mask_pos, clen,
+                                             cfg) if sh.in_slot()
+                         else _prefill_cache(k, v, mask_pos, clen))
         out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window,
                             softcap=cfg.softcap)
 
@@ -249,10 +265,110 @@ def _ring_tail(arr, clen: int):
     return torch.roll(arr[:, t - clen:], shifts=(t - clen) % clen, dims=1)
 
 
-def _write_slot(buf, val, slot):
-    """buf (B,S,...) <- val (B,...) at per-batch slot (B,), in place."""
+def _write_slot(buf, val, slot, owned=None):
+    """buf (B,S,...) <- val (B,...) at per-batch slot (B,), in place;
+    with ``owned`` (B,), only in the rows where it is set (the others keep
+    what the slot held)."""
     bidx = torch.arange(buf.shape[0], device=buf.device)
-    buf[bidx, slot] = val.to(buf.dtype)
+    val = val.to(buf.dtype)
+    if owned is not None:
+        mask = owned.view(-1, *([1] * (val.dim() - 1)))
+        val = torch.where(mask, val, buf[bidx, slot])
+    buf[bidx, slot] = val
+
+
+# ---------------------------------------------------------------------------
+# Sharded (a slot's part, inside dist.sharding.slot_ctx)
+# ---------------------------------------------------------------------------
+
+
+def _slot_layouts(params) -> tuple[tuple, tuple]:
+    """The layouts of the slot's q (B,T,H,Dh) and k, v (B,T,KV,Dh): the
+    batch as the activations split it, the heads as wq and wk do."""
+    b = sh.batch_axes()
+    return ((b, (), sh.slot_layout(params["wq"])[1], ()),
+            (b, (), sh.slot_layout(params["wk"])[1], ()))
+
+
+def _slot_prefill_cache(params, k, v, pos, clen: int, cfg: AttnCfg) -> dict:
+    """The prefill cache in its ``resolve_pspec`` layout: the slot's heads
+    padded to ``clen`` slots, then resharded; where the layout splits the
+    sequence, the heads' parts go all-to-all into sequence parts."""
+    if clen < k.shape[1]:
+        raise NotImplementedError("sharded serving: a ring cache")
+    _, kv_have = _slot_layouts(params)
+    local = _prefill_cache(k, v, pos, clen)
+    batch = sh.slot_whole_shape(k.shape, kv_have)[0]
+    specs = attn_cache_specs(cfg, batch, clen)
+    names = ("k", "v", "pos")
+    return dict(zip(names, sh.reshard_many([
+        (local[n], kv_have[:local[n].dim()], sh.spec_layout(specs[n]))
+        for n in names])))
+
+
+def _slot_decode(params, q, k, v, mask_pos, cache, cfg: AttnCfg):
+    """One decode step on the slot's part of the cache: the new key,
+    value and position land on the slot that holds slot index pos % S of
+    the row; where the cache is split by heads as the slot's q is, the
+    attention is the slot's own (``_sdpa_full``); where it is split by
+    sequence, split-KV: q resharded to the cache's batch and heads, each
+    slot's partial softmax over its keys, the maxima, sums and outputs
+    combined over the sequence's axes in slot order, and the result
+    resharded back to the slot's heads for ``wo``."""
+    q_have, kv_have = _slot_layouts(params)
+    lay = sh.slot_layout(cache["k"])
+    whole = sh.slot_whole_shape(cache["k"].shape, lay)
+    row = (lay[0], (), lay[2], ())
+    p_row, k_row, v_row, qc = sh.reshard_many([
+        (mask_pos, kv_have[:2], row[:2]), (k, kv_have, row),
+        (v, kv_have, row), (q, q_have, row)])
+    s0, s1 = sh.slot_region(whole, lay)[1]
+    slot = p_row[:, 0].long() % whole[1]
+    owned = (slot >= s0) & (slot < s1)
+    local = (slot - s0).clamp(0, s1 - s0 - 1)
+    _write_slot(cache["k"], k_row[:, 0], local, owned)
+    _write_slot(cache["v"], v_row[:, 0], local, owned)
+    _write_slot(cache["pos"], p_row[:, 0], local, owned)
+    if lay[1] == () and row == q_have:
+        return _sdpa_full(q, cache["k"], cache["v"], mask_pos, cache["pos"],
+                          cfg)
+    o, m, l = _sdpa_partial(qc, cache["k"], cache["v"], p_row, cache["pos"],
+                            cfg)
+    if lay[1]:
+        parts = sh.all_gather(
+            torch.cat([o, m[..., None], l[..., None]], dim=-1), lay[1])
+        mx = parts[0][..., -2]
+        for p in parts[1:]:
+            mx = torch.maximum(mx, p[..., -2])
+        o = l = 0
+        for p in parts:
+            w = torch.exp(p[..., -2] - mx)
+            o = o + p[..., :-2] * w[..., None]
+            l = l + p[..., -1] * w
+    out = (o / l[..., None]).to(q.dtype)
+    return sh.reshard_many([(out, row, q_have)])[0]
+
+
+def _sdpa_partial(q, k, v, q_pos, k_pos, cfg: AttnCfg):
+    """``_sdpa_full``'s softmax over a part of the keys, unnormalised:
+    (the float32 output sum (B,T,H,Dh), the row maximum (B,T,H), the row
+    sum (B,T,H))."""
+    b, t, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, t, kvh, h // kvh, dh)
+    scores = torch.einsum("btgrk,bsgk->bgrts", qg, k).float()
+    scores = scores / math.sqrt(dh)
+    if cfg.softcap:
+        scores = torch.tanh(scores / cfg.softcap) * cfg.softcap
+    mask = _mask(q_pos, k_pos, cfg)[:, None, None]        # (B,1,1,T,S)
+    scores = torch.where(mask, scores, NEG_INF)
+    mx = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - mx)
+    out = torch.einsum("bgrts,bsgk->btgrk", p, v.float()).reshape(b, t, h, dh)
+
+    def heads(x):                                         # (B,G,R,T) ->
+        return x.permute(0, 3, 1, 2).reshape(b, t, h)     # (B,T,H)
+    return out, heads(mx[..., 0]), heads(p.sum(-1))
 
 
 def _cross_attention(params, x, cfg: AttnCfg, *, cache, enc_kv, mode):

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import TensorSpec, tspec
 
 
@@ -117,8 +118,26 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  scale: float | None,
                  dtype=torch.bfloat16) -> torch.Tensor:
     """Rows of ``table`` in ``dtype`` (gathered first, then cast: the same
-    values as casting the whole table first, without the copy)."""
-    x = table[tokens.long()].to(dtype)
+    values as casting the whole table first, without the copy).
+
+    Sharded (inside a slot's context) the lookup is vocab-parallel: the
+    slot's part of the table, gathered over "data", holds a range of the
+    vocabulary; the slot looks up the ids in its range, writes zeros for
+    the rest, and the rows are all-reduced over the axes that split the
+    vocabulary.  Each row comes from one slot, so the sum is exact."""
+    if sh.in_slot():
+        table = sh.gather_tree(table, "data")
+        vocab_axes = sh.slot_layout(table)[0]
+        rows = table.shape[0]
+        ids = tokens.long() - sh.slot_index(vocab_axes)[0] * rows
+        inside = (ids >= 0) & (ids < rows)
+        x = table[ids.clamp(0, rows - 1)].to(dtype)
+        x = torch.where(inside[..., None], x, torch.zeros(
+            (), dtype=dtype, device=x.device))
+        if vocab_axes:
+            x = sh.all_reduce(x, vocab_axes)
+    else:
+        x = table[tokens.long()].to(dtype)
     if scale is not None:
         x = x * torch.tensor(scale, dtype=dtype, device=x.device)
     return x

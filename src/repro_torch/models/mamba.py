@@ -11,6 +11,16 @@ The port of the JAX package's ``models/mamba.py``.  Mamba1:
   and the state into the caller's cache IN PLACE (the JAX package donates
   the cache to the decode step instead).
 
+Sharded (inside a slot's context, ``dist.sharding.slot_ctx``), Mamba1
+runs on the slot's range of d_inner channels: ``in_proj`` is split over
+"model" in contiguous ranges of its 2 d_inner columns, so its output is
+exchanged all-to-all (``_pair_halves``) until each slot holds xa and z of
+its own channels; ``x_proj`` sums over the channels, and dt_r, B and C are
+all-reduced (the JAX package has no ``constrain`` there; XLA adds the
+reduction); ``dt_proj`` is column-parallel, the scan runs on the slot's
+channels, ``out_proj`` is row-parallel and the decode state and conv tail
+stay the slot's.
+
 Mamba2 (the SSD form: a scalar decay a head) runs in plain torch, as the
 JAX package runs it in plain jnp: train and prefill cut the sequence into
 chunks of ``_chunk_len(T, cfg.chunk)`` steps, each chunk an intra-chunk
@@ -52,6 +62,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Mamba1Cfg, Mamba2Cfg
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import TensorSpec, constrain, tspec
 from repro_torch.kernels import ops
 from repro_torch.models.common import rmsnorm
@@ -122,6 +133,9 @@ def mamba1(params, x, cfg: Mamba1Cfg, *, mode: str, cache):
     xz = x @ params["in_proj"].to(dt_)
     xz = constrain(xz, ("batch", "seq", "ssm_inner"),
                    weight=params["in_proj"])
+    if sh.in_slot():
+        xz = _pair_halves(xz, sh.slot_layout(params["in_proj"])[1])
+        di = xz.shape[-1] // 2
     xa, z = xz[..., :di], xz[..., di:]
 
     conv_tail = cache["conv"] if cache is not None else None
@@ -129,7 +143,8 @@ def mamba1(params, x, cfg: Mamba1Cfg, *, mode: str, cache):
     xa = F.silu(causal_conv(xa, params["conv_w"], params["conv_b"],
                             conv_tail))
 
-    dbc = xa @ params["x_proj"].to(dt_)
+    dbc = sh.reduce_partials(xa @ params["x_proj"].to(dt_),
+                             params["x_proj"])
     dt_r, bc, cc = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     delta = _softplus((dt_r @ params["dt_proj"].to(dt_)).float()
                       + params["dt_bias"].float())           # (B,T,di) f32
@@ -164,6 +179,32 @@ def mamba1(params, x, cfg: Mamba1Cfg, *, mode: str, cache):
     out = y @ params["out_proj"].to(dt_)
     return constrain(out, ("batch", "seq", "act_embed"),
                      weight=params["out_proj"]), new_cache
+
+
+def _pair_halves(xz, axes: tuple):
+    """A slot's columns of the fused projection (xa | z), split over
+    ``axes`` in contiguous ranges of the 2 d_inner columns, exchanged
+    all-to-all so that the slot holds xa and z of one channel range, its
+    range of the "ssm_inner" leaves (conv, dt, A, D, out_proj): slot j of
+    n gets columns [j c, (j+1) c) and [d + j c, d + (j+1) c), c = d / n.
+    The leaf's layout stays ``resolve_pspec``'s."""
+    if not axes:
+        return xz
+    k, n = sh.slot_index(axes)
+    width = xz.shape[-1]
+    d, c = width * n // 2, width * n // (2 * n)
+    lo = k * width
+
+    def piece(j):
+        parts = [xz[..., max(a, lo) - lo:min(b, lo + width) - lo]
+                 for a, b in ((j * c, (j + 1) * c),
+                              (d + j * c, d + (j + 1) * c))
+                 if max(a, lo) < min(b, lo + width)]
+        return (torch.cat(parts, dim=-1) if parts
+                else xz[..., :0]).contiguous()
+
+    got = sh.all_to_all([piece(j) for j in range(n)], axes)
+    return torch.cat(got, dim=-1)
 
 
 # ---------------------------------------------------------------------------

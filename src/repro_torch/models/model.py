@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import TensorSpec, constrain
 from repro_torch.models.common import (default_positions, embed_spec,
                                        embed_tokens, rmsnorm, rmsnorm_spec,
@@ -87,6 +88,16 @@ def encode(params, cfg: ModelCfg, enc_inputs, *, remat: str = "none"):
 
 def lm_head(params, cfg: ModelCfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _slot_head(params, cfg: ModelCfg):
+    """A slot's part of the head, gathered over "data": the tied head
+    ``embed.T`` splits the vocabulary as the table does, so the logits
+    come out split over it ("act_vocab")."""
+    if not cfg.tie_embeddings:
+        return sh.gather_tree(params["lm_head"], "data")
+    table = sh.gather_tree(params["embed"], "data")
+    return sh.register(table.T, sh.slot_layout(table)[::-1])
 
 
 def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
@@ -153,7 +164,7 @@ def forward(params, cfg: ModelCfg, inputs, *, mode: str = "train",
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x if mode == "train" else (x, new_cache)
-    head = lm_head(params, cfg)
+    head = _slot_head(params, cfg) if sh.in_slot() else lm_head(params, cfg)
     logits = x @ head.to(dt)
     logits = constrain(logits, ("batch", "seq", "act_vocab"),
                        weight=head).float()

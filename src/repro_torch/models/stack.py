@@ -18,6 +18,11 @@ it runs ``StackCfg.shared`` with the stack's one ``params["shared"]``
 tree, wherever it occurs, and keeps a cache of its own per occurrence in
 the group's (or tail's) cache tree.  Unknown kinds raise ``ValueError``.
 
+Sharded (inside a slot's context, ``dist.sharding.slot_ctx``), each
+layer takes its group's view of the slot's parts, gathered over "data"
+first (the "embed" dimension of the weights is split there, FSDP-style),
+and the gathered copy is dropped after the layer.
+
 Remat in train mode, as the JAX package's ``jax.checkpoint`` around each
 group: ``"full"`` wraps each group in ``torch.utils.checkpoint.checkpoint``
 (non-reentrant: the parameters the group closes over, the shared ones
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerCfg, StackCfg
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import TensorSpec, map_specs
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -271,13 +277,20 @@ def apply_stack(params, x, sc: StackCfg, *, mode: str, cache, aux: dict,
         run_group = group_body
 
     new_cache: dict[str, Any] = {}
+    slot = sh.in_slot()
     if sc.n_groups > 0:
-        gp_all = _unbind(params["groups"], sc.n_groups)
+        gp_all = None if slot else _unbind(params["groups"], sc.n_groups)
         gc_all = cache.get("groups") if cache is not None else None
         built = []
         for g in range(sc.n_groups):
-            gp = gp_all[g]
-            gc = _index(gc_all, g) if gc_all is not None else None
+            if slot:    # the layer's weights gathered over "data" (FSDP)
+                gp = sh.gather_tree(sh.group_view(params["groups"], g),
+                                    "data")
+                gc = (sh.group_view(gc_all, g) if gc_all is not None
+                      else None)
+            else:
+                gp = gp_all[g]
+                gc = _index(gc_all, g) if gc_all is not None else None
             x, new_c = run_group(x, gp, gc)
             built.append(new_c)
         if mode == "decode":
@@ -290,6 +303,8 @@ def apply_stack(params, x, sc: StackCfg, *, mode: str, cache, aux: dict,
         c: Optional[dict] = ((cache.get("tail") or {}).get(key)
                              if cache is not None else None)
         p = shared_params if lc.kind == "shared" else params["tail"][key]
+        if slot:
+            p = sh.gather_tree(p, "data")
         x, nc = apply_layer(lc, p, x, mode=mode, cache=c, aux=aux, eps=eps,
                             shared=sc.shared)
         if nc is not None:

@@ -11,6 +11,18 @@ serving steps run under ``torch.no_grad()``; the decode step writes the
 cache in place and returns it, where the JAX package donates the cache to
 the jitted step.
 
+The serving steps take the JAX package's ``mesh`` and ``rules``.  With a
+mesh of more than one slot they run sharded (``sharded_forward``): the
+parameters and caches are trees of ``dist.sharding.Sharded`` leaves laid
+out as ``resolve_pspec`` lays them (``dist.sharding.place``), each slot
+runs the model on its parts in its own thread (``DeviceMesh.run_spmd``),
+the batch is split over "data" where it divides, and the logits come back
+whole on the mesh's first device, as the JAX step returns them.  A config
+or layout the sharded steps do not run raises ``NotImplementedError``
+when the step is made (``check_sharded_serving``).  With no mesh, or a
+mesh of one slot, nothing changes.  Training is not sharded yet:
+``make_train_step`` refuses a mesh of more than one slot.
+
 Batches as the JAX package's: "tokens" (B,T), or "inputs" (B,T,D)
 embeddings for a model with ``embed_inputs=False``; an encoder-decoder
 (whisper) takes "tokens" and "enc_inputs" (B,S_enc,D) frame embeddings in
@@ -23,9 +35,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelCfg, ShapeCfg
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import (TensorSpec, init_params, map_specs,
                                        tspec)
 from repro_torch.models.losses import chunked_xent, xent
@@ -163,8 +177,14 @@ def make_train_step(cfg: ModelCfg, opt: OptCfg, step_cfg: StepCfg = StepCfg(),
                     mesh=None):
     """The step ``(state, batch) -> (new_state, {"loss", "grad_norm",
     "lr"})`` over ``state = {params, m, v, step}``; the metrics are 0-d
-    tensors on the state's device.  ``mesh`` is taken for the JAX
-    package's signature; the port's parameters live on one device."""
+    tensors on the state's device.  ``mesh`` is the JAX package's
+    argument: training runs on one device, so a mesh of one slot (the
+    host mesh) is taken as is and a mesh of more than one slot raises
+    ``NotImplementedError`` (sharded training is later work)."""
+    if is_sharded_mesh(mesh):
+        raise NotImplementedError("sharded training: the train step runs "
+                                  "on one device (a mesh of one slot)")
+
     def train_step(state, batch):
         loss, grads = loss_and_grads(cfg, step_cfg, state["params"], batch)
         new_p, new_opt, metrics = adamw_update(
@@ -179,9 +199,23 @@ def make_train_step(cfg: ModelCfg, opt: OptCfg, step_cfg: StepCfg = StepCfg(),
 
 
 def make_prefill_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg(),
-                      max_len: int | None = None):
+                      mesh=None, rules=None, max_len: int | None = None):
     """max_len: KV-cache capacity for subsequent decode steps (defaults to
-    the prompt length — pass prompt+generation budget when serving)."""
+    the prompt length — pass prompt+generation budget when serving).
+    With a mesh of more than one slot the step takes placed parameters
+    and returns the last position's logits whole and the cache placed
+    (``sharded_forward``)."""
+    if is_sharded_mesh(mesh):
+        check_sharded_serving(cfg, mesh, rules)
+
+        def sharded_prefill(params, batch):
+            inputs, _ = _inputs(cfg, batch)
+            with torch.no_grad():
+                return sharded_forward(params, cfg, mesh, rules, inputs,
+                                       mode="prefill", cache_len=max_len,
+                                       last=True)
+        return sharded_prefill
+
     def prefill_step(params, batch):
         inputs, kw = _inputs(cfg, batch)
         with torch.no_grad():
@@ -192,7 +226,23 @@ def make_prefill_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg(),
     return prefill_step
 
 
-def make_decode_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg()):
+def make_decode_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg(),
+                     mesh=None, rules=None):
+    """The step ``(params, cache, {"tokens" (B,), "pos"}) -> (logits (B,V),
+    cache)``, the cache written in place.  With a mesh of more than one
+    slot it takes placed parameters and cache and whole tokens, which it
+    splits over "data" as the cache's batch is split."""
+    if is_sharded_mesh(mesh):
+        check_sharded_serving(cfg, mesh, rules)
+
+        def sharded_decode(params, cache, batch):
+            with torch.no_grad():
+                return sharded_forward(params, cfg, mesh, rules,
+                                       batch["tokens"][:, None],
+                                       mode="decode", cache=cache,
+                                       pos=batch["pos"], last=True)
+        return sharded_decode
+
     def decode_step(params, cache, batch):
         with torch.no_grad():
             tokens = batch["tokens"][:, None]                 # (B,1)
@@ -203,3 +253,154 @@ def make_decode_step(cfg: ModelCfg, step_cfg: StepCfg = StepCfg()):
             return logits[:, 0], cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving over a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# mesh axis -> the logical axes a parameter may be split over there
+_SPLITS = {"data": ("embed",),
+           "model": ("heads", "kv_heads", "mlp", "vocab", "ssm_inner",
+                     "conv_dim")}
+
+
+def is_sharded_mesh(mesh) -> bool:
+    """A mesh of more than one slot (the sharded steps' meshes)."""
+    return mesh is not None and mesh.devices.size > 1
+
+
+def check_sharded_serving(cfg: ModelCfg, mesh, rules=None):
+    """Raise ``NotImplementedError`` for a config or layout the sharded
+    serving steps do not run (before any work): a mesh other than
+    ("data", "model"); an encoder-decoder (cross-attention), embedding
+    inputs, a shared block, Mamba2, MoE, ring caches (a window) or M-RoPE;
+    heads that the "model" axis does not divide (the JAX package's
+    ``act_seq_tp``); query heads and KV heads split differently; a Mamba1
+    layer whose fused ``in_proj`` and channel leaves split differently;
+    and any parameter split other than "embed" over "data" and the heads,
+    MLP, vocabulary and SSM channels over "model"."""
+    def refuse(what):
+        raise NotImplementedError(f"sharded serving of {cfg.name} on "
+                                  f"{dict(mesh.shape)}: {what}")
+
+    if tuple(mesh.axis_names) != ("data", "model"):
+        refuse(f"mesh axes {mesh.axis_names}, not ('data', 'model')")
+    if cfg.encoder is not None:
+        refuse("cross-attention (an encoder-decoder)")
+    if not cfg.embed_inputs:
+        refuse("embedding inputs")
+    if cfg.stack.shared is not None:
+        refuse("a shared block")
+    msize = mesh.shape["model"]
+    for lc in cfg.stack.pattern + cfg.stack.tail:
+        if lc.kind not in ("attn_mlp", "mamba1"):
+            refuse(f"{lc.kind} layers")
+        if lc.moe is not None:
+            refuse("MoE experts")
+        a = lc.attn
+        if a is None:
+            continue
+        if a.n_heads % msize:
+            refuse(f"{a.n_heads} heads on a {msize}-wide 'model' axis "
+                   f"(act_seq_tp: the query sequence over 'model')")
+        if a.cross:
+            refuse("cross-attention")
+        if a.window is not None:
+            refuse("ring caches (a window)")
+        if a.mrope_section:
+            refuse("M-RoPE")
+    specs = model_specs(cfg)
+
+    def lay(spec):
+        return sh.layout_of(sh.resolve_pspec(spec.shape, spec.axes, mesh,
+                                             rules), len(spec.shape))
+
+    for spec in sh._leaves(specs):
+        for name, axes in zip(spec.axes, lay(spec)):
+            for a in axes:
+                if len(axes) > 1 or name not in _SPLITS.get(a, ()):
+                    refuse(f"a parameter's {name!r} axis split over "
+                           f"{axes}")
+    groups = specs["stack"].get("groups", {})
+    for layer in list(groups.values()) + list(
+            specs["stack"].get("tail", {}).values()):
+        if "attn" in layer:
+            at = layer["attn"]
+            if lay(at["wq"])[-2] != lay(at["wk"])[-2]:
+                refuse("query heads and KV heads split differently")
+        if "ssm" in layer:
+            ssm = layer["ssm"]
+            ways = {lay(ssm["in_proj"])[-1]} | {
+                lay(ssm[k])[-1] for k in ("conv_b", "dt_bias", "D")}
+            if len(ways) > 1:
+                refuse("a Mamba1 layer's in_proj and channel leaves split "
+                       "differently")
+
+
+def _vocab_layout(cfg: ModelCfg, mesh, rules) -> tuple:
+    """The axes the logits' vocabulary is split over: the head's."""
+    specs = model_specs(cfg)
+    spec, dim = ((specs["embed"], 0) if cfg.tie_embeddings
+                 else (specs["lm_head"], 1))
+    return sh.layout_of(sh.resolve_pspec(spec.shape, spec.axes, mesh, rules),
+                        len(spec.shape))[dim]
+
+
+def sharded_forward(params, cfg: ModelCfg, mesh, rules, tokens, *,
+                    mode: str, cache=None, pos=None,
+                    cache_len: int | None = None, last: bool = False):
+    """``forward`` in prefill or decode on every slot of ``mesh`` at once:
+    ``params`` and ``cache`` trees of ``Sharded`` leaves (``place``),
+    ``tokens`` (B,T) whole, split over the axes ``resolve_pspec`` gives
+    ("batch", "seq"), ``pos`` decode's position.  Returns (the logits,
+    whole on the mesh's first device, (B,V) of the last position with
+    ``last`` else (B,T,V); the cache: prefill's placed as
+    ``model_cache_specs`` lays it out, decode's the one given, written in
+    place)."""
+    leaves = [x for x in _tree_leaves(params)]
+    if not leaves or not all(sh.is_sharded(x) and x.mesh is mesh
+                             for x in leaves):
+        raise ValueError("sharded_forward: the parameters are not placed "
+                         "on this mesh (dist.sharding.place)")
+    sizes = mesh.shape
+    tok_layout = sh.layout_of(sh.resolve_pspec(
+        tuple(tokens.shape), ("batch", "seq"), mesh, rules), 2)
+
+    def run(coords):
+        with sh.slot_ctx(mesh, rules, tok_layout[0]):
+            p = sh.shard_tree(params, coords)
+            c = None if cache is None else sh.shard_tree(cache, coords)
+            reg = sh.region(tokens.shape, tok_layout, sizes, coords)
+            device = mesh.slot_at(tuple(coords[a] for a in
+                                        mesh.axis_names)).device
+            tok = tokens[reg[0][0]:reg[0][1]].to(device)
+            positions = (None if mode == "prefill" else
+                         decode_positions(pos, tok.shape[0], device))
+            logits, new_cache = forward(p, cfg, tok, mode=mode, cache=c,
+                                        positions=positions,
+                                        cache_len=cache_len)
+            return (logits[:, -1] if last else logits), new_cache
+
+    out = mesh.run_spmd(run)
+    parts = np.empty(mesh.devices.shape, dtype=object)
+    for i in np.ndindex(mesh.devices.shape):
+        parts[i] = out[i][0]
+    b, t = tokens.shape
+    vocab = _vocab_layout(cfg, mesh, rules)
+    shape, layout = (((b, cfg.vocab), (tok_layout[0], vocab)) if last else
+                     ((b, t, cfg.vocab), (tok_layout[0], (), vocab)))
+    logits = sh.gather(sh.Sharded(parts, shape, layout, mesh))
+    if mode == "decode":
+        return logits, cache
+    clen = max(cache_len or t, t)
+    for i in np.ndindex(mesh.devices.shape):
+        parts[i] = out[i][1]
+    return logits, sh.assemble(parts, model_cache_specs(cfg, b, clen), mesh,
+                               rules)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
